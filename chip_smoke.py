@@ -5,21 +5,36 @@
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the CUDA kernels from src/repro_torch/kernels/csrc, in parallel;
+  2. build the four CUDA kernels from src/repro_torch/kernels/csrc, in
+     parallel;
   3. every kernel against its plain PyTorch version at small ragged,
-     weighted, batched and wide shapes;
+     weighted, batched and wide shapes (the fused-bounds kernel on bounds
+     of real drift-updated carries, with group sizes that do and do not
+     divide 64, the default 512 at K = 1000 among them, and on
+     cluster-ordered cases where most cells skip);
   4. repeated launches of every case are bitwise equal;
   5. the main path at full size: AAKMeans(n_clusters=1000,
      backend="fused").fit(x).predict(x) on the USCensus1990 shape
      (2,458,285 x 69 f32); launch counts prove it ran on the kernels;
      both kernels against their plain versions on the final centroids,
      the assignment on a full and on the padded tail predict chunk;
+  5a. the "pallas" path at full size: fit + predict from the same seed,
+     one assignment and one update launch per step, ending at the fused
+     fit's energy; both kernels against their plain versions at the
+     fit's shapes;
+  5b. the "fused_bounds" path at full size: the default groups (G = 2),
+     then the cluster-ordered layout with 64-centroid groups, its skipped
+     shares per trip; the kernel against its plain version on each run's
+     last bounds;
   6. the dense oracle's fit from the same seeds at full size ends at the
      fused fit's energy;
   7. fused against dense trajectories at a mid size, every fused step
-     redone by the dense oracle;
+     redone by the dense oracle, every fused-bounds step by the fused
+     kernel;
   8. kernel times (CUDA events) at the main path's shapes, beside their
      bound, plain and library times.
+Every path is driven with the launch counts set to 0 just before it and
+read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
 last {"ok": true, "device": {...}}.  Exits non-zero without that line
 when there is no CUDA device or the port is not beside this script.
@@ -49,7 +64,19 @@ CASES = [
     ("R=3 per-problem X, (R,N) weights", 2001, 45, 33, 3, True, "rn"),
     ("wide d=385", 2000, 50, 385, None, False, None),
     ("wide d=561", 1500, 40, 561, 2, False, "rn"),
+    ("K=1000, default groups", 3000, 1000, 69, None, False, "n"),
+    ("R=2, K=700", 2500, 700, 40, 2, False, "rn"),
 ]
+# group size of the fused-bounds kernel per case, none clipped by K (None:
+# the engine's default, 512 at K = 1000, so G = 2); 24, 40 and 200 divide
+# neither 64 (the row tile and the centroid chunk) nor K, and groups of
+# 200 and 512 span four and eight 64-centroid chunks
+CASE_GROUPS = (8, 24, 64, 40, 16, 24, None, 200)
+# cluster-ordered cases: (K, rows per cluster, group size, the least
+# skipped share); the owner's group never skips, so G = 2 skips < 1/2
+ORDERED_CASES = ((64, 256, 8, 0.5), (1000, 80, 200, 0.5),
+                 (1000, 80, None, 0.25))
+ORDERED_GS = 64   # groups of the cluster-ordered runs (G = 16 at K = 1000)
 
 
 class PhaseError(RuntimeError):
@@ -69,6 +96,21 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def tie_gap(torch, lab, lab_p, x, c):
+    """(share of rows whose labels agree, the largest relative gap between
+    the f64 distances to the two labels where they differ)."""
+    xs = x if x.dim() == 3 else x.expand(c.shape[0], *x.shape)
+    diff = lab != lab_p
+    gap = 0.0
+    if bool(diff.any()):
+        rr, nn = torch.nonzero(diff, as_tuple=True)
+        xr = xs[rr, nn].double()
+        d_k = ((xr - c[rr, lab[rr, nn].long()].double()) ** 2).sum(-1)
+        d_p = ((xr - c[rr, lab_p[rr, nn].long()].double()) ** 2).sum(-1)
+        gap = float(((d_k - d_p).abs() / d_p.abs().clamp_min(1.0)).max())
+    return float(1.0 - diff.float().mean()), gap
+
+
 def compare(torch, got, want, x, c, w):
     """Kernel outputs against the plain version's on the same inputs.
     Labels may differ only where the two distances tie to within the
@@ -77,18 +119,10 @@ def compare(torch, got, want, x, c, w):
     lab, mind = got[0], got[1]
     lab_p, mind_p = want[0], want[1]
     xs = x if x.dim() == 3 else x.expand(c.shape[0], *x.shape)
-    diff = lab != lab_p
-    gap = 0.0
-    if bool(diff.any()):
-        # distances of each differing row to both candidates, in f64
-        rr, nn = torch.nonzero(diff, as_tuple=True)
-        xr = xs[rr, nn].double()
-        d_k = ((xr - c[rr, lab[rr, nn].long()].double()) ** 2).sum(-1)
-        d_p = ((xr - c[rr, lab_p[rr, nn].long()].double()) ** 2).sum(-1)
-        gap = float(((d_k - d_p).abs() / d_p.abs().clamp_min(1.0)).max())
+    agree, gap = tie_gap(torch, lab, lab_p, x, c)
     scale = mind_p.abs().clamp_min(1.0)
     mind_err = float(((mind - mind_p).abs() / scale).max())
-    out = {"agree": float(1.0 - diff.float().mean()), "gap": gap,
+    out = {"agree": agree, "gap": gap,
            "mind_rel": mind_err,
            "mind_abs": float((mind - mind_p).abs().max())}
     if len(got) == 5:
@@ -131,6 +165,121 @@ def fmt(res):
     return s
 
 
+def compare_stats(got, want):
+    """Update-kernel (sums, counts) against the plain version's."""
+    (s, n), (ws, wn) = got, want
+    return {"sums_rel": float((s - ws).abs().max()
+                              / ws.abs().max().clamp_min(1.0)),
+            "counts_rel": float((n - wn).abs().max()
+                                / wn.abs().max().clamp_min(1.0)),
+            "sums_abs": float((s - ws).abs().max())}
+
+
+def accept_stats(res, what):
+    # the tolerances the fused kernel's stats are held to
+    check(res["sums_rel"] <= 1e-4, f"{what}: sums off by "
+          f"{res['sums_rel']:.2e} of their scale")
+    check(res["counts_rel"] <= 1e-6, f"{what}: counts off by "
+          f"{res['counts_rel']:.2e}")
+
+
+def compare_bounds(torch, got, want, x, c, w, lb_sq, ub_sq, tile_rows):
+    """Fused-bounds outputs (batched, 7 of them) against the plain
+    version's: the fused step's five as ``compare`` holds them, plus the
+    skipped share, the skipped group minima (the input bound, bit for
+    bit) and the computed ones.  The bounds come from real Lloyd steps,
+    after which a centroid can sit on a row: there |x|^2 - 2 x.c + |c|^2
+    cancels to a few ulps of |x|^2 on one side and 0 on the other, so
+    distances and group minima are relative to max(value, |x|^2, 1) and
+    energies to max(energy, sum of w |x|^2)."""
+    from repro_torch.kernels import ref
+    out = compare(torch, got[:5], want[:5], x, c, w)
+    xs = x if x.dim() == 3 else x.expand(c.shape[0], *x.shape)
+    xsq = torch.sum(xs * xs, dim=-1)                          # (R, N)
+    out["mind_rel"] = float(((got[1] - want[1]).abs() / torch.maximum(
+        want[1].abs(), xsq).clamp_min(1.0)).max())
+    wsq = torch.sum(xsq if w is None else xsq * w, dim=-1)   # (R,)
+    out["energy_rel"] = float(((got[4] - want[4]).abs() / torch.maximum(
+        want[4].abs(), wsq).clamp_min(1e-30)).max())
+    computed = torch.stack([ref.computed_cells(lb, ub, tile_rows)
+                            for lb, ub in zip(lb_sq, ub_sq)])
+    g, wg = got[5], want[5]
+    out["skipped"] = [float(v) for v in got[6]]
+    out["skip_equal"] = torch.equal(got[6], want[6])
+    out["gmin_skipped_equal"] = torch.equal(g[~computed], lb_sq[~computed]) \
+        and torch.equal(wg[~computed], lb_sq[~computed])
+    gscale = torch.maximum(wg.abs(), xsq[..., None]).clamp_min(1.0)
+    out["gmin_rel"] = float(((g - wg).abs() / gscale)[computed].max()) \
+        if bool(computed.any()) else 0.0
+    return out
+
+
+def accept_bounds(res, what, exact_labels=True):
+    """``exact_labels=False``: as ``accept``, labels may differ on near
+    ties (the rule phase 5 holds the fused kernel to at full size)."""
+    if exact_labels:
+        check(res["agree"] == 1.0, f"{what}: labels differ on "
+              f"{1 - res['agree']:.2e} of rows")
+    check(res["skip_equal"], f"{what}: skipped shares differ")
+    check(res["gmin_skipped_equal"],
+          f"{what}: a skipped group's minimum is not its bound")
+    check(res["gmin_rel"] <= 1e-5, f"{what}: computed group minima off by "
+          f"{res['gmin_rel']:.2e} relative")
+    accept(res, what)
+
+
+def fmt_bounds(res):
+    return (f"{fmt(res)}, skipped {res['skipped']} (equal "
+            f"{res['skip_equal']}), skipped group minima equal "
+            f"{res['gmin_skipped_equal']}, computed ones rel "
+            f"{res['gmin_rel']:.2e}")
+
+
+def drifted_bounds(group_size, x, c, w, steps):
+    """Bounds of a real carry: the fused_bounds engine with
+    ``group_size`` steps from its init carry ``steps`` times, each time to
+    the Lloyd update of the last step; -> (centroids of the next step
+    (R, K, d), the engine's group size, the kernel's (lab0, lb_sq, ub_sq)
+    for them)."""
+    from repro_torch.core import get_backend
+    from repro_torch.core.backends.fused_bounds import (engine_group_size,
+                                                        squared_bounds)
+    bk = get_backend("fused_bounds", group_size=group_size)
+    k = c.shape[-2]
+    gs = engine_group_size(k, group_size)
+    carry = bk.init_carry(x, c, k)
+    for _ in range(steps):
+        res, carry = bk.batched_step(x, c, k, carry, w=w)
+        c = bk.centroids_from_step(x, res, k, c)
+    return c, gs, squared_bounds(carry, c, k, gs)
+
+
+class StepRecorder:
+    """A backend whose batched step records each step's skipped share
+    (fused_bounds carries) and keeps the last step's inputs."""
+
+    def __init__(self, bk):
+        import dataclasses
+        self.skips, self.last = [], None
+
+        def step(x_, cs, k, carries, w=None):
+            self.last = (cs, carries)
+            res, carries = bk.batched_step(x_, cs, k, carries, w=w)
+            self.skips.append(carries[4].skipped_frac)
+            return res, carries
+
+        self.backend = dataclasses.replace(bk, name=f"{bk.name}+record",
+                                           batched_step_fn=step)
+
+
+def trips_of(model):
+    """Loop trips of a fit: an accepted iteration is one trip, a rejected
+    one two (the paper's 2t - a), plus the trip that detects
+    convergence."""
+    converged = model.n_iter_ <= model.max_iter
+    return 2 * model.n_iter_ - 2 + int(converged) - model.n_accepted_
+
+
 def event_ms(torch, fn, iters, warmup=2):
     """Mean device time of fn(i) over ``iters`` calls, by CUDA events."""
     for i in range(warmup):
@@ -160,15 +309,39 @@ def run():
     import torch
     from repro_torch.core import AAKMeans, get_backend
     from repro_torch.core.api import PREDICT_CHUNK
+    from repro_torch.core.backends import bounds
+    from repro_torch.core.backends.fused_bounds import (engine_group_size,
+                                                        squared_bounds)
     from repro_torch.core.init_schemes import batched_init
     from repro_torch.core.kmeans import (KMeansConfig, _init_state,
                                          aa_kmeans_batched, batched_trip)
-    from repro_torch.data.synthetic import DATASETS, make_dataset
+    from repro_torch.data.synthetic import (DATASETS, dataset_components,
+                                            make_dataset)
     from repro_torch.device import resolve_device
     from repro_torch.kernels import assignment as A
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_lloyd as F
+    from repro_torch.kernels import update as U
     from repro_torch.kernels.tiles import pad_rows
+
+    # each kernel's (module, launch count, plain-version count)
+    counters = {"fused_lloyd": (F, "launches", "plain_calls"),
+                "assignment": (A, "launches", "plain_calls"),
+                "update": (U, "launches", "plain_calls"),
+                "fused_bounds": (F, "bounds_launches", "bounds_plain_calls")}
+    path_launches = {}
+
+    def zero_counts():
+        for mod, launches, plain in counters.values():
+            setattr(mod, launches, 0)
+            setattr(mod, plain, 0)
+
+    def read_counts():
+        """The launches of every kernel since zero_counts, and the
+        plain-version calls."""
+        got = {name: getattr(mod, launches)
+               for name, (mod, launches, _) in counters.items()}
+        return got, sum(getattr(mod, p) for mod, _, p in counters.values())
 
     dev = resolve_device(None)
     smi = nvidia_smi_line()
@@ -189,12 +362,18 @@ def run():
         for line in logs[kname].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {line.strip()}")
+    tile_rows = build.tile_rows()
+    lib_rows = {kname: getattr(build.load(kname), f"{kname}_tile_rows")()
+                for kname in ("fused_lloyd", "update", "fused_bounds")}
+    print(f"  rows per tile: {lib_rows}, csrc/nearest.cuh kTN {tile_rows}")
+    check(set(lib_rows.values()) == {tile_rows},
+          "the libraries and nearest.cuh disagree on the row tile")
     sys.stdout.flush()
 
     print("phase 3: kernels against their plain versions")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = []
-    for label, n, k, d, r, x_per, wkind in CASES:
+    for (label, n, k, d, r, x_per, wkind), group in zip(CASES, CASE_GROUPS):
         rr = r or 1
         x = torch.randn((rr, n, d) if x_per else (n, d), generator=gen,
                         device=dev)
@@ -209,6 +388,7 @@ def run():
         ck = c if r else c[0]
         lift = (lambda out: out) if r else \
             (lambda out: tuple(o[None] for o in out))
+        unlift = (lambda t: t) if r else (lambda t: t[0])
         got_f = lift(F.fused_lloyd(x, ck, w))
         got_a = lift(A.assignment(x, ck))
         want_f = lift(F.fused_lloyd_plain(x, ck, w))
@@ -218,15 +398,67 @@ def run():
               f" assignment: {fmt(res_a)}")
         accept(res_f, f"fused [{label}]")
         accept(res_a, f"assignment [{label}]")
-        cases.append((x, ck, w, got_f, got_a, lift))
+        # update: labels in [-1, K], so -1 and K land nowhere; (N,) weights
+        lab_u = unlift(torch.randint(-1, k + 1, (rr, n), generator=gen,
+                                     device=dev, dtype=torch.int32))
+        w_u = None if w is None else (w if w.dim() == 1
+                                      else w[0].contiguous())
+        got_u = U.update(x, lab_u, k, w_u)
+        res_u = compare_stats(got_u, U.update_plain(x, lab_u, k, w_u))
+        print(f"    update: sums {res_u['sums_rel']:.2e}, counts "
+              f"{res_u['counts_rel']:.2e}")
+        accept_stats(res_u, f"update [{label}]")
+        # fused-bounds on the bounds of two real steps
+        cb, gs, bnds = drifted_bounds(group, x, c, w, steps=2)
+        args_b = (x, unlift(cb), w, *(unlift(b) for b in bnds))
+        got_b = lift(F.fused_lloyd(*args_b[:3], bounds=args_b[3:], gs=gs))
+        want_b = lift(F.fused_bounds_plain(*args_b, gs, tile_rows))
+        res_b = compare_bounds(torch, got_b, want_b, x, cb, w, bnds[1],
+                               bnds[2], tile_rows)
+        print(f"    fused_bounds (gs={gs}, G={bnds[1].shape[-1]}): "
+              f"{fmt_bounds(res_b)}")
+        accept_bounds(res_b, f"fused_bounds [{label}]")
+        cases.append((x, ck, w, got_f, got_a, lift, (x, lab_u, k, w_u),
+                      got_u, args_b, gs, got_b))
+    # rows laid out cluster by cluster with the centroid order matching
+    # (the reference's "ordered" layout): most cells skip
+    d_o = 16
+    for k_o, per, group, least in ORDERED_CASES:
+        centers = torch.randn((k_o, d_o), generator=gen, device=dev) * 20.0
+        x_o = (centers[:, None, :] + torch.randn(
+            (k_o, per, d_o), generator=gen, device=dev)).reshape(-1, d_o)
+        c_o = centers + 0.5 * torch.randn((k_o, d_o), generator=gen,
+                                          device=dev)
+        cb, gs, bnds = drifted_bounds(group, x_o, c_o[None], None, steps=3)
+        got_b = F.fused_lloyd(x_o, cb, bounds=bnds, gs=gs)
+        res_b = compare_bounds(torch, got_b, F.fused_bounds_plain(
+            x_o, cb, None, *bnds, gs, tile_rows), x_o, cb, None, bnds[1],
+            bnds[2], tile_rows)
+        label = f"cluster-ordered: N={x_o.shape[0]} K={k_o} d={d_o}"
+        print(f"  [{label}] fused_bounds (gs={gs}, G={bnds[1].shape[-1]}): "
+              f"{fmt_bounds(res_b)}")
+        accept_bounds(res_b, f"fused_bounds [{label}]")
+        check(res_b["skipped"][0] > least, f"[{label}] skips no more "
+              f"than {least} of its cells")
+        cases.append((None, None, None, None, None, None, None, None,
+                      (x_o, cb, None, *bnds), gs, got_b))
 
     print("phase 4: repeated launches are bitwise equal")
-    for (x, c, w, got_f, got_a, lift), case in zip(cases, CASES):
-        again_f = lift(F.fused_lloyd(x, c, w))
-        again_a = lift(A.assignment(x, c))
-        for a, b in zip(got_f + got_a, again_f + again_a):
-            check(torch.equal(a, b), f"[{case[0]}] relaunch differs")
-    print(f"  all {len(cases)} cases, both kernels: equal")
+    for (x, c, w, got_f, got_a, lift, args_u, got_u, args_b, gs,
+         got_b) in cases:
+        label = "cluster-ordered" if x is None else "a phase-3 case"
+        if x is not None:
+            again = lift(F.fused_lloyd(x, c, w)) + lift(A.assignment(x, c)) \
+                + U.update(*args_u)
+            for a, b in zip(got_f + got_a + got_u, again):
+                check(torch.equal(a, b), f"[{label}] relaunch differs")
+        again_b = F.fused_lloyd(*args_b[:3], bounds=args_b[3:], gs=gs)
+        if args_b[1].dim() == 2:          # the unbatched form
+            again_b = tuple(o[None] for o in again_b)
+        for a, b in zip(got_b, again_b):
+            check(torch.equal(a, b), f"[{label}] fused_bounds relaunch "
+                  f"differs")
+    print(f"  all {len(cases)} cases, all four kernels: equal")
     del cases
     sys.stdout.flush()
 
@@ -245,7 +477,7 @@ def run():
     torch.cuda.synchronize()
     seed_s = time.perf_counter() - t0
     model = AAKMeans(n_clusters=MAIN_K, backend="fused", n_init=1)
-    F.launches = A.launches = F.plain_calls = A.plain_calls = 0
+    zero_counts()
     t0 = time.perf_counter()
     model.fit(x)
     torch.cuda.synchronize()
@@ -253,12 +485,12 @@ def run():
     t0 = time.perf_counter()
     labels = model.predict(x)
     predict_s = time.perf_counter() - t0
-    fused_launches, assign_launches = F.launches, A.launches
-    plain = F.plain_calls + A.plain_calls
+    counts, plain = read_counts()
+    path_launches["fused fit + predict"] = counts
+    fused_launches, assign_launches = counts["fused_lloyd"], \
+        counts["assignment"]
     converged = model.n_iter_ <= model.max_iter
-    # one fused launch seeds the loop, then one per trip; an accepted
-    # iteration is one trip, a rejected one two (the paper's 2t - a)
-    trips = 2 * model.n_iter_ - 2 + int(converged) - model.n_accepted_
+    trips = trips_of(model)
     chunks = -(-spec.n // PREDICT_CHUNK)
     print(f"  seeding {seed_s!r} s (timed alone), fit {fit_s!r} s "
           f"(seeding included), predict {predict_s!r} s "
@@ -270,6 +502,8 @@ def run():
           f"{chunks}; plain-version calls {plain}", flush=True)
     check(fused_launches == 1 + trips, "fused launches != 1 + trips")
     check(assign_launches == chunks, "assignment launches != chunks")
+    check(counts["update"] == counts["fused_bounds"] == 0,
+          "the fused path launched another engine's kernel")
     check(plain == 0, "the main path called a plain version")
     check(np.isfinite(model.inertia_) and model.inertia_ > 0, "inertia")
     check(labels.shape == (spec.n,) and labels.min() >= 0
@@ -288,6 +522,7 @@ def run():
           f"{agree:.7f} equal")
     check(agree == 1.0, "predict and the fused step disagree")
     main_abs_err = res_main["mind_abs"]
+    del got, want
     # the assignment kernel at the shape predict gives it: a full chunk
     # and the tail chunk padded with copies of its last row
     tail = spec.n % PREDICT_CHUNK
@@ -301,6 +536,146 @@ def run():
         print(f"  assignment vs plain on predict's {what}: {fmt(res)}")
         accept(res, f"assignment at predict's {what}")
         assign_abs_err = max(assign_abs_err, res["mind_abs"])
+    sys.stdout.flush()
+
+    print("phase 5a: the pallas path at full size (the same seed)")
+    model_p = AAKMeans(n_clusters=MAIN_K, backend="pallas", n_init=1)
+    zero_counts()
+    t0 = time.perf_counter()
+    model_p.fit(x)
+    torch.cuda.synchronize()
+    fit_p_s = time.perf_counter() - t0
+    counts_fit, _ = read_counts()
+    t0 = time.perf_counter()
+    labels_p = model_p.predict(x)
+    predict_p_s = time.perf_counter() - t0
+    counts_p, plain = read_counts()
+    path_launches["pallas fit + predict"] = counts_p
+    predict_launches = counts_p["assignment"] - counts_fit["assignment"]
+    trips_p = trips_of(model_p)
+    rel_p = abs(model_p.inertia_ - model.inertia_) / model.inertia_
+    print(f"  fit {fit_p_s!r} s (seeding included), predict "
+          f"{predict_p_s!r} s; n_iter_ {model_p.n_iter_}, n_accepted_ "
+          f"{model_p.n_accepted_}, inertia_ {model_p.inertia_!r}, "
+          f"{rel_p:.2e} relative from the fused fit's")
+    print(f"  in the fit: assignment launches {counts_fit['assignment']}, "
+          f"update launches {counts_fit['update']} vs 1 + trips = "
+          f"{1 + trips_p}; predict: {predict_launches} assignment "
+          f"launches vs {chunks} chunks; plain-version calls {plain}",
+          flush=True)
+    check(counts_fit["assignment"] == counts_fit["update"] == 1 + trips_p,
+          "pallas launches != 1 + trips")
+    check(predict_launches == chunks, "pallas predict launches != chunks")
+    check(counts_p["fused_lloyd"] == counts_p["fused_bounds"] == 0,
+          "the pallas path launched another engine's kernel")
+    check(plain == 0, "the pallas path called a plain version")
+    check(rel_p <= 1e-3, "pallas and fused fits end far apart")
+    check(labels_p.shape == (spec.n,), "pallas predict labels")
+    lab_p = model_p.labels_
+    # both kernels at the shape the fit gives them: all rows, R = 1
+    c_p = model_p.centroids_[None]
+    res_a = compare(torch, A.assignment(x, c_p), A.assignment_plain(x, c_p),
+                    x, c_p, None)
+    print(f"  assignment vs plain on all rows at the fit's final centroids: "
+          f"{fmt(res_a)}")
+    accept(res_a, "assignment at the pallas fit's shape")
+    assign_abs_err = max(assign_abs_err, res_a["mind_abs"])
+    del c_p
+    res_u = compare_stats(U.update(x, lab_p, MAIN_K),
+                          U.update_plain(x, lab_p, MAIN_K))
+    print(f"  update vs plain on the fit's last labels: sums "
+          f"{res_u['sums_rel']:.2e} (abs {res_u['sums_abs']:.2e}), counts "
+          f"{res_u['counts_rel']:.2e}")
+    accept_stats(res_u, "update at full size")
+    update_abs_err = res_u["sums_abs"]
+    sys.stdout.flush()
+
+    print("phase 5b: the fused_bounds path at full size")
+    rec = StepRecorder(get_backend("fused_bounds"))
+    gs_main = engine_group_size(MAIN_K)
+    zero_counts()
+    t0 = time.perf_counter()
+    model_b = AAKMeans(n_clusters=MAIN_K, backend=rec.backend,
+                       n_init=1).fit(x)
+    torch.cuda.synchronize()
+    fit_b_s = time.perf_counter() - t0
+    counts_b, plain = read_counts()
+    path_launches["fused_bounds fit"] = counts_b
+    trips_b = trips_of(model_b)
+    skips = torch.cat(rec.skips).tolist()
+    rel_b = abs(model_b.inertia_ - model.inertia_) / model.inertia_
+    print(f"  default groups: gs {gs_main}, G {-(-MAIN_K // gs_main)}; fit "
+          f"{fit_b_s!r} s (seeding included); n_iter_ {model_b.n_iter_}, "
+          f"n_accepted_ {model_b.n_accepted_}, inertia_ "
+          f"{model_b.inertia_!r}, {rel_b:.2e} relative from the fused "
+          f"fit's")
+    print(f"  fused_bounds launches {counts_b['fused_bounds']} vs 1 + trips "
+          f"= {1 + trips_b}; plain-version calls {plain}; skipped share: "
+          f"first trip {skips[1]!r}, median {float(np.median(skips))!r}, "
+          f"last trip {skips[-1]!r}", flush=True)
+    check(counts_b["fused_bounds"] == 1 + trips_b,
+          "fused_bounds launches != 1 + trips")
+    check(sum(counts_b.values()) == counts_b["fused_bounds"],
+          "the fused_bounds fit launched another kernel")
+    check(plain == 0, "the fused_bounds path called a plain version")
+    check(rel_b <= 1e-3, "fused_bounds and fused fits end far apart")
+    cs_last, carry_last = rec.last
+    bnds_d = squared_bounds(carry_last, cs_last, MAIN_K, gs_main)
+    del rec, model_b, carry_last
+    got = F.fused_lloyd(x, cs_last, bounds=bnds_d, gs=gs_main)
+    res_d = compare_bounds(torch, got, F.fused_bounds_plain(
+        x, cs_last, None, *bnds_d, gs_main, tile_rows), x, cs_last, None,
+        bnds_d[1], bnds_d[2], tile_rows)
+    print(f"  fused_bounds vs plain on the default fit's last bounds: "
+          f"{fmt_bounds(res_d)}")
+    accept_bounds(res_d, "fused_bounds at full size, default groups",
+                  exact_labels=False)
+    del got, cs_last, bnds_d
+    # the cluster-ordered layout: rows sorted by their synthetic
+    # component, seeds drawn evenly along the sorted rows
+    order = torch.from_numpy(np.argsort(dataset_components(MAIN_N_NAME),
+                                        kind="stable")).to(dev)
+    x_ord = x[order].contiguous()
+    del order
+    seeds = x_ord[torch.linspace(0, spec.n - 1, MAIN_K,
+                                 device=dev).long()][None]
+    rec = StepRecorder(get_backend("fused_bounds", group_size=ORDERED_GS))
+    gs_o = engine_group_size(MAIN_K, ORDERED_GS)
+    zero_counts()
+    t0 = time.perf_counter()
+    model_o = AAKMeans(n_clusters=MAIN_K, backend=rec.backend,
+                       n_init=1).fit(x_ord, c0s=seeds)
+    torch.cuda.synchronize()
+    fit_o_s = time.perf_counter() - t0
+    counts_o, plain = read_counts()
+    path_launches["fused_bounds fit, cluster-ordered"] = counts_o
+    trips_o = trips_of(model_o)
+    skips_o = torch.cat(rec.skips).tolist()
+    print(f"  cluster-ordered, gs {gs_o}, G {-(-MAIN_K // gs_o)}: fit "
+          f"{fit_o_s!r} s; n_iter_ {model_o.n_iter_}, n_accepted_ "
+          f"{model_o.n_accepted_}, inertia_ {model_o.inertia_!r}; "
+          f"fused_bounds launches {counts_o['fused_bounds']} vs 1 + trips "
+          f"= {1 + trips_o}; skipped share: first trip {skips_o[1]!r}, "
+          f"median {float(np.median(skips_o))!r}, last trip "
+          f"{skips_o[-1]!r}", flush=True)
+    check(counts_o["fused_bounds"] == 1 + trips_o,
+          "ordered fused_bounds launches != 1 + trips")
+    check(plain == 0, "the ordered run called a plain version")
+    check(np.isfinite(model_o.inertia_), "ordered run inertia")
+    check(skips_o[-1] > 0.0, "the cluster-ordered run skips nothing")
+    cs_last, carry_last = rec.last
+    bnds_o = squared_bounds(carry_last, cs_last, MAIN_K, gs_o)
+    del rec, model_o, carry_last
+    got = F.fused_lloyd(x_ord, cs_last, bounds=bnds_o, gs=gs_o)
+    res_o = compare_bounds(torch, got, F.fused_bounds_plain(
+        x_ord, cs_last, None, *bnds_o, gs_o, tile_rows), x_ord, cs_last,
+        None, bnds_o[1], bnds_o[2], tile_rows)
+    print(f"  fused_bounds vs plain on the ordered run's last bounds: "
+          f"{fmt_bounds(res_o)}")
+    accept_bounds(res_o, "fused_bounds at full size", exact_labels=False)
+    bounds_abs_err = max(res_d["mind_abs"], res_o["mind_abs"])
+    skip_conv = res_o["skipped"][0]
+    del got
     sys.stdout.flush()
 
     print("phase 6: the dense oracle from the same seeds at full size")
@@ -325,7 +700,9 @@ def run():
                        xm, 256, 3)
     cfg = KMeansConfig(k=256)
     fused, dense = get_backend("fused"), get_backend("dense")
+    bounded = get_backend("fused_bounds", group_size=ORDERED_GS)
     worst = {"labels": 0.0, "energy": 0.0, "steps": 0}
+    worst_b = {"agree": 1.0, "gap": 0.0, "energy": 0.0, "steps": 0}
 
     def checked(x_, cs, k, carries, w=None):
         res, carries = fused.batched_step(x_, cs, k, carries, w=w)
@@ -337,11 +714,26 @@ def run():
             ((res.energy - ref_res.energy).abs() / ref_res.energy).max()))
         return res, carries
 
+    def checked_bounds(x_, cs, k, carries, w=None):
+        res, carries = bounded.batched_step(x_, cs, k, carries, w=w)
+        ref_res, _ = fused.batched_step(x_, cs, k, (), w=w)
+        agree, gap = tie_gap(torch, res.labels, ref_res.labels, x_, cs)
+        worst_b["steps"] += 1
+        worst_b["agree"] = min(worst_b["agree"], agree)
+        worst_b["gap"] = max(worst_b["gap"], gap)
+        worst_b["energy"] = max(worst_b["energy"], float(
+            ((res.energy - ref_res.energy).abs() / ref_res.energy).max()))
+        return res, carries
+
     checking = dataclasses.replace(fused, name="fused+dense-check",
                                    batched_step_fn=checked)
+    checking_b = dataclasses.replace(bounded, name="fused_bounds+check",
+                                     batched_step_fn=checked_bounds)
     runs = {}
     for label, bk in (("fused", fused), ("dense", dense),
-                      ("fused, each step redone by dense", checking)):
+                      ("fused, each step redone by dense", checking),
+                      (f"fused_bounds (gs {ORDERED_GS}), each step redone "
+                       f"by fused", checking_b)):
         t0 = time.perf_counter()
         res = aa_kmeans_batched(xm, c0s, cfg, backend=bk)
         torch.cuda.synchronize()
@@ -353,8 +745,17 @@ def run():
     print(f"  {worst['steps']} fused steps redone by the dense oracle: labels"
           f" differ on at most {worst['labels']:.2e} of rows, energies by at "
           f"most {worst['energy']:.2e} relative")
+    print(f"  {worst_b['steps']} fused_bounds steps redone by the fused "
+          f"kernel: labels agree on at least {worst_b['agree']:.7f} of rows "
+          f"(largest near-tie gap {worst_b['gap']:.2e}), energies differ by "
+          f"at most {worst_b['energy']:.2e} relative")
     check(worst["labels"] <= 1e-4 and worst["energy"] <= 1e-5,
           "a fused step disagrees with the dense oracle")
+    check(worst_b["agree"] == 1.0 or worst_b["gap"] <= 1e-5,
+          "a fused_bounds step's labels differ from the fused kernel's "
+          "beyond a near tie")
+    check(worst_b["energy"] <= 1e-5,
+          "a fused_bounds step's energy differs from the fused kernel's")
     e_f, e_d = runs["fused"].energy, runs["dense"].energy
     rel = float(((e_f - e_d).abs() / e_d).max())
     print(f"  free-running final energies fused vs dense: {rel:.2e} "
@@ -401,6 +802,56 @@ def run():
     print(f"  assignment (predict chunk {step} x {k} x {d}): "
           f"{assign_ms!r} ms, bound {assign_bound!r} ms ({assign_by}), "
           f"plain {assign_plain_ms!r} ms, matmul+argmin {library_ms!r} ms")
+    # the update kernel on the pallas fit's labels; its library yardstick
+    # is the one call that computes the sums
+    update_ms = event_ms(torch, lambda i: U.update(x, lab_p, k), 10)
+    update_plain_ms = event_ms(torch, lambda i: U.update_plain(x, lab_p, k),
+                               3, warmup=1)
+    sums_buf = torch.zeros(k, d, device=dev)
+    update_lib_ms = event_ms(
+        torch, lambda i: sums_buf.index_add_(0, lab_p, x), 10)
+    update_bytes = 4 * (n * d + n) + 4 * (k * d + k)
+    update_bound, update_by = bound_ms(update_bytes, n * d + n)
+    print(f"  update (N={n}, K={k}, d={d}, R=1, labels of the pallas fit): "
+          f"{update_ms!r} ms, bound {update_bound!r} ms ({update_by}), "
+          f"plain {update_plain_ms!r} ms, index_add_ (sums only) "
+          f"{update_lib_ms!r} ms")
+
+    def bounds_cost(g, skip):
+        """(bytes, operations) of one bounded step with G groups of which
+        the share ``skip`` of (tile, group) cells is skipped."""
+        n_bytes = 4 * (n * d + k * d + 2 * n + n * g) \
+            + 4 * (2 * n + n * g + k * d + k + 1) + 8
+        n_ops = (1.0 - skip) * (2 * n * k * d + 3 * n * k) + 2 * n * d
+        return n_bytes, n_ops
+
+    bounds_rows = []
+    for what, xb, cb, gs in (
+            ("default groups, skip 0", x, c_fin[None], gs_main),
+            (f"gs {gs_o}, skip 0", x, c_fin[None], gs_o),
+            (f"gs {gs_o}, the cluster-ordered run's last step", x_ord,
+             cs_last, gs_o)):
+        if xb is x:      # the init carry: ub = inf, so every cell computes
+            bnds = squared_bounds(bounds.init_carry(x, cb, k, gs), cb, k, gs)
+        else:
+            bnds = bnds_o
+        out = F.fused_lloyd(xb, cb, bounds=bnds, gs=gs)
+        skip = float(out[6][0])
+        del out
+        ms = event_ms(torch, lambda i: F.fused_lloyd(xb, cb, bounds=bnds,
+                                                     gs=gs), 10)
+        b_ms, b_by = bound_ms(*bounds_cost(bnds[1].shape[-1], skip))
+        bounds_rows.append((what, skip, ms, b_ms, b_by, bnds))
+        print(f"  fused_bounds ({what}: G={bnds[1].shape[-1]}, skipped "
+              f"{skip!r}): {ms!r} ms, bound {b_ms!r} ms ({b_by})")
+    _, skip0, bounds_ms_main, bounds_bound, bounds_by, bnds0 = bounds_rows[0]
+    bounds_plain_ms = event_ms(
+        torch, lambda i: F.fused_bounds_plain(x, c_fin[None], None, *bnds0,
+                                              gs_main, tile_rows), 3,
+        warmup=1)
+    print(f"  fused_bounds plain (default groups, skip 0): "
+          f"{bounds_plain_ms!r} ms; the ordered run converged at skip "
+          f"{skip_conv!r}")
     kernel_s = fused_launches * fused_ms / 1e3
     print(f"  fit of phase 5 split: seeding {seed_s!r} s, fused launches x "
           f"kernel time {kernel_s!r} s, the rest (host loop, Anderson "
@@ -420,20 +871,39 @@ def run():
     print(f"  one loop trip: {trip_ms!r} ms wall; the fused kernel is "
           f"{fused_ms / trip_ms!r} of it, so the device idles at most "
           f"{max(0.0, 1 - fused_ms / trip_ms)!r} of a trip")
+    print("  launches per path: " + "; ".join(
+        f"{path}: " + ", ".join(f"{kn} {v}" for kn, v in c.items() if v)
+        for path, c in path_launches.items()))
+    total = {kn: sum(c[kn] for c in path_launches.values())
+             for kn in counters}
     kernels = [
         {"name": "fused_lloyd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_lloyd.cu",
          "replaces": "src/repro/kernels/fused_lloyd.py:55",
-         "launches": fused_launches, "max_abs_err": main_abs_err,
+         "launches": total["fused_lloyd"], "max_abs_err": main_abs_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms,
          "bound_ms": fused_bound, "bound_by": fused_by, "library_ms": None},
         {"name": "assignment", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/assignment.cu",
          "replaces": "src/repro/kernels/assignment.py:37",
-         "launches": assign_launches, "max_abs_err": assign_abs_err,
+         "launches": total["assignment"], "max_abs_err": assign_abs_err,
          "ms": assign_ms, "plain_ms": assign_plain_ms,
          "bound_ms": assign_bound, "bound_by": assign_by,
          "library_ms": library_ms},
+        {"name": "update", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/update.cu",
+         "replaces": "src/repro/kernels/update.py:30",
+         "launches": total["update"], "max_abs_err": update_abs_err,
+         "ms": update_ms, "plain_ms": update_plain_ms,
+         "bound_ms": update_bound, "bound_by": update_by,
+         "library_ms": update_lib_ms},
+        {"name": "fused_bounds", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/fused_bounds.cu",
+         "replaces": "src/repro/kernels/fused_lloyd.py:123",
+         "launches": total["fused_bounds"], "max_abs_err": bounds_abs_err,
+         "ms": bounds_ms_main, "plain_ms": bounds_plain_ms,
+         "bound_ms": bounds_bound, "bound_by": bounds_by,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     return smi, name

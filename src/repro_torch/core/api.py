@@ -5,6 +5,11 @@
     model = AAKMeans(n_clusters=10, backend="fused").fit(x)   # on CUDA
     labels = model.predict(x_new)
 
+``backend`` names the engine: "fused" (one kernel pass per step),
+"pallas" (the assignment kernel, then the update kernel), "fused_bounds"
+(the fused pass skipping centroid groups by carried bounds) or "dense"
+(plain PyTorch, the oracle).
+
 ``fit`` seeds R = n_init restarts, solves them together with the batched
 driver and keeps the best; ``predict`` / ``transform`` run in fixed-shape
 chunks into host (numpy) arrays.  Still to be ported: the mesh, metrics
@@ -83,7 +88,8 @@ class AAKMeans:
     eps2: float = 0.5
     ridge: float = 1e-12
     seed: int = 0
-    # "dense" | "fused" or a Backend instance
+    # "dense" | "fused" | "pallas" | "fused_bounds" or a Backend instance
+    # (e.g. get_backend("fused_bounds", group_size=64))
     backend: object = "dense"
     # None means CUDA (RuntimeError without a card); "cpu" runs the
     # kernels' plain versions
@@ -141,7 +147,7 @@ class AAKMeans:
 
     def predict(self, x, chunk_size: Optional[int] = None) -> np.ndarray:
         """Nearest-centroid labels (N,) int32 through the backend's
-        assignment (the assignment kernel for ``backend="fused"``)."""
+        assignment (the assignment kernel for every kernel backend)."""
         self._assert_fitted()
         bk = resolve_backend(self.backend)
         return _chunked_rows_apply(

@@ -1,6 +1,6 @@
 """The step-primitive backend protocol of Algorithm 1 (counterpart of
-``repro.core.backends.base``, lines 57-290; ``distribute`` is still to
-be ported).
+``repro.core.backends.base``, lines 57-290; ``distribute`` and the
+derived ``energy`` op are still to be ported).
 
 A backend's core op is one logical pass over X,
 
@@ -12,7 +12,10 @@ from which the next centroids follow without touching X again
 (leading R axis on every output, x shared (N, d) or per-problem
 (R, N, d), optional (R, N) row weights); ``minibatch_step`` weights rows
 of one problem.  ``carry`` is per-backend state threaded through the
-solver loop; both backends of this slice are stateless (carry ``()``).
+solver loop: ``()`` for the stateless engines, the bound contract of
+``backends/bounds.py`` for ``fused_bounds``.  ``stats_fn`` gives the
+partial stats of a known assignment, from which the derived ``update``
+op follows.
 """
 
 from __future__ import annotations
@@ -88,6 +91,9 @@ class Backend:
     batched_step_fn: Callable = None
     # (x, c, k, w, carry) -> (StepResult, carry); w (N,) row weights.
     minibatch_step_fn: Callable = None
+    # (x, labels, k) -> (sums, counts): partial stats of a known
+    # assignment (the update half of G; the derived update op).
+    stats_fn: Callable = None
     # (x, c) -> AssignResult: standalone assignment (predict).
     assign_fn: Callable = None
     # (a, b) -> bool per leading row: assignments identical.
@@ -115,6 +121,13 @@ class Backend:
     def assign(self, x, c) -> AssignResult:
         return self.assign_fn(x, c)
 
+    def update(self, x, labels, k, c_prev):
+        """Next centroids of a known assignment: stats, then Eq. 4."""
+        sums, counts = self.stats_fn(x, labels, k)
+        c_new = lloyd.update_from_sums(sums, counts,
+                                       c_prev.to(sums.dtype))
+        return c_new.to(c_prev.dtype)
+
     def all_equal(self, a, b):
         return self.all_equal_fn(a, b)
 
@@ -136,7 +149,8 @@ def backend_names() -> Tuple[str, ...]:
 
 
 def get_backend(name: str, **opts) -> Backend:
-    """Construct (and cache) a backend by name: "dense" | "fused"."""
+    """Construct (and cache) a backend by name: "dense" | "fused" |
+    "pallas" | "fused_bounds"."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown backend {name!r}; registered: "
                        f"{', '.join(backend_names())}")

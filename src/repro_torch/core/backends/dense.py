@@ -68,5 +68,6 @@ def dense_backend(precision: Precision = DEFAULT_PRECISION) -> Backend:
                    step_fn=_step,
                    batched_step_fn=_batched_step,
                    minibatch_step_fn=_minibatch_step,
+                   stats_fn=lloyd.cluster_sums,
                    assign_fn=lloyd.assign,
                    precision=precision)

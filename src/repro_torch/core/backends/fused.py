@@ -5,8 +5,9 @@ Every step slot is one launch of the fused Lloyd kernel
 (``kernels/fused_lloyd.py``): distances, argmin, weighted cluster stats
 and energy in one pass over X, R centroid sets per launch for the batched
 slot.  ``assign`` (predict) is the assignment kernel
-(``kernels/assignment.py``).  On CPU tensors both run their plain
-versions, which is how the tests run this backend.
+(``kernels/assignment.py``) and ``stats_fn`` the update kernel
+(``kernels/update.py``).  On CPU tensors they run their plain versions,
+which is how the tests run this backend.
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ from repro_torch.core.backends.base import (DEFAULT_PRECISION, Backend,
 from repro_torch.core.lloyd import AssignResult
 from repro_torch.kernels.assignment import assignment
 from repro_torch.kernels.fused_lloyd import fused_lloyd
+from repro_torch.kernels.update import update
 
 
-def _assign_fn(x, c):
+def kernel_assign(x, c):
+    """Backend.assign of every kernel engine: the assignment kernel."""
     return AssignResult(*assignment(x, c))
 
 
@@ -39,5 +42,6 @@ def fused_backend(precision: Precision = DEFAULT_PRECISION) -> Backend:
                    step_fn=_step_fn,
                    batched_step_fn=_batched_step_fn,
                    minibatch_step_fn=_minibatch_step_fn,
-                   assign_fn=_assign_fn,
+                   stats_fn=update,
+                   assign_fn=kernel_assign,
                    precision=precision)

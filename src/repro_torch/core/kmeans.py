@@ -56,7 +56,7 @@ class _LoopState(NamedTuple):
     converged: torch.Tensor   # (R,) bool
     labels: torch.Tensor      # last P^t (valid on exit)
     e_last: torch.Tensor      # (R,)
-    carry: Any                # backend carry (() for dense and fused)
+    carry: Any                # backend carry (() or the bound contract)
 
 
 class _BatchedState(NamedTuple):

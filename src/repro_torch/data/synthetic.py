@@ -130,6 +130,22 @@ def make_dataset(name: str, *, scale: float = 1.0, seed: int = 0,
     return x.astype(dtype)
 
 
+def dataset_components(name: str, *, scale: float = 1.0,
+                       seed: int = 0) -> np.ndarray:
+    """The mixture component of every row of ``make_dataset(name, scale=,
+    seed=)`` (N,) int64, for the "gaussian" datasets: the generator's
+    draws replayed up to the component ids.  Sorting rows by it lays X
+    out cluster by cluster (the "ordered" layout of
+    benchmarks/kernels_bench.py::bounds_workload)."""
+    spec = DATASETS[name]
+    if spec.kind != "gaussian":
+        raise ValueError(f"{name} is not a gaussian mixture ({spec.kind})")
+    n = max(64, int(spec.n * scale))
+    rng = np.random.default_rng(seed + spec.no * 1000)
+    rng.standard_normal((25, spec.d))                 # the centers
+    return rng.integers(0, 25, n)
+
+
 def make_blobs(n: int, d: int, k: int, *, seed: int = 0, spread: float = 5.0,
                dtype=np.float32) -> np.ndarray:
     """Simple separated blobs — used by unit tests."""

@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.core.anderson import AAState
 from repro_torch.core.api import AAKMeans
+from repro_torch.core.backends.bounds import BoundStats
 from repro_torch.core.kmeans import _BatchedState, _LoopState
 from repro_torch.device import resolve_device
 
@@ -74,18 +75,28 @@ def _t(a, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, copy=True), device=device)
 
 
+def _carry(node, device):
+    """A backend carry: () for the stateless engines, or the bound
+    contract (labels, upper, lower, c_last, BoundStats) — the reference's
+    BoundStats is matched by its field names."""
+    if getattr(node, "_fields", None) == BoundStats._fields:
+        return BoundStats(*(_t(a, device) for a in node))
+    if isinstance(node, tuple):
+        return tuple(_carry(a, device) for a in node)
+    return _t(node, device)
+
+
 def batched_state_from_numpy(tree, device=None) -> _BatchedState:
     """The port's ``_BatchedState`` from the reference's (numpy leaves of
     ``repro.core.kmeans._BatchedState``: ``inner`` a ``_LoopState`` with
-    an ``AAState`` window, plus ``pending``).  Field names match, so one
-    iteration can run in both packages from identical state."""
+    an ``AAState`` window and a backend carry, plus ``pending``).  Field
+    names match, so one iteration can run in both packages from identical
+    state."""
     dev = resolve_device(device)
     inner = tree.inner
-    if len(inner.carry):
-        raise NotImplementedError(
-            "backend carries (bounds) are still to be ported")
     aa = AAState(*(_t(getattr(inner.aa, f), dev) for f in AAState._fields))
     leaves = {f: _t(getattr(inner, f), dev) for f in _LoopState._fields
               if f not in ("aa", "carry")}
-    return _BatchedState(_LoopState(aa=aa, carry=(), **leaves),
-                         _t(tree.pending, dev))
+    return _BatchedState(
+        _LoopState(aa=aa, carry=_carry(tuple(inner.carry), dev), **leaves),
+        _t(tree.pending, dev))

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -23,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("fused_lloyd", "assignment")
+KERNELS = ("fused_lloyd", "assignment", "update", "fused_bounds")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -40,6 +41,18 @@ def _nvcc() -> str:
     raise RuntimeError(
         "nvcc not found (looked on PATH and under CUDA_HOME); the CUDA "
         "kernels of repro_torch build only where the CUDA toolkit is")
+
+
+def tile_rows() -> int:
+    """Rows per X tile, ``kTN`` of ``csrc/nearest.cuh`` (what each
+    library's ``*_tile_rows()`` returns), read from the source so that
+    the plain versions tile rows as the kernels do where no library can
+    be built."""
+    found = re.search(r"constexpr int kTN = (\d+);",
+                      (CSRC / "nearest.cuh").read_text())
+    if found is None:
+        raise RuntimeError("csrc/nearest.cuh does not define kTN")
+    return int(found.group(1))
 
 
 def library_path(name: str) -> Path:

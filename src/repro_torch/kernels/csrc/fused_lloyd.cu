@@ -15,24 +15,13 @@
 // register blocks, float4 loads; see nearest.cuh) and reads X once: the
 // stats gather from the X tile while it is still in shared memory.
 //
-// Determinism.  The TPU kernel folds the stats serially over row tiles
-// (":98-120", "arbitrary" grid axis).  GPU blocks run in no order, and
-// float atomics would change the low bits of the sums and the energy from
-// run to run, which can flip the solver's accept test e_t < e_prev near
-// convergence.  So there are no atomics:
-//   1. kernel `fused_step`: block (slab, r) owns a fixed contiguous slab of
-//      row tiles and its own partial stats (K, d+1) in device memory.  It
-//      zeroes them, then for each tile, after the nearest-centroid sweep,
-//      the threads take one column each and add the tile's rows into the
-//      partials in a fixed order; thread 0 keeps the slab's energy.
-//   2. kernel `reduce_slabs`: each (cluster, column) sums its partials in
-//      slab order.
-// Same inputs, same launch config -> bitwise the same outputs.  The slab
-// count P is chosen by the wrapper (tiles.slab_layout, in units of
-// fused_lloyd_tile_rows() rows) so that R*P*K*(d+1)*4 bytes
-// of partials stay modest (74 MB at K = 1000, d = 69, P = 264).
+// Determinism: no atomics.  Block (slab, r) owns a fixed contiguous slab
+// of row tiles and adds each tile's stats into its own partials in a fixed
+// order; `reduce_slabs` sums them in slab order (stats.cuh).  Same inputs,
+// same launch config -> bitwise the same outputs.  R*P*K*(d+1)*4 bytes of
+// partials stay modest (74 MB at K = 1000, d = 69, P = 264).
 
-#include "nearest.cuh"
+#include "stats.cuh"
 
 namespace repro {
 
@@ -46,16 +35,15 @@ fused_step(const float* __restrict__ x, int64_t x_rstride,
   extern __shared__ float4 smem_raw[];
   const Smem sm(reinterpret_cast<float*>(smem_raw), d);
   const int slab = blockIdx.x, r = blockIdx.y;
-  const int dp1 = d + 1;
   const float* xr = x + r * x_rstride;
   const float* cr = c + (int64_t)r * k * d;
   const float* csqr = csq + (int64_t)r * k;
   const float* wr = w ? w + r * w_rstride : nullptr;
   int* lab_out = labels + (int64_t)r * n;
   float* mind_out = mind + (int64_t)r * n;
-  float* pr = part + ((int64_t)r * n_slabs + slab) * k * dp1;
+  float* pr = part + ((int64_t)r * n_slabs + slab) * k * (d + 1);
 
-  for (int64_t e = threadIdx.x; e < (int64_t)k * dp1; e += kThreads) pr[e] = 0.f;
+  zero_partials(pr, k, d);
 
   float energy = 0.f;                       // meaningful in thread 0
   const int tile_end = min((slab + 1) * tiles_per_slab, cdiv(n, kTN));
@@ -67,79 +55,9 @@ fused_step(const float* __restrict__ x, int64_t x_rstride,
       sm.w[threadIdx.x] = threadIdx.x < rows ? (wr ? wr[row0 + threadIdx.x] : 1.f) : 0.f;
     load_x_tile(sm, xr, row0, rows, d);
     nearest_centroids(sm, cr, csqr, k, d);
-
-    if (threadIdx.x < rows) {
-      lab_out[row0 + threadIdx.x] = sm.lab[threadIdx.x];
-      mind_out[row0 + threadIdx.x] = sm.mind[threadIdx.x];
-    }
-    if (threadIdx.x < 32) {                 // tile energy: fixed shuffle tree
-      float s = 0.f;
-      for (int i = threadIdx.x; i < rows; i += 32) s += sm.w[i] * sm.mind[i];
-      for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      energy += s;
-    }
-    // Weighted one-hot stats: one thread per column, the tile's rows in
-    // groups of eight.  Rows of a group that share a label are summed
-    // first, in row order; then each distinct label's partial is read and
-    // written back once, so up to eight reads are in flight instead of
-    // one.  The order of every addition is fixed by the data alone.
-    for (int col = threadIdx.x; col < dp1; col += kThreads) {
-      const float* xcol = sm.xs + (size_t)col * kXLd;
-      for (int i0 = 0; i0 < rows; i0 += 8) {
-        int l[8];
-        float v[8], p[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int i = i0 + j;
-          l[j] = i < rows ? sm.lab[i] : -1;
-          v[j] = i < rows ? (col < d ? sm.w[i] * xcol[i] : sm.w[i]) : 0.f;
-        }
-#pragma unroll
-        for (int j = 1; j < 8; ++j)
-#pragma unroll
-          for (int q = 0; q < j; ++q)
-            if (l[j] >= 0 && l[j] == l[q]) {
-              v[q] += v[j];
-              l[j] = -1;
-            }
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          p[j] = l[j] >= 0 ? pr[(int64_t)l[j] * dp1 + col] : 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          if (l[j] >= 0) pr[(int64_t)l[j] * dp1 + col] = p[j] + v[j];
-      }
-    }
+    energy += emit_tile(sm, rows, k, d, lab_out + row0, mind_out + row0, pr);
   }
   if (threadIdx.x == 0) part_e[(int64_t)r * n_slabs + slab] = energy;
-}
-
-// sums (R, K, d), counts (R, K) and energy (R,) from the partials, each
-// summed over slabs in slab order.  Element k*(d+1) of problem r is its
-// energy.
-__global__ void __launch_bounds__(kThreads)
-reduce_slabs(const float* __restrict__ part, const float* __restrict__ part_e,
-             int n_slabs, int k, int d, float* __restrict__ sums,
-             float* __restrict__ counts, float* __restrict__ energy) {
-  const int r = blockIdx.y;
-  const int64_t per = (int64_t)k * (d + 1);
-  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (e > per) return;
-  if (e == per) {
-    float s = 0.f;
-    for (int p = 0; p < n_slabs; ++p) s += part_e[(int64_t)r * n_slabs + p];
-    energy[r] = s;
-    return;
-  }
-  const float* src = part + (int64_t)r * n_slabs * per + e;
-  float s = 0.f;
-  for (int p = 0; p < n_slabs; ++p) s += src[(int64_t)p * per];
-  const int64_t kk = e / (d + 1);
-  const int col = (int)(e - kk * (d + 1));
-  if (col < d)
-    sums[((int64_t)r * k + kk) * d + col] = s;
-  else
-    counts[(int64_t)r * k + kk] = s;
 }
 
 }  // namespace repro
@@ -175,12 +93,10 @@ extern "C" int fused_lloyd_launch(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int64_t per = (int64_t)k * (d + 1) + 1;
-  reduce_slabs<<<dim3((unsigned)((per + kThreads - 1) / kThreads), r), kThreads, 0, s>>>(
-      static_cast<const float*>(part), static_cast<const float*>(part_e),
-      n_slabs, k, d, static_cast<float*>(sums), static_cast<float*>(counts),
-      static_cast<float*>(energy));
-  return (int)cudaGetLastError();
+  return (int)launch_reduce_slabs(
+      s, r, static_cast<const float*>(part), static_cast<const float*>(part_e),
+      nullptr, n_slabs, k, d, static_cast<float*>(sums),
+      static_cast<float*>(counts), static_cast<float*>(energy), nullptr);
 }
 
 extern "C" int fused_lloyd_max_features(int device) {

@@ -1,4 +1,4 @@
-// Shared device code of the two kernels in this directory: one block's
+// Shared device code of the kernels in this directory: one block's
 // nearest-centroid sweep over an X row tile that sits in shared memory.
 //
 // Layout of one block (256 threads as a 16 x 16 grid, ty = tid / 16,
@@ -19,9 +19,17 @@
 // The order is total, so the half-warp shuffle that merges the 16 column
 // threads of a row gives the same answer in any merge order.
 //
+// The bounded sweep (fused_bounds.cu) seeds the running min with the
+// row's (ub^2, previous label) and gives the seed the index -1, so the
+// order becomes (NaN first, value, not-seed, index): the seed wins a tie
+// whatever its label, as the TPU kernel's strict < against the seed does
+// (src/repro/kernels/fused_lloyd.py:176-181).  It visits only the k
+// chunks that hold a centroid of a group the tile computes, masks the
+// centroids of skipped groups, and emits each computed group's minimum.
+//
 // The tile geometry lives here only: each library exports the widest d
-// its tile takes (max_features) and, for the fused kernel's slab layout,
-// the rows per tile, so the Python wrappers hold no copy of it.
+// its tile takes (max_features) and, for the slab layout, the rows per
+// tile, so the Python wrappers hold no copy of it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -134,6 +142,36 @@ __device__ __forceinline__ void store_chunk(const Smem& sm,
   }
 }
 
+// Which centroid groups one row tile computes, for the bounded sweep.
+// Group g holds centroids [g*gs, min((g+1)*gs, k)); bit g of `need` (in
+// shared memory) is set when the tile computes it.
+struct GroupSkip {
+  const unsigned* need;
+  int gs;             // centroids per group, any value >= 1
+  int g;              // number of groups, cdiv(k, gs)
+  float* gmin;        // (rows, g) group minima of this tile's rows
+  int rows;           // rows of the tile that hold data
+
+  __device__ bool needed(int grp) const {
+    return (need[grp >> 5] >> (grp & 31)) & 1u;
+  }
+  // The first k chunk from kc on that holds a centroid of a computed
+  // group, or n_kc when there is none.  The same in every thread.
+  __device__ int next_chunk(int kc, int n_kc, int k) const {
+    for (; kc < n_kc; ++kc) {
+      const int g1 = (min((kc + 1) * kTK, k) - 1) / gs;
+      for (int grp = kc * kTK / gs; grp <= g1; ++grp)
+        if (needed(grp)) return kc;
+    }
+    return n_kc;
+  }
+};
+
+// The smaller of two distances, NaN first.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return before(a, 0, b, 0) ? a : b;
+}
+
 // Nearest centroid of every row of the tile in sm.xs against the k
 // centroids c (k x d, row-major) with squared norms csq.  Writes
 // sm.lab / sm.mind for all kTN rows (rows past the data are computed on
@@ -141,26 +179,40 @@ __device__ __forceinline__ void store_chunk(const Smem& sm,
 // chunk at a time; the next chunk's loads are issued into registers
 // before the current chunk's FMAs, so their latency overlaps the math.
 // Ends with __syncthreads().
-__device__ void nearest_centroids(const Smem& sm, const float* __restrict__ c,
-                                  const float* __restrict__ csq, int k, int d) {
+//
+// kBounded: sm.mind / sm.lab hold each row's seed (ub^2, previous label)
+// on entry; only the k chunks with a centroid of a computed group are
+// loaded (the prefetch fetches the next such chunk), only the centroids
+// of computed groups compete, and each computed group's minimum over its
+// own centroids is written to skip.gmin for the rows that hold data.  A
+// group that goes on into the next chunk keeps its per-thread minimum in
+// `open`; the half warp merges once per group, where the group ends.
+template <bool kBounded>
+__device__ void sweep(const Smem& sm, const float* __restrict__ c,
+                      const float* __restrict__ csq, int k, int d,
+                      const GroupSkip& skip) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float best[4];
   int arg[4];
   float xn[4];
+  float open[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    best[i] = INFINITY;
-    arg[i] = 0x7fffffff;
+    best[i] = kBounded ? sm.mind[ty * 4 + i] : INFINITY;
+    arg[i] = kBounded ? -1 : 0x7fffffff;
     xn[i] = sm.xsq[ty * 4 + i];
+    open[i] = INFINITY;
   }
   const int n_d = cdiv(d, kDC);
-  const int n_chunks = cdiv(k, kTK) * n_d;
+  const int n_kc = cdiv(k, kTK);
+  int kc = kBounded ? skip.next_chunk(0, n_kc, k) : 0;
+  int ds = 0;
   float next[kChunk];
-  fetch_chunk(next, c, k, d, 0, 0);
+  if (kc < n_kc) fetch_chunk(next, c, k, d, kc * kTK, 0);
   float acc[4][4];
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int k0 = ch / n_d * kTK, d0 = ch % n_d * kDC;
-    if (d0 == 0) {
+  while (kc < n_kc) {
+    const int k0 = kc * kTK, d0 = ds * kDC;
+    if (ds == 0) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -169,8 +221,11 @@ __device__ void nearest_centroids(const Smem& sm, const float* __restrict__ c,
     __syncthreads();                      // the previous chunk is consumed
     store_chunk(sm, next);
     __syncthreads();
-    if (ch + 1 < n_chunks)
-      fetch_chunk(next, c, k, d, (ch + 1) / n_d * kTK, (ch + 1) % n_d * kDC);
+    if (++ds == n_d) {
+      ds = 0;
+      kc = kBounded ? skip.next_chunk(kc + 1, n_kc, k) : kc + 1;
+    }
+    if (kc < n_kc) fetch_chunk(next, c, k, d, kc * kTK, ds * kDC);
     const int dc = min(kDC, d - d0);
     const float* xcol = sm.xs + (size_t)d0 * kXLd + ty * 4;
     const float* ccol = sm.cs + tx * 4;
@@ -185,23 +240,58 @@ __device__ void nearest_centroids(const Smem& sm, const float* __restrict__ c,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    if (d0 + kDC < d) continue;
+    if (ds != 0) continue;
     // Last chunk of this k tile: fold it into the running (min, argmin),
     // columns in increasing index.
+    float v[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kj = k0 + tx * 4 + j;
       if (kj < k) {                       // the ragged K edge never competes
         const float cn = csq[kj];
+        const bool live = !kBounded || skip.needed(kj / skip.gs);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          float v = __fadd_rn(xn[i] - 2.f * acc[i][j], cn);
-          v = v < 0.f ? 0.f : v;          // clamp; NaN stays NaN
-          if (before(v, kj, best[i], arg[i])) {
-            best[i] = v;
+          v[i][j] = __fadd_rn(xn[i] - 2.f * acc[i][j], cn);
+          v[i][j] = v[i][j] < 0.f ? 0.f : v[i][j];   // clamp; NaN stays NaN
+          if (live && before(v[i][j], kj, best[i], arg[i])) {
+            best[i] = v[i][j];
             arg[i] = kj;
           }
         }
+      }
+    }
+    if (!kBounded) continue;
+    // Group minima of the computed groups that meet this chunk.
+    const int k1 = min(k0 + kTK, k);
+    const int g0 = k0 / skip.gs;
+    for (int grp = g0; grp <= (k1 - 1) / skip.gs; ++grp) {
+      if (!skip.needed(grp)) continue;    // the same in every thread
+      float m[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) m[i] = grp == g0 ? open[i] : INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + tx * 4 + j;
+        if (kj < k && kj / skip.gs == grp) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) m[i] = nan_min(v[i][j], m[i]);
+        }
+      }
+      if (min((grp + 1) * skip.gs, k) > k1) {   // goes on in the next chunk
+#pragma unroll
+        for (int i = 0; i < 4; ++i) open[i] = m[i];
+        break;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int off = 8; off; off >>= 1)
+          m[i] = nan_min(__shfl_xor_sync(0xffffffffu, m[i], off), m[i]);
+        const int row = ty * 4 + i;
+        if (tx == 0 && row < skip.rows)
+          skip.gmin[(size_t)row * skip.g + grp] = m[i];
+        if (grp == g0) open[i] = INFINITY;
       }
     }
   }
@@ -221,11 +311,17 @@ __device__ void nearest_centroids(const Smem& sm, const float* __restrict__ c,
   if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      sm.lab[ty * 4 + i] = arg[i];
+      if (!kBounded || arg[i] >= 0) sm.lab[ty * 4 + i] = arg[i];
       sm.mind[ty * 4 + i] = best[i];
     }
   }
   __syncthreads();
+}
+
+__device__ __forceinline__ void nearest_centroids(
+    const Smem& sm, const float* __restrict__ c, const float* __restrict__ csq,
+    int k, int d) {
+  sweep<false>(sm, c, csq, k, d, GroupSkip{});
 }
 
 // Byte size of the dynamic shared memory for feature width d.

@@ -291,9 +291,9 @@ def test_step_slots_match_jax_dense(name):
 
 
 def test_registry_and_precision():
-    assert backend_names() == ("dense", "fused")
+    assert backend_names() == ("dense", "fused", "fused_bounds", "pallas")
     assert get_backend("fused") is get_backend("fused")
     with pytest.raises(KeyError):
-        get_backend("pallas")
+        get_backend("hamerly")
     with pytest.raises(NotImplementedError):
         Precision(compute=torch.bfloat16)

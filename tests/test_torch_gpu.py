@@ -7,17 +7,24 @@ PyTorch is installed:
 Each kernel is held to its plain PyTorch version on the same inputs:
 labels exact, min_sqdist within 1e-5 (f32 cross terms summed in another
 order than cuBLAS), sums within 1e-4 and counts within 1e-5 (reduction
-order), energy within 1e-6 relative.
+order), energy within 1e-6 relative.  The fused-bounds kernel besides:
+the skipped share exact and every skipped group's minimum bit for bit
+(both pass the input bound through), computed group minima within 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import AAKMeans
+from repro_torch.core import AAKMeans, get_backend
+from repro_torch.core.backends.fused_bounds import (engine_group_size,
+                                                  squared_bounds)
 from repro_torch.data.synthetic import make_blobs
 from repro_torch.kernels import assignment as A
+from repro_torch.kernels import build
 from repro_torch.kernels import fused_lloyd as F
+from repro_torch.kernels import ref
+from repro_torch.kernels import update as U
 
 # (n, d, k, r, x per problem, weights): ragged, (N,) weights, (R, N)
 # weights with per-problem X, shared X for R = 3, wide rows
@@ -109,3 +116,126 @@ def test_fit_runs_on_the_kernels(cuda):
     cpu = AAKMeans(n_clusters=40, backend="fused", device="cpu").fit(
         x, c0s=c0s)
     np.testing.assert_allclose(m.inertia_, cpu.inertia_, rtol=1e-4)
+
+
+def _update_inputs(device, n, d, k, r, x_batched, weights, seed=1):
+    x, _, w = _inputs(device, n, d, k, r, x_batched, weights, seed)
+    rng = np.random.default_rng(seed + 1)
+    labels = rng.integers(-1, k + 1, (r, n) if r else (n,)).astype(np.int32)
+    if w is not None and w.dim() == 2:
+        w = w[0].contiguous()                  # the update takes (N,)
+    return x, torch.from_numpy(labels).to(device), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,r,x_batched,weights", CASES)
+def test_update_matches_plain(cuda, n, d, k, r, x_batched, weights):
+    """Labels -1 and K are in the input and land nowhere."""
+    x, labels, w = _update_inputs(cuda, n, d, k, r, x_batched, weights)
+    launched, plain = U.launches, U.plain_calls
+    got = [g.cpu() for g in U.update(x, labels, k, w)]
+    assert (U.launches, U.plain_calls) == (launched + 1, plain)
+    want = [v.cpu() for v in U.update_plain(x, labels, k, w)]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    again = U.update(x, labels, k, w)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))
+
+
+def _drifted_bounds(x, c, w, gs, steps=2):
+    """Bounds of a real carry: the fused_bounds engine steps ``steps``
+    times from the init carry, each time to the Lloyd update of the last
+    step, then the drift to the next centroids is applied."""
+    bk = get_backend("fused_bounds", group_size=gs)
+    k = c.shape[-2]
+    cs = c if c.dim() == 3 else c[None]
+    carry = bk.init_carry(x, cs, k)
+    for _ in range(steps):
+        res, carry = bk.batched_step(x, cs, k, carry, w=w)
+        cs = bk.centroids_from_step(x, res, k, cs)
+    gsr = engine_group_size(k, gs)
+    lift = (lambda t: t) if c.dim() == 3 else (lambda t: t[0])
+    return lift(cs).contiguous(), gsr, tuple(
+        lift(t).contiguous() for t in squared_bounds(carry, cs, k, gsr))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gs", [8, 24, 64, 200])
+@pytest.mark.parametrize("n,d,k,r,x_batched,weights", CASES)
+def test_fused_bounds_matches_plain(cuda, n, d, k, r, x_batched, weights,
+                                    gs):
+    x, c, w = _inputs(cuda, n, d, k, r, x_batched, weights)
+    c, gsr, bnds = _drifted_bounds(x, c, w, gs)
+    launched, plain = F.bounds_launches, F.bounds_plain_calls
+    got = [g.cpu() for g in F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr)]
+    assert (F.bounds_launches, F.bounds_plain_calls) == (launched + 1, plain)
+    want = [v.cpu() for v in F.fused_bounds_plain(
+        x, c, w, *bnds, gsr, build.tile_rows())]
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    # after real Lloyd steps a centroid can sit on a row (a singleton
+    # cluster): there |x|^2 - 2 x.c + |c|^2 cancels to a few ulps of |x|^2
+    # on one side and 0 on the other
+    atol = 1e-6 * float(torch.sum(x * x, dim=-1).max())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
+    assert torch.equal(got[6], want[6])
+    lb_sq, ub_sq = bnds[1].cpu(), bnds[2].cpu()
+    lift = (lambda t: t) if r else (lambda t: t[None])
+    skipped = ~torch.stack([ref.computed_cells(lb, ub, build.tile_rows())
+                            for lb, ub in zip(lift(lb_sq), lift(ub_sq))])
+    assert torch.equal(lift(got[5])[skipped], lift(lb_sq)[skipped])
+    np.testing.assert_allclose(got[5], want[5], rtol=1e-5, atol=atol)
+    again = F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_fused_bounds_skips_on_ordered_rows(cuda):
+    """Rows laid out cluster by cluster with matching centroid order: once
+    the bounds are tight most (tile, group) cells skip, and the result is
+    still the plain version's."""
+    rng = np.random.default_rng(7)
+    k, d, per = 64, 16, 256
+    centers = rng.standard_normal((k, d)).astype(np.float32) * 20.0
+    x = np.concatenate([centers[j] + rng.standard_normal((per, d))
+                        .astype(np.float32) for j in range(k)])
+    c0 = centers + 0.5 * rng.standard_normal((k, d)).astype(np.float32)
+    x, c0 = torch.from_numpy(x).to(cuda), torch.from_numpy(c0).to(cuda)
+    c, gs, bnds = _drifted_bounds(x, c0, None, 8, steps=3)
+    got = F.fused_lloyd(x, c, bounds=bnds, gs=gs)
+    want = F.fused_bounds_plain(x, c, None, *bnds, gs, build.tile_rows())
+    assert float(got[6]) > 0.5 and torch.equal(got[6].cpu(), want[6].cpu())
+    assert torch.equal(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_seed_keeps_a_tie(cuda):
+    """Integer data, so every distance is exact: a duplicated centroid
+    below the standing label ties with it, and the standing label stays."""
+    rng = np.random.default_rng(3)
+    x = rng.integers(-4, 5, (300, 6)).astype(np.float32)
+    c = rng.integers(-4, 5, (10, 6)).astype(np.float32)
+    c2 = np.concatenate([c, c])                 # j and j + 10 tie
+    dist = ((x[:, None] - c2[None]) ** 2).sum(-1)
+    lab0 = (dist[:, :10].argmin(1) + 10).astype(np.int32)
+    ub_sq = dist[:, :10].min(1).astype(np.float32)
+    lb_sq = np.zeros((300, 20 // 4), np.float32)
+    t = [torch.from_numpy(a).to(cuda) for a in (x, c2, lab0, lb_sq, ub_sq)]
+    got = F.fused_lloyd(t[0], t[1], bounds=tuple(t[2:]), gs=4)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), lab0)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), ub_sq)
+
+
+@pytest.mark.gpu
+def test_cuda_tensors_never_reach_a_plain_version(cuda):
+    x = torch.from_numpy(make_blobs(5000, 8, 12, seed=5)).to(cuda)
+    F.plain_calls = F.bounds_plain_calls = A.plain_calls = 0
+    U.plain_calls = 0
+    for name in ("pallas", "fused_bounds", "fused"):
+        m = AAKMeans(n_clusters=12, backend=name, n_init=2).fit(x)
+        m.predict(x)
+        get_backend(name).update(x, m.labels_, 12, m.centroids_)
+    assert (F.plain_calls, F.bounds_plain_calls, A.plain_calls,
+            U.plain_calls) == (0, 0, 0, 0)
