@@ -11,13 +11,16 @@ Phases, each fatal on failure:
      weighted, batched and wide shapes (the fused-bounds kernel on bounds
      of real drift-updated carries, with group sizes that do and do not
      divide 64, the default 512 at K = 1000 among them, and on
-     cluster-ordered cases where most cells skip);
+     cluster-ordered cases where most cells skip); the update at
+     K = 20,000 (cluster ranges); the assignment on exact integer ties
+     (the lowest index wins) and on a NaN row;
   4. repeated launches of every case are bitwise equal;
   5. the main path at full size: AAKMeans(n_clusters=1000,
      backend="fused").fit(x).predict(x) on the USCensus1990 shape
      (2,458,285 x 69 f32); launch counts prove it ran on the kernels;
      both kernels against their plain versions on the final centroids,
      the assignment on a full and on the padded tail predict chunk;
+     predict's labels equal to the fused step's;
   5a. the "pallas" path at full size: fit + predict from the same seed,
      one assignment and one update launch per step, ending at the fused
      fit's energy; both kernels against their plain versions at the
@@ -31,8 +34,12 @@ Phases, each fatal on failure:
   7. fused against dense trajectories at a mid size, every fused step
      redone by the dense oracle, every fused-bounds step by the fused
      kernel;
-  8. kernel times (CUDA events) at the main path's shapes, beside their
-     bound, plain and library times.
+  8. kernel times (CUDA events) at the main path's shapes, the
+     assignment at both of its shapes (predict's chunk, and all rows as
+     the pallas fit launches it), beside their bound, plain and library
+     times.  A distance kernel's bound is the lower of its FP32-core bound
+     and its split-TF32 bound (three TF32 products per f32 product on the
+     tensor cores); both are printed.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -53,6 +60,7 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM FP32, CUDA cores
+PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
 MAIN_N_NAME = "USCensus1990"   # 2,458,285 x 69 (the paper's Table 1)
 MAIN_K = 1000
 
@@ -302,6 +310,23 @@ def bound_ms(n_bytes, n_ops):
                                        else "operations")
 
 
+def distance_bound_ms(n_bytes, n_cross, n_other):
+    """Bounds of a distance kernel whose cross terms x.c are ``n_cross``
+    f32 operations (2NKd) beside ``n_other`` others (norms, compares):
+    -> (bound ms, what bounds it, FP32-core bound ms, split-TF32 bound
+    ms).  f32-accurate cross terms take the FP32 cores at 67 TFLOP/s, or
+    three TF32 products on the tensor cores at 495 TFLOP/s while the rest
+    runs on the FP32 cores; the bound is the lower of the two."""
+    fp32, fp32_by = bound_ms(n_bytes, n_cross + n_other)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_tc = 3 * n_cross / PEAK_TF32_PER_S
+    t_other = n_other / PEAK_FP32_PER_S
+    tc = max(t_bytes, t_tc, t_other) * 1e3
+    tc_by = ("bytes" if t_bytes >= max(t_tc, t_other) else
+             "split-tf32 operations" if t_tc >= t_other else "operations")
+    return (tc, tc_by, fp32, tc) if tc < fp32 else (fp32, fp32_by, fp32, tc)
+
+
 def run():
     """All phases; returns (nvidia-smi line, device name).  Raises
     PhaseError (or whatever a failing call raises) on the first failure."""
@@ -364,10 +389,14 @@ def run():
                 print(f"    {line.strip()}")
     tile_rows = build.tile_rows()
     lib_rows = {kname: getattr(build.load(kname), f"{kname}_tile_rows")()
-                for kname in ("fused_lloyd", "update", "fused_bounds")}
+                for kname in ("fused_lloyd", "fused_bounds")}
     print(f"  rows per tile: {lib_rows}, csrc/nearest.cuh kTN {tile_rows}")
     check(set(lib_rows.values()) == {tile_rows},
           "the libraries and nearest.cuh disagree on the row tile")
+    lib_u = U._bind(build.load("update"))
+    spec_main = DATASETS[MAIN_N_NAME]
+    print(f"  update layout at the main shape: "
+          f"{U.layout(lib_u, spec_main.n, 1, MAIN_K, spec_main.d)}")
     sys.stdout.flush()
 
     print("phase 3: kernels against their plain versions")
@@ -442,6 +471,57 @@ def run():
               f"than {least} of its cells")
         cases.append((None, None, None, None, None, None, None, None,
                       (x_o, cb, None, *bnds), gs, got_b))
+    # cases of one kernel each: (label, launch, its first outputs)
+    single = []
+    # the update's cluster-range layout: K too large for one block
+    x_r = torch.randn((4000, 69), generator=gen, device=dev)
+    lab_r = torch.randint(-1, 20001, (4000,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    lay_r = U.layout(lib_u, 4000, 1, 20000, 69)
+    got_u = U.update(x_r, lab_r, 20000)
+    res_u = compare_stats(got_u, U.update_plain(x_r, lab_r, 20000))
+    print(f"  [update, K=20000 N=4000 d=69: {lay_r.ranges} cluster ranges x "
+          f"{lay_r.groups} column groups] sums {res_u['sums_rel']:.2e}, "
+          f"counts {res_u['counts_rel']:.2e}")
+    check(lay_r.ranges > 1, "K=20000 takes no cluster ranges")
+    accept_stats(res_u, "update [K=20000]")
+    single.append(("update K=20000", lambda: U.update(x_r, lab_r, 20000),
+                   got_u))
+    # exact ties: small integers, so every distance is exact; centroid
+    # j + 10 duplicates j, and j must win
+    x_t = torch.randint(-4, 5, (300, 6), generator=gen, device=dev).float()
+    c_t = torch.randint(-4, 5, (10, 6), generator=gen, device=dev).float()
+    c_t = torch.cat([c_t, c_t])
+    got_t = A.assignment(x_t, c_t)
+    want_t = A.assignment_plain(x_t, c_t)
+    print(f"  [assignment, exact ties: N=300 K=20 d=6] labels equal "
+          f"{torch.equal(got_t[0], want_t[0])}, all below the duplicates "
+          f"{bool((got_t[0] < 10).all())}, distances equal "
+          f"{torch.equal(got_t[1], want_t[1])}")
+    check(torch.equal(got_t[0], want_t[0]) and bool((got_t[0] < 10).all())
+          and torch.equal(got_t[1], want_t[1]),
+          "assignment: an exact tie did not go to the lowest index")
+    single.append(("assignment ties", lambda: A.assignment(x_t, c_t),
+                   got_t))
+    # a NaN row: NaN distance, label 0 (the first NaN), the rest unharmed
+    x_n = torch.randn((1000, 69), generator=gen, device=dev)
+    c_n = torch.randn((37, 69), generator=gen, device=dev)
+    x_n[7] = float("nan")
+    got_n = A.assignment(x_n, c_n)
+    want_n = A.assignment_plain(x_n, c_n)
+    nan_ok = bool(torch.isnan(got_n[1][7])) and int(got_n[0][7]) == 0 \
+        and torch.equal(torch.isnan(got_n[1]), torch.isnan(want_n[1]))
+    keep = ~torch.isnan(want_n[1])
+    res_n = compare(torch, (got_n[0][keep][None], got_n[1][keep][None]),
+                    (want_n[0][keep][None], want_n[1][keep][None]),
+                    x_n[keep], c_n[None], None)
+    print(f"  [assignment, a NaN row: N=1000 K=37 d=69] NaN row: label "
+          f"{int(got_n[0][7])}, distance {float(got_n[1][7])}; the other "
+          f"rows: {fmt(res_n)}")
+    check(nan_ok, "assignment: the NaN row is not NaN with label 0")
+    accept(res_n, "assignment [NaN row, the other rows]")
+    single.append(("assignment NaN row", lambda: A.assignment(x_n, c_n),
+                   got_n))
 
     print("phase 4: repeated launches are bitwise equal")
     for (x, c, w, got_f, got_a, lift, args_u, got_u, args_b, gs,
@@ -458,8 +538,15 @@ def run():
         for a, b in zip(got_b, again_b):
             check(torch.equal(a, b), f"[{label}] fused_bounds relaunch "
                   f"differs")
-    print(f"  all {len(cases)} cases, all four kernels: equal")
-    del cases
+    for label, launch, got in single:
+        again = launch()
+        for a, b in zip(got, again):
+            check(torch.equal(a, b) or (torch.isnan(a).any() and torch.equal(
+                torch.nan_to_num(a, nan=-1.0), torch.nan_to_num(b, nan=-1.0))),
+                  f"[{label}] relaunch differs")
+    print(f"  all {len(cases)} cases, all four kernels, and the "
+          f"{len(single)} single-kernel cases: equal")
+    del cases, single
     sys.stdout.flush()
 
     print("phase 5: main path at full size")
@@ -516,10 +603,13 @@ def run():
     print(f"  fused step vs plain step on the final centroids: "
           f"{fmt(res_main)}")
     accept(res_main, "fused at full size")
-    agree = float((torch.from_numpy(labels).to(dev) == got[0]).float()
-                  .mean())
+    # predict's sweep and the fused step's sum each distance in the same
+    # order, so their labels are equal
+    lab_pred = torch.from_numpy(labels).to(dev)
+    agree = float((lab_pred == got[0]).float().mean())
     print(f"  predict labels vs the fused step's on the same centroids: "
-          f"{agree:.7f} equal")
+          f"{agree:.7f} equal, {int((lab_pred != got[0]).sum())} rows "
+          f"differ")
     check(agree == 1.0, "predict and the fused step disagree")
     main_abs_err = res_main["mind_abs"]
     del got, want
@@ -774,8 +864,8 @@ def run():
     fused_plain_ms = event_ms(torch, lambda i: F.fused_lloyd_plain(x, c_fin),
                               3, warmup=1)
     fused_bytes = 4 * (n * d + k * d) + 4 * (2 * n + k * d + k + 1)
-    fused_ops = 2 * n * k * d + 3 * n * k + 2 * n * d
-    fused_bound, fused_by = bound_ms(fused_bytes, fused_ops)
+    fused_bound, fused_by, fused_fp32, fused_tc = distance_bound_ms(
+        fused_bytes, 2 * n * k * d, 3 * n * k + 2 * n * d)
     step = PREDICT_CHUNK
     n_chunks = n // step
 
@@ -793,15 +883,31 @@ def run():
                             dim=1)
 
     library_ms = event_ms(torch, library, 50)
-    assign_bytes = 4 * (step * d + k * d) + 4 * 2 * step
-    assign_ops = 2 * step * k * d + 3 * step * k
-    assign_bound, assign_by = bound_ms(assign_bytes, assign_ops)
+
+    def assign_bounds(rows):
+        return distance_bound_ms(4 * (rows * d + k * d) + 4 * 2 * rows,
+                                 2 * rows * k * d, 3 * rows * k)
+
+    assign_bound, assign_by, assign_fp32, assign_tc = assign_bounds(step)
+    # the shape the pallas fit gives it: all rows at R = 1
+    c_p = c_fin[None]
+    assign_full_ms = event_ms(torch, lambda i: A.assignment(x, c_p), 5)
+    library_full_ms = event_ms(
+        torch, lambda i: torch.argmin(torch.addmm(c_sq, x, c_fin.T,
+                                                  alpha=-2.0), dim=1), 5)
+    full_bound, full_by, full_fp32, full_tc = assign_bounds(n)
     print(f"  fused_lloyd (N={n}, K={k}, d={d}, R=1): {fused_ms!r} ms, "
-          f"bound {fused_bound!r} ms ({fused_by}), plain "
+          f"bound {fused_bound!r} ms ({fused_by}; FP32-core bound "
+          f"{fused_fp32!r} ms, split-TF32 bound {fused_tc!r} ms), plain "
           f"{fused_plain_ms!r} ms")
     print(f"  assignment (predict chunk {step} x {k} x {d}): "
-          f"{assign_ms!r} ms, bound {assign_bound!r} ms ({assign_by}), "
-          f"plain {assign_plain_ms!r} ms, matmul+argmin {library_ms!r} ms")
+          f"{assign_ms!r} ms, bound {assign_bound!r} ms ({assign_by}; "
+          f"FP32-core bound {assign_fp32!r} ms), plain {assign_plain_ms!r} "
+          f"ms, matmul+argmin {library_ms!r} ms")
+    print(f"  assignment (the pallas fit's shape: all {n} rows x {k} x {d}, "
+          f"R=1): {assign_full_ms!r} ms, bound {full_bound!r} ms "
+          f"({full_by}; FP32-core bound {full_fp32!r} ms), matmul+argmin "
+          f"{library_full_ms!r} ms")
     # the update kernel on the pallas fit's labels; its library yardstick
     # is the one call that computes the sums
     update_ms = event_ms(torch, lambda i: U.update(x, lab_p, k), 10)
@@ -818,12 +924,13 @@ def run():
           f"{update_lib_ms!r} ms")
 
     def bounds_cost(g, skip):
-        """(bytes, operations) of one bounded step with G groups of which
-        the share ``skip`` of (tile, group) cells is skipped."""
+        """(bytes, cross-term operations, other operations) of one bounded
+        step with G groups of which the share ``skip`` of (tile, group)
+        cells is skipped."""
         n_bytes = 4 * (n * d + k * d + 2 * n + n * g) \
             + 4 * (2 * n + n * g + k * d + k + 1) + 8
-        n_ops = (1.0 - skip) * (2 * n * k * d + 3 * n * k) + 2 * n * d
-        return n_bytes, n_ops
+        return (n_bytes, (1.0 - skip) * 2 * n * k * d,
+                (1.0 - skip) * 3 * n * k + 2 * n * d)
 
     bounds_rows = []
     for what, xb, cb, gs in (
@@ -840,11 +947,14 @@ def run():
         del out
         ms = event_ms(torch, lambda i: F.fused_lloyd(xb, cb, bounds=bnds,
                                                      gs=gs), 10)
-        b_ms, b_by = bound_ms(*bounds_cost(bnds[1].shape[-1], skip))
-        bounds_rows.append((what, skip, ms, b_ms, b_by, bnds))
+        b_ms, b_by, b_fp32, _ = distance_bound_ms(
+            *bounds_cost(bnds[1].shape[-1], skip))
+        bounds_rows.append((what, skip, ms, b_ms, b_by, b_fp32, bnds))
         print(f"  fused_bounds ({what}: G={bnds[1].shape[-1]}, skipped "
-              f"{skip!r}): {ms!r} ms, bound {b_ms!r} ms ({b_by})")
-    _, skip0, bounds_ms_main, bounds_bound, bounds_by, bnds0 = bounds_rows[0]
+              f"{skip!r}): {ms!r} ms, bound {b_ms!r} ms ({b_by}; FP32-core "
+              f"bound {b_fp32!r} ms)")
+    (_, skip0, bounds_ms_main, bounds_bound, bounds_by, bounds_fp32,
+     bnds0) = bounds_rows[0]
     bounds_plain_ms = event_ms(
         torch, lambda i: F.fused_bounds_plain(x, c_fin[None], None, *bnds0,
                                               gs_main, tile_rows), 3,
@@ -882,28 +992,32 @@ def run():
          "replaces": "src/repro/kernels/fused_lloyd.py:55",
          "launches": total["fused_lloyd"], "max_abs_err": main_abs_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms,
-         "bound_ms": fused_bound, "bound_by": fused_by, "library_ms": None},
+         "bound_ms": fused_bound, "bound_by": fused_by,
+         "fp32_bound_ms": fused_fp32, "library_ms": None},
         {"name": "assignment", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/assignment.cu",
          "replaces": "src/repro/kernels/assignment.py:37",
          "launches": total["assignment"], "max_abs_err": assign_abs_err,
          "ms": assign_ms, "plain_ms": assign_plain_ms,
          "bound_ms": assign_bound, "bound_by": assign_by,
-         "library_ms": library_ms},
+         "fp32_bound_ms": assign_fp32, "library_ms": library_ms,
+         "all_rows": {"ms": assign_full_ms, "bound_ms": full_bound,
+                      "bound_by": full_by, "fp32_bound_ms": full_fp32,
+                      "library_ms": library_full_ms}},
         {"name": "update", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/update.cu",
          "replaces": "src/repro/kernels/update.py:30",
          "launches": total["update"], "max_abs_err": update_abs_err,
          "ms": update_ms, "plain_ms": update_plain_ms,
          "bound_ms": update_bound, "bound_by": update_by,
-         "library_ms": update_lib_ms},
+         "fp32_bound_ms": update_bound, "library_ms": update_lib_ms},
         {"name": "fused_bounds", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_bounds.cu",
          "replaces": "src/repro/kernels/fused_lloyd.py:123",
          "launches": total["fused_bounds"], "max_abs_err": bounds_abs_err,
          "ms": bounds_ms_main, "plain_ms": bounds_plain_ms,
          "bound_ms": bounds_bound, "bound_by": bounds_by,
-         "library_ms": None},
+         "fp32_bound_ms": bounds_fp32, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     return smi, name

@@ -43,6 +43,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.assignment_error_string.restype = ctypes.c_char_p
         lib.assignment_max_features.argtypes = [ctypes.c_int]
         lib.assignment_max_features.restype = ctypes.c_int
+        lib.assignment_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.assignment_scratch_floats.restype = ctypes.c_longlong
     return lib
 
 
@@ -60,13 +62,14 @@ def assignment(x: torch.Tensor, c: torch.Tensor):
     tiles.check_cuda_operands(lib.assignment_max_features, x, c)
     labels = torch.empty((r, n), dtype=torch.int32, device=x.device)
     mind = torch.empty((r, n), dtype=torch.float32, device=x.device)
-    csq = torch.empty((r, k), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(lib.assignment_scratch_floats(r, k, d),
+                          dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.assignment_launch(
             x.data_ptr(), n * d if x.dim() == 3 else 0, c.data_ptr(),
-            r, n, k, d, csq.data_ptr(), labels.data_ptr(), mind.data_ptr(),
-            stream)
+            r, n, k, d, scratch.data_ptr(), labels.data_ptr(),
+            mind.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"assignment launch failed: CUDA error {rc} "
                            f"({lib.assignment_error_string(rc).decode()})")

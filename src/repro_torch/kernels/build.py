@@ -43,16 +43,22 @@ def _nvcc() -> str:
         "kernels of repro_torch build only where the CUDA toolkit is")
 
 
+def constant(source: str, name: str) -> int:
+    """The integer ``constexpr int <name> = <value>;`` of ``csrc/<source>``
+    (a value the built library also reports), read from the source where
+    no library can be built."""
+    found = re.search(rf"constexpr int {name} = (\d+);",
+                      (CSRC / source).read_text())
+    if found is None:
+        raise RuntimeError(f"csrc/{source} does not define {name}")
+    return int(found.group(1))
+
+
 def tile_rows() -> int:
     """Rows per X tile, ``kTN`` of ``csrc/nearest.cuh`` (what each
-    library's ``*_tile_rows()`` returns), read from the source so that
-    the plain versions tile rows as the kernels do where no library can
-    be built."""
-    found = re.search(r"constexpr int kTN = (\d+);",
-                      (CSRC / "nearest.cuh").read_text())
-    if found is None:
-        raise RuntimeError("csrc/nearest.cuh does not define kTN")
-    return int(found.group(1))
+    library's ``*_tile_rows()`` returns), so that the plain versions tile
+    rows as the kernels do."""
+    return constant("nearest.cuh", "kTN")
 
 
 def library_path(name: str) -> Path:

@@ -17,6 +17,7 @@ rows per tile, and pass them in here.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -24,6 +25,8 @@ import torch
 MAX_SLABS = 264          # 2 x 132 SMs: row slabs of the fused kernel
 PARTIAL_BYTES = 1 << 28  # cap on the fused kernel's per-slab partial stats
 MAX_PROBLEMS = 65535     # the grid's y extent
+UPDATE_BLOCKS = 132      # one update block on each of 132 SMs
+UPDATE_PARTIAL_BYTES = 24 << 20   # the update's partials: half the 50 MB L2
 
 
 def cdiv(a: int, b: int) -> int:
@@ -40,6 +43,87 @@ def slab_layout(n: int, r: int, k: int, d: int,
     cap = max(1, min(MAX_SLABS, PARTIAL_BYTES // (r * k * (d + 1) * 4)))
     per = cdiv(n_tiles, min(cap, n_tiles))
     return cdiv(n_tiles, per), per
+
+
+@dataclass(frozen=True)
+class UpdateLayout:
+    """Launch layout of the update kernel (csrc/update.cu).
+
+    Block (slab, range, group, r) owns the row tiles of one slab, the
+    clusters [q * range_k, min((q + 1) * range_k, K)) of range q and the
+    output columns [g * (d+1) // groups, (g+1) * (d+1) // groups) of group
+    g (column d is the weight total).  Its (range_k, width | 1) partial
+    lives in shared memory beside a ring of ``stages`` staged X tiles and
+    their labels and weights; ``smem_bytes`` is that carve-up."""
+    tile_rows: int
+    stages: int
+    groups: int
+    width: int           # columns of the widest group
+    warps: int           # warps per block; each owns columns of its group
+    ranges: int
+    range_k: int
+    slabs: int
+    tiles_per_slab: int
+    smem_bytes: int
+
+
+def update_staged_pitch(width: int) -> int:
+    """Floats of one staged X row of a ``width``-column group: the 16-byte
+    vectors that cover it from any alignment, plus 4 where that makes the
+    pitch 4 mod 8 (csrc/update.cu ``staged_pitch``)."""
+    vec = cdiv(width + 3, 4)
+    return 4 * vec + 4 * (vec % 2 == 0)
+
+
+def update_smem_bytes(tile_rows: int, stages: int, width: int,
+                      range_k: int) -> int:
+    """Shared bytes of one update block: the (range_k, width | 1) partial,
+    ``stages`` slots of a staged (tile_rows, update_staged_pitch(width))
+    X tile, its labels and its weights, and three words per row of two
+    tiles (the rows' peers); csrc/update.cu ``update_smem``."""
+    return 4 * (range_k * (width | 1)
+                + stages * tile_rows * (update_staged_pitch(width) + 2)
+                + 6 * tile_rows)
+
+
+def update_layout(n: int, r: int, k: int, d: int, tile_rows: int,
+                  stages: int, max_warps: int,
+                  smem_budget: int) -> UpdateLayout:
+    """The update kernel's layout for X (N, d) and K clusters over R label
+    sets.  ``tile_rows``, ``stages``, ``max_warps`` and ``smem_budget``
+    are the library's (``update_geometry``).
+
+    Column groups are as wide as the budget allows with all K clusters in
+    one block, balanced to within one column; where K is too large for a
+    group of ``min(max_warps, d+1)`` columns (one per warp), blocks also
+    split the clusters into ranges.  Slabs fill UPDATE_BLOCKS blocks, fewer
+    when the (R, slabs, K, d+1) partials would pass UPDATE_PARTIAL_BYTES.
+    Depends on the shapes only, so a relaunch is bitwise equal."""
+    if min(n, r, k, d) < 1:
+        raise ValueError(f"empty update: N={n} R={r} K={k} d={d}")
+    cols = d + 1
+    narrow = min(max_warps, cols)
+    # widest group holding all K clusters
+    widest = next((w for w in range(cols, 0, -1) if update_smem_bytes(
+        tile_rows, stages, w, k) <= smem_budget), 0)
+    if widest >= narrow:
+        groups = cdiv(cols, min(widest, cols))
+        width = cdiv(cols, groups)
+        ranges, range_k = 1, k
+    else:
+        groups = cdiv(cols, narrow)
+        width = cdiv(cols, groups)
+        room = smem_budget - update_smem_bytes(tile_rows, stages, width, 0)
+        ranges = cdiv(k, room // (4 * (width | 1)))
+        range_k = cdiv(k, ranges)
+    warps = min(max_warps, cols // groups)
+    n_tiles = cdiv(n, tile_rows)
+    cap = max(1, UPDATE_PARTIAL_BYTES // (r * k * cols * 4))
+    want = cdiv(UPDATE_BLOCKS, groups * ranges * r)
+    per = cdiv(n_tiles, min(n_tiles, cap, want))
+    return UpdateLayout(tile_rows, stages, groups, width, warps, ranges,
+                        range_k, cdiv(n_tiles, per), per,
+                        update_smem_bytes(tile_rows, stages, width, range_k))
 
 
 def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -91,7 +175,7 @@ def check_cuda_operands(max_features, *tensors: Optional[torch.Tensor]
     """What a kernel takes beyond ``problem_shape``: contiguous tensors on
     one CUDA device, no empty axis, and d within the shared-memory tile,
     whose width ``max_features(device index)`` reports (the library's
-    ``*_max_features``)."""
+    ``*_max_features``; None for a kernel that takes any d)."""
     present = [t for t in tensors if t is not None]
     dev = present[0].device
     for t in present:
@@ -102,6 +186,8 @@ def check_cuda_operands(max_features, *tensors: Optional[torch.Tensor]
             raise ValueError("kernel operands must be contiguous")
         if t.numel() == 0:
             raise ValueError(f"empty operand of shape {tuple(t.shape)}")
+    if max_features is None:
+        return
     d = present[0].shape[-1]
     widest = max_features(dev.index)
     if widest < 0:

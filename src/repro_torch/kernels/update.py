@@ -69,16 +69,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.update_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, i, i,
-                       p, p, p, p]
+        fn.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, i,
+                       i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.update_error_string.argtypes = [ctypes.c_int]
         lib.update_error_string.restype = ctypes.c_char_p
-        lib.update_max_features.argtypes = [ctypes.c_int]
-        lib.update_max_features.restype = ctypes.c_int
-        lib.update_tile_rows.argtypes = []
-        lib.update_tile_rows.restype = ctypes.c_int
+        lib.update_geometry.argtypes = [p]
+        lib.update_geometry.restype = None
     return lib
+
+
+def layout(lib: ctypes.CDLL, n: int, r: int, k: int,
+           d: int) -> tiles.UpdateLayout:
+    """The kernel's launch layout, with the geometry the library reports
+    (rows per tile, ring slots, most warps, shared bytes per block)."""
+    geom = (ctypes.c_int * 4)()
+    lib.update_geometry(geom)
+    return tiles.update_layout(n, r, k, d, *geom)
 
 
 def update(x: torch.Tensor, labels: torch.Tensor, k: int,
@@ -100,20 +107,20 @@ def update(x: torch.Tensor, labels: torch.Tensor, k: int,
     if k < 1:
         raise ValueError(f"k must be at least 1; got {k}")
     lib = _bind(build.load("update"))
-    tiles.check_cuda_operands(lib.update_max_features, x, labels, w)
-    n_slabs, per_slab = tiles.slab_layout(n, r, k, d,
-                                          lib.update_tile_rows())
+    tiles.check_cuda_operands(None, x, labels, w)
+    lay = layout(lib, n, r, k, d)
     f32 = dict(dtype=torch.float32, device=x.device)
     sums = torch.empty((r, k, d), **f32)
     counts = torch.empty((r, k), **f32)
-    part = torch.empty((r, n_slabs, k, d + 1), **f32)
+    part = torch.empty((r, lay.slabs, k, d + 1), **f32)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.update_launch(
             x.data_ptr(), n * d if x.dim() == 3 else 0, labels.data_ptr(),
-            None if w is None else w.data_ptr(), r, n, k, d, n_slabs,
-            per_slab, part.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-            stream)
+            None if w is None else w.data_ptr(), r, n, k, d, lay.groups,
+            lay.width, lay.warps, lay.ranges, lay.range_k, lay.slabs,
+            lay.tiles_per_slab, lay.smem_bytes, part.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"update launch failed: CUDA error {rc} "
                            f"({lib.update_error_string(rc).decode()})")

@@ -10,6 +10,10 @@ order than cuBLAS), sums within 1e-4 and counts within 1e-5 (reduction
 order), energy within 1e-6 relative.  The fused-bounds kernel besides:
 the skipped share exact and every skipped group's minimum bit for bit
 (both pass the input bound through), computed group minima within 1e-5.
+The assignment kernel's 8 x 8 sweep and the fused kernels' 4 x 4 one sum
+each cross term in the same order, so their distances are equal bit for
+bit.  On exact small-integer data every distance is exact, so a tie goes
+to the lowest index.  Relaunches are bitwise equal.
 """
 
 import numpy as np
@@ -72,7 +76,7 @@ def test_kernels_match_plain(cuda, n, d, k, r, x_batched, weights):
     np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
     lab, mind = A.assignment(x, c)
     np.testing.assert_array_equal(lab.cpu().numpy(), got[0].numpy())
-    assert torch.equal(mind.cpu(), got[1])        # the same sweep code
+    assert torch.equal(mind.cpu(), got[1])   # the same FMA chains
 
 
 @pytest.mark.gpu
@@ -111,7 +115,7 @@ def test_fit_runs_on_the_kernels(cuda):
     labels = m.predict(x)
     assert A.launches == 2 and A.plain_calls == 0       # 20000 rows
     # converged: the last step's labels are those of the final centroids,
-    # and both kernels run the same sweep
+    # and the two sweeps sum each distance in the same order
     np.testing.assert_array_equal(labels, m.labels_.cpu().numpy())
     cpu = AAKMeans(n_clusters=40, backend="fused", device="cpu").fit(
         x, c0s=c0s)
@@ -140,6 +144,73 @@ def test_update_matches_plain(cuda, n, d, k, r, x_batched, weights):
     np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
     again = U.update(x, labels, k, w)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_update_with_cluster_ranges(cuda):
+    """K = 20,000 is too many clusters for one block's shared memory, so
+    blocks split them into ranges as well as columns."""
+    x, labels, _ = _update_inputs(cuda, 4000, 69, 20000, None, False, None)
+    lay = U.layout(U._bind(build.load("update")), 4000, 1, 20000, 69)
+    assert lay.ranges > 1
+    got = [g.cpu() for g in U.update(x, labels, 20000)]
+    want = [v.cpu() for v in U.update_plain(x, labels, 20000)]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    again = U.update(x, labels, 20000)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+def test_assignment_tie_goes_to_the_lowest_index(cuda):
+    """Integer data: every distance is exact, so centroid j and its
+    duplicate j + 10 tie exactly, and j wins."""
+    rng = np.random.default_rng(11)
+    x = rng.integers(-4, 5, (500, 6)).astype(np.float32)
+    c = rng.integers(-4, 5, (10, 6)).astype(np.float32)
+    c2 = np.concatenate([c, c])
+    lab, mind = A.assignment(torch.from_numpy(x).to(cuda),
+                             torch.from_numpy(c2).to(cuda))
+    want = A.assignment_plain(torch.from_numpy(x), torch.from_numpy(c2))
+    assert int(lab.max()) < 10
+    np.testing.assert_array_equal(lab.cpu().numpy(), want[0].numpy())
+    np.testing.assert_array_equal(mind.cpu().numpy(), want[1].numpy())
+
+
+@pytest.mark.gpu
+def test_assignment_nan_row(cuda):
+    """A NaN row gets a NaN distance and label 0 (NaN first, lowest
+    index); the other rows are unharmed."""
+    x, c, _ = _inputs(cuda, 1000, 69, 37, None, False, None, seed=5)
+    x[7, 3] = float("nan")
+    lab, mind = (t.cpu() for t in A.assignment(x, c))
+    want = A.assignment_plain(x.cpu(), c.cpu())
+    assert torch.isnan(mind[7]) and int(lab[7]) == 0
+    np.testing.assert_array_equal(lab.numpy(), want[0].numpy())
+    keep = ~torch.isnan(want[1])
+    assert int(keep.sum()) == 999
+    np.testing.assert_allclose(mind[keep], want[1][keep], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_assignment_at_its_widest_d(cuda):
+    """The widest d the kernel takes (its X tile and shallowest C stage
+    fill a block's shared memory), with fewer and more rows than fill the
+    card."""
+    widest = A._bind(build.load("assignment")).assignment_max_features(0)
+    assert widest >= 818
+    for n in (300, 20000):
+        x, c, _ = _inputs(cuda, n, widest, 70, None, False, None, seed=n)
+        lab, mind = A.assignment(x, c)
+        want = A.assignment_plain(x, c)
+        np.testing.assert_array_equal(lab.cpu().numpy(),
+                                      want[0].cpu().numpy())
+        np.testing.assert_allclose(mind.cpu(), want[1].cpu(), rtol=1e-5,
+                                   atol=1e-5)
+    with pytest.raises(ValueError):
+        A.assignment(torch.zeros(10, widest + 1, device=cuda),
+                     torch.zeros(3, widest + 1, device=cuda))
 
 
 def _drifted_bounds(x, c, w, gs, steps=2):
