@@ -20,7 +20,9 @@ Phases, each fatal on failure:
      (2,458,285 x 69 f32); launch counts prove it ran on the kernels;
      both kernels against their plain versions on the final centroids,
      the assignment on a full and on the padded tail predict chunk;
-     predict's labels equal to the fused step's;
+     predict's labels equal to the fused step's, and the assignment
+     kernel's labels and distances at all rows equal to the fused step's
+     bit for bit;
   5a. the "pallas" path at full size: fit + predict from the same seed,
      one assignment and one update launch per step, ending at the fused
      fit's energy; both kernels against their plain versions at the
@@ -34,10 +36,13 @@ Phases, each fatal on failure:
   7. fused against dense trajectories at a mid size, every fused step
      redone by the dense oracle, every fused-bounds step by the fused
      kernel;
-  8. kernel times (CUDA events) at the main path's shapes, the
-     assignment at both of its shapes (predict's chunk, and all rows as
-     the pallas fit launches it), beside their bound, plain and library
-     times.  A distance kernel's bound is the lower of its FP32-core bound
+  8. kernel times (CUDA events) at the main path's shapes: the fused step,
+     the pallas pair (the assignment at all rows and the update) and the
+     bounded step at the default groups and at 64-centroid groups with
+     nothing skipped and on the cluster-ordered run's last step, in turns
+     (each time the mean of two turns in opposite orders), the fused
+     step's time over the pair's; the assignment at predict's chunk;
+     beside their bound, plain and library times.  A distance kernel's bound is the lower of its FP32-core bound
      and its split-TF32 bound (three TF32 products per f32 product on the
      tensor cores); both are printed.
 Every path is driven with the launch counts set to 0 just before it and
@@ -51,6 +56,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -77,8 +83,8 @@ CASES = [
 ]
 # group size of the fused-bounds kernel per case, none clipped by K (None:
 # the engine's default, 512 at K = 1000, so G = 2); 24, 40 and 200 divide
-# neither 64 (the row tile and the centroid chunk) nor K, and groups of
-# 200 and 512 span four and eight 64-centroid chunks
+# neither 64 (the row tile) nor K, groups of 200 straddle the 256-centroid
+# chunk at K = 700, and 512 spans two chunks
 CASE_GROUPS = (8, 24, 64, 40, 16, 24, None, 200)
 # cluster-ordered cases: (K, rows per cluster, group size, the least
 # skipped share); the owner's group never skips, so G = 2 skips < 1/2
@@ -385,14 +391,18 @@ def run():
     for kname in build.KERNELS:
         print(f"  {kname}: {build.library_path(kname).relative_to(ROOT)}")
         for line in logs[kname].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"    {line.strip()}")
+            entry = re.search(r"entry function '(\w+)'", line)
+            if entry:
+                print(f"    {entry.group(1)}")
+            elif "registers" in line or "spill" in line:
+                print(f"      {line.strip()}")
     tile_rows = build.tile_rows()
     lib_rows = {kname: getattr(build.load(kname), f"{kname}_tile_rows")()
                 for kname in ("fused_lloyd", "fused_bounds")}
-    print(f"  rows per tile: {lib_rows}, csrc/nearest.cuh kTN {tile_rows}")
+    print(f"  rows per tile: {lib_rows}, csrc/sweep_fp32.cuh kRows "
+          f"{tile_rows}")
     check(set(lib_rows.values()) == {tile_rows},
-          "the libraries and nearest.cuh disagree on the row tile")
+          "the libraries and sweep_fp32.cuh disagree on the row tile")
     lib_u = U._bind(build.load("update"))
     spec_main = DATASETS[MAIN_N_NAME]
     print(f"  update layout at the main shape: "
@@ -603,16 +613,26 @@ def run():
     print(f"  fused step vs plain step on the final centroids: "
           f"{fmt(res_main)}")
     accept(res_main, "fused at full size")
-    # predict's sweep and the fused step's sum each distance in the same
-    # order, so their labels are equal
+    # the fused step launches predict's sweep (sweep_fp32.cuh's
+    # launch_assign), so their labels are equal by construction: these
+    # checks hold the two wrappers' operands and outputs together
     lab_pred = torch.from_numpy(labels).to(dev)
     agree = float((lab_pred == got[0]).float().mean())
     print(f"  predict labels vs the fused step's on the same centroids: "
           f"{agree:.7f} equal, {int((lab_pred != got[0]).sum())} rows "
           f"differ")
     check(agree == 1.0, "predict and the fused step disagree")
+    # ... and so are their distances, bit for bit, at all rows
+    lab_all, mind_all = A.assignment(x, c_fin)
+    same_d = torch.equal(mind_all, got[1])
+    print(f"  the assignment kernel at all rows vs the fused step on the "
+          f"same centroids: labels equal {torch.equal(lab_all, got[0])}, "
+          f"distances equal bit for bit {same_d} "
+          f"({int((mind_all != got[1]).sum())} rows differ)")
+    check(same_d and torch.equal(lab_all, got[0]),
+          "the fused step's distances are not the assignment kernel's")
     main_abs_err = res_main["mind_abs"]
-    del got, want
+    del got, want, lab_all, mind_all
     # the assignment kernel at the shape predict gives it: a full chunk
     # and the tail chunk padded with copies of its last row
     tail = spec.n % PREDICT_CHUNK
@@ -860,7 +880,43 @@ def run():
     print("phase 8: times at the main path's shapes (CUDA events, after a "
           "warm-up)")
     n, d, k = spec.n, spec.d, MAIN_K
-    fused_ms = event_ms(torch, lambda i: F.fused_lloyd(x, c_fin), 10)
+    c_p = c_fin[None]
+    # the bounded kernel's three cases: at the init carry (ub = inf, so
+    # every cell computes) with the default groups and with gs_o, and the
+    # cluster-ordered run's last step
+    bounds_cases = []
+    for what, xb, cb, gs in (
+            ("default groups, skip 0", x, c_p, gs_main),
+            (f"gs {gs_o}, skip 0", x, c_p, gs_o),
+            (f"gs {gs_o}, the cluster-ordered run's last step", x_ord,
+             cs_last, gs_o)):
+        bnds = squared_bounds(bounds.init_carry(x, cb, k, gs), cb, k, gs) \
+            if xb is x else bnds_o
+        skip = float(F.fused_lloyd(xb, cb, bounds=bnds, gs=gs)[6][0])
+        bounds_cases.append((what, xb, cb, gs, bnds, skip))
+    # the kernels the main paths launch, timed in turns (this order, then
+    # the reverse), 10 launches a turn; each time is the mean of the turns
+    turned = {"fused_lloyd": lambda i: F.fused_lloyd(x, c_fin),
+              "assignment, all rows": lambda i: A.assignment(x, c_p),
+              "update": lambda i: U.update(x, lab_p, k)}
+    for what, xb, cb, gs, bnds, _ in bounds_cases:
+        turned[f"fused_bounds, {what}"] = (
+            lambda i, xb=xb, cb=cb, gs=gs, bnds=bnds: F.fused_lloyd(
+                xb, cb, bounds=bnds, gs=gs))
+    turns = {what: [] for what in turned}
+    for order in (list(turned), list(reversed(turned))):
+        for what in order:
+            turns[what].append(event_ms(torch, turned[what], 10))
+    turn_ms = {what: sum(ts) / len(ts) for what, ts in turns.items()}
+    print("  in turns: " + "; ".join(
+        f"{what} {ts!r} ms" for what, ts in turns.items()))
+    fused_ms = turn_ms["fused_lloyd"]
+    assign_full_ms = turn_ms["assignment, all rows"]
+    update_ms = turn_ms["update"]
+    pair_ms = assign_full_ms + update_ms
+    print(f"  fused step {fused_ms!r} ms against the pallas pair "
+          f"(assignment at all rows + update) {pair_ms!r} ms: "
+          f"{fused_ms / pair_ms!r} of it")
     fused_plain_ms = event_ms(torch, lambda i: F.fused_lloyd_plain(x, c_fin),
                               3, warmup=1)
     fused_bytes = 4 * (n * d + k * d) + 4 * (2 * n + k * d + k + 1)
@@ -890,8 +946,6 @@ def run():
 
     assign_bound, assign_by, assign_fp32, assign_tc = assign_bounds(step)
     # the shape the pallas fit gives it: all rows at R = 1
-    c_p = c_fin[None]
-    assign_full_ms = event_ms(torch, lambda i: A.assignment(x, c_p), 5)
     library_full_ms = event_ms(
         torch, lambda i: torch.argmin(torch.addmm(c_sq, x, c_fin.T,
                                                   alpha=-2.0), dim=1), 5)
@@ -910,7 +964,6 @@ def run():
           f"{library_full_ms!r} ms")
     # the update kernel on the pallas fit's labels; its library yardstick
     # is the one call that computes the sums
-    update_ms = event_ms(torch, lambda i: U.update(x, lab_p, k), 10)
     update_plain_ms = event_ms(torch, lambda i: U.update_plain(x, lab_p, k),
                                3, warmup=1)
     sums_buf = torch.zeros(k, d, device=dev)
@@ -933,30 +986,19 @@ def run():
                 (1.0 - skip) * 3 * n * k + 2 * n * d)
 
     bounds_rows = []
-    for what, xb, cb, gs in (
-            ("default groups, skip 0", x, c_fin[None], gs_main),
-            (f"gs {gs_o}, skip 0", x, c_fin[None], gs_o),
-            (f"gs {gs_o}, the cluster-ordered run's last step", x_ord,
-             cs_last, gs_o)):
-        if xb is x:      # the init carry: ub = inf, so every cell computes
-            bnds = squared_bounds(bounds.init_carry(x, cb, k, gs), cb, k, gs)
-        else:
-            bnds = bnds_o
-        out = F.fused_lloyd(xb, cb, bounds=bnds, gs=gs)
-        skip = float(out[6][0])
-        del out
-        ms = event_ms(torch, lambda i: F.fused_lloyd(xb, cb, bounds=bnds,
-                                                     gs=gs), 10)
+    for what, xb, cb, gs, bnds, skip in bounds_cases:
+        ms = turn_ms[f"fused_bounds, {what}"]
         b_ms, b_by, b_fp32, _ = distance_bound_ms(
             *bounds_cost(bnds[1].shape[-1], skip))
         bounds_rows.append((what, skip, ms, b_ms, b_by, b_fp32, bnds))
         print(f"  fused_bounds ({what}: G={bnds[1].shape[-1]}, skipped "
-              f"{skip!r}): {ms!r} ms, bound {b_ms!r} ms ({b_by}; FP32-core "
-              f"bound {b_fp32!r} ms)")
+              f"{skip!r}): {ms!r} ms ({ms / fused_ms!r} of the fused step), "
+              f"bound {b_ms!r} ms ({b_by}; FP32-core bound {b_fp32!r} ms)")
+    del bounds_cases
     (_, skip0, bounds_ms_main, bounds_bound, bounds_by, bounds_fp32,
      bnds0) = bounds_rows[0]
     bounds_plain_ms = event_ms(
-        torch, lambda i: F.fused_bounds_plain(x, c_fin[None], None, *bnds0,
+        torch, lambda i: F.fused_bounds_plain(x, c_p, None, *bnds0,
                                               gs_main, tile_rows), 3,
         warmup=1)
     print(f"  fused_bounds plain (default groups, skip 0): "

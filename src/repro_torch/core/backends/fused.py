@@ -1,9 +1,9 @@
-"""The single-pass kernel backend (counterpart of
+"""The fused kernel backend (counterpart of
 ``repro.core.backends.pallas.fused_backend``, lines 161-198).
 
 Every step slot is one launch of the fused Lloyd kernel
 (``kernels/fused_lloyd.py``): distances, argmin, weighted cluster stats
-and energy in one pass over X, R centroid sets per launch for the batched
+and energy in one call, R centroid sets per launch for the batched
 slot.  ``assign`` (predict) is the assignment kernel
 (``kernels/assignment.py``) and ``stats_fn`` the update kernel
 (``kernels/update.py``).  On CPU tensors they run their plain versions,

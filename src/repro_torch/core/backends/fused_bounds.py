@@ -1,4 +1,4 @@
-"""The tile-skipping single-pass engine, "fused_bounds" (counterpart of
+"""The tile-skipping fused engine, "fused_bounds" (counterpart of
 ``repro.core.backends.pallas.fused_bounds_backend``, lines 205-273).
 
 The fused step carrying the bound contract of ``backends/bounds.py``.

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels (``csrc/``), their wrappers and plain versions.
 
-    fused_lloyd  — one Lloyd step in one pass over X (labels, min
+    fused_lloyd  — one Lloyd step in one call (labels, min
                    distances, weighted cluster stats, energy); with
                    ``bounds=`` the variant that skips centroid groups
     assignment   — nearest centroid only (predict, the pallas engine)

@@ -55,10 +55,10 @@ def constant(source: str, name: str) -> int:
 
 
 def tile_rows() -> int:
-    """Rows per X tile, ``kTN`` of ``csrc/nearest.cuh`` (what each
+    """Rows per X tile, ``kRows`` of ``csrc/sweep_fp32.cuh`` (what each
     library's ``*_tile_rows()`` returns), so that the plain versions tile
     rows as the kernels do."""
-    return constant("nearest.cuh", "kTN")
+    return constant("sweep_fp32.cuh", "kRows")
 
 
 def library_path(name: str) -> Path:

@@ -1,5 +1,5 @@
-// One Lloyd step in one pass over X that skips centroid groups no row of
-// a tile can need, for Hopper (sm_90a).
+// One Lloyd step that skips centroid groups no row of a tile can need, for
+// Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/fused_lloyd.py::
 // _fused_bounds_kernel (pl.pallas_call at :262, launcher
@@ -8,10 +8,10 @@
 // row its previous label lab0, a squared upper bound ub^2 on the distance
 // to that centroid, and squared lower bounds lb^2 (N, G) on the distance
 // to every centroid of each group of gs contiguous centroids.  Group g of
-// a kTN-row tile is computed when any row of the tile that holds data has
-// lb^2[row, g] <= ub^2[row]; otherwise the whole block skips the group's
-// C loads and FMAs, and the group's lb^2 passes through as its new
-// minimum.  The running min starts at (ub^2, lab0) and the seed wins a
+// a 64-row tile (f8::kRows) is computed when any row of the tile that
+// holds data has lb^2[row, g] <= ub^2[row]; otherwise the whole block
+// skips the group's C loads and FMAs, and the group's lb^2 passes through
+// as its new minimum.  The running min starts at (ub^2, lab0) and the seed wins a
 // tie (nearest.cuh), so a row whose other groups are all skipped still
 // ends at its exact label.  Outputs: the fused step's five, the squared
 // group minima gmin^2 (R, N, G) (a computed group's minimum over its own
@@ -21,157 +21,236 @@
 // What bounds it on this card: the cross terms of the computed groups,
 // (1 - skip) * 2*N*K*d FP32 operations (67 TFLOP/s), against X, the
 // bounds and the group minima read or written once, (N*d + 2*N*G + 4*N)*4
-// bytes (3.35 TB/s).  The sweep is the fused step's (4 x 4 register
-// blocks from shared memory), visiting only the 64-centroid chunks that
-// meet a computed group and prefetching the next such chunk.  The group
-// size is a runtime value: a chunk may straddle groups, so centroids are
-// masked by group and each group's minimum is merged across the half
-// warp once, where the group ends.  Stats and energy are the fused
-// step's, deterministic in the same way (stats.cuh).
+// bytes (3.35 TB/s).  The design is the fused step's (fused_lloyd.cu: one
+// 64-row tile a block through the 8 x 8 sweep of sweep_fp32.cuh, then the
+// segment sum of segment_sum.cuh over the labels) with the C ring filled
+// from the computed groups only: the tile lists the 16-byte vectors of C
+// that hold a centroid of a computed group, a chunk of 64 ahead of the
+// sweep, and the sweep streams those (half the FMAs where they fill half of
+// one chunk), so its work follows the computed share at any group size
+// and its shared memory does not grow with K; a tile that computes every
+// group lists nothing and sweeps C in order.  A vector's centroids of
+// skipped groups are padding and never compete.  Each computed group's
+// minimum is merged across the warp at the end of each chunk it meets (a
+// group that goes on keeps its minimum so far in shared memory, not in
+// registers).  No atomics but the need bits' atomicOr, whose result does
+// not depend on the order.
 
-#include "stats.cuh"
+#include "segment_sum.cuh"
+#include "sweep_fp32.cuh"
 
 namespace repro {
 
 __host__ __device__ inline int need_words(int g) { return cdiv(g, 32); }
 
-__global__ void __launch_bounds__(kThreads)
-fused_bounds_step(const float* __restrict__ x, int64_t x_rstride,
-                  const float* __restrict__ c, const float* __restrict__ csq,
-                  const float* __restrict__ w, int64_t w_rstride,
-                  const int* __restrict__ lab0, const float* __restrict__ lb,
-                  const float* __restrict__ ub, int n, int k, int d, int gs,
-                  int g, int n_slabs, int tiles_per_slab,
-                  int* __restrict__ labels, float* __restrict__ mind,
-                  float* __restrict__ gmin, float* __restrict__ part,
-                  float* __restrict__ part_e,
-                  long long* __restrict__ part_skip) {
-  extern __shared__ float4 smem_raw[];
-  const Smem sm(reinterpret_cast<float*>(smem_raw), d);
-  unsigned* need = reinterpret_cast<unsigned*>(sm.lab + kTN);
-  const int slab = blockIdx.x, r = blockIdx.y;
-  const float* xr = x + r * x_rstride;
-  const float* cr = c + (int64_t)r * k * d;
-  const float* csqr = csq + (int64_t)r * k;
-  const float* wr = w ? w + r * w_rstride : nullptr;
-  const int* lab0r = lab0 + (int64_t)r * n;
-  const float* lbr = lb + (int64_t)r * n * g;
-  const float* ubr = ub + (int64_t)r * n;
-  float* gminr = gmin + (int64_t)r * n * g;
-  float* pr = part + ((int64_t)r * n_slabs + slab) * k * (d + 1);
-
-  zero_partials(pr, k, d);
-
-  float energy = 0.f;                       // meaningful in thread 0
-  long long skipped = 0;                    // meaningful in thread 0
-  const int tile_end = min((slab + 1) * tiles_per_slab, cdiv(n, kTN));
-  for (int tile = slab * tiles_per_slab; tile < tile_end; ++tile) {
-    const int64_t row0 = (int64_t)tile * kTN;
-    const int rows = n - row0 < kTN ? (int)(n - row0) : kTN;
-    __syncthreads();                        // last tile is done
-    if (threadIdx.x < kTN) {
-      const bool real = threadIdx.x < rows;
-      sm.w[threadIdx.x] = real ? (wr ? wr[row0 + threadIdx.x] : 1.f) : 0.f;
-      sm.mind[threadIdx.x] = real ? ubr[row0 + threadIdx.x] : 0.f;
-      sm.lab[threadIdx.x] = real ? lab0r[row0 + threadIdx.x] : 0;
-    }
-    for (int e = threadIdx.x; e < need_words(g); e += kThreads) need[e] = 0u;
-    load_x_tile(sm, xr, row0, rows, d);     // ends with __syncthreads()
-
-    // The skip test of every (tile, group) cell over the tile's real rows.
-    const float* lbt = lbr + row0 * g;
-    for (int e = threadIdx.x; e < rows * g; e += kThreads) {
-      const int grp = e % g;
-      if (lbt[e] <= sm.mind[e / g]) atomicOr(&need[grp >> 5], 1u << (grp & 31));
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int on = 0;
-      for (int q = 0; q < need_words(g); ++q) on += __popc(need[q]);
-      skipped += g - on;
-    }
-    // A skipped group's bound passes through as its minimum.
-    float* gmint = gminr + row0 * g;
-    for (int e = threadIdx.x; e < rows * g; e += kThreads) {
-      const int grp = e % g;
-      if (!((need[grp >> 5] >> (grp & 31)) & 1u)) gmint[e] = lbt[e];
-    }
-    const GroupSkip skip{need, gs, g, gmint, rows};
-    sweep<true>(sm, cr, csqr, k, d, skip);
-    energy += emit_tile(sm, rows, k, d, labels + (int64_t)r * n + row0,
-                        mind + (int64_t)r * n + row0, pr);
-  }
-  if (threadIdx.x == 0) {
-    part_e[(int64_t)r * n_slabs + slab] = energy;
-    part_skip[(int64_t)r * n_slabs + slab] = skipped;
-  }
+// Shared words beyond the sweep's: the open group minima (kRows), the
+// lists of live vectors (f8::kListWords) and the need bits.
+__host__ __device__ inline size_t bounds_extra(int g) {
+  return f8::kRows + f8::kListWords + need_words(g);
 }
 
-// Dynamic shared memory: the fused step's plus the need bits.
-__host__ inline size_t bounds_smem_bytes(int d, int g) {
-  return smem_bytes(d) + sizeof(unsigned) * need_words(g);
+constexpr int kLbRegs = 4;   // bounds a thread holds: 64 rows x 16 groups
+
+// kVecGroups: gs and K multiples of 4, so that each 4-centroid vector lies
+// in one group and below K (sweep_fp32.cuh then merges a chunk that lies in
+// one group without masks).
+template <bool kVecGroups>
+__global__ void __launch_bounds__(f8::kThreads, 2)
+bounds_tiles(const float* __restrict__ x, int64_t x_rstride,
+             const float* __restrict__ ct, const float* __restrict__ csq,
+             const int* __restrict__ lab0, const float* __restrict__ lb,
+             const float* __restrict__ ub, int n, int k, int d, int dc,
+             int gs, int g, int* __restrict__ labels,
+             float* __restrict__ mind, float* __restrict__ gmin,
+             int* __restrict__ part_skip) {
+  extern __shared__ float4 smem_raw[];
+  const f8::Tile sm(reinterpret_cast<float*>(smem_raw), d, dc, true);
+  unsigned* open = reinterpret_cast<unsigned*>(sm.extra);  // kRows
+  int* live = reinterpret_cast<int*>(open + f8::kRows);    // 2 x kVecs
+  int* scan = live + 2 * f8::kVecs;                        // kWarps + 1
+  unsigned* need = reinterpret_cast<unsigned*>(scan + f8::kWarps + 1);
+  const int r = blockIdx.y;
+  const int64_t row0 = (int64_t)blockIdx.x * f8::kRows;
+  const int rows = n - row0 < f8::kRows ? (int)(n - row0) : f8::kRows;
+  const int64_t at = (int64_t)r * n + row0;           // the tile's first row
+  // The tile's bounds, the first kLbRegs * 256 of its rows x G in
+  // registers.  The skip test and the live vectors come first, so that the
+  // first stage of C is in flight while X is stored.
+  const float* lbt = lb + at * g;
+  const int cells = rows * g;
+  float lbv[kLbRegs];
+#pragma unroll
+  for (int t = 0; t < kLbRegs; ++t) {
+    const int e = t * f8::kThreads + threadIdx.x;
+    lbv[t] = e < cells ? lbt[e] : 0.f;
+  }
+  if (threadIdx.x < f8::kRows) {
+    const bool real = threadIdx.x < rows;
+    sm.mind[threadIdx.x] = real ? ub[at + threadIdx.x] : 0.f;
+    sm.lab[threadIdx.x] = real ? lab0[at + threadIdx.x] : 0;
+  }
+  for (int e = threadIdx.x; e < need_words(g); e += f8::kThreads) need[e] = 0u;
+  if (threadIdx.x == 0) scan[f8::kWarps] = 0;   // the list's cursor
+  __syncthreads();
+
+  // The skip test of every (tile, group) cell over the tile's real rows.
+  // With G <= 32 every lane's bit is in word 0: a warp ORs its lanes' bits
+  // first, and one lane sets them.
+  // cell e = t * 256 + thread is row e / g, group e % g: stepped, not
+  // divided, from one t to the next
+  const int q_step = f8::kThreads / g, r_step = f8::kThreads % g;
+  auto next_cell = [&](int& row, int& grp) {
+    row += q_step;
+    grp += r_step;
+    if (grp >= g) {
+      grp -= g;
+      ++row;
+    }
+  };
+  int row_t = threadIdx.x / g, grp_t = threadIdx.x % g;
+  auto test = [&](int e, float bound) {
+    const int grp = grp_t;
+    const bool hit = e < cells && bound <= sm.mind[row_t];
+    next_cell(row_t, grp_t);
+    if (g <= 32) {
+      const unsigned bits =
+          __reduce_or_sync(0xffffffffu, hit ? 1u << grp : 0u);
+      if (threadIdx.x % 32 == 0 && bits) atomicOr(need, bits);
+    } else if (hit) {
+      atomicOr(&need[grp >> 5], 1u << (grp & 31));
+    }
+  };
+#pragma unroll
+  for (int t = 0; t < kLbRegs; ++t) {
+    if (t * f8::kThreads >= cells) break;
+    test(t * f8::kThreads + threadIdx.x, lbv[t]);
+  }
+  for (int e0 = kLbRegs * f8::kThreads; e0 < cells; e0 += f8::kThreads) {
+    const int e = e0 + threadIdx.x;
+    test(e, e < cells ? lbt[e] : 0.f);
+  }
+  __syncthreads();
+  int on = 0;                             // computed groups
+  for (int q = 0; q < need_words(g); ++q) on += __popc(need[q]);
+  if (threadIdx.x == 0) part_skip[(int64_t)r * gridDim.x + blockIdx.x] = g - on;
+  // A skipped group's bound passes through as its minimum.
+  float* gmint = gmin + at * g;
+  row_t = threadIdx.x / g;
+  grp_t = threadIdx.x % g;
+  auto pass = [&](int e, float bound) {
+    const int grp = grp_t;
+    next_cell(row_t, grp_t);
+    if (e < cells && !((need[grp >> 5] >> (grp & 31)) & 1u)) gmint[e] = bound;
+  };
+#pragma unroll
+  for (int t = 0; t < kLbRegs; ++t) {
+    if (t * f8::kThreads >= cells) break;
+    pass(t * f8::kThreads + threadIdx.x, lbv[t]);
+  }
+  for (int e0 = kLbRegs * f8::kThreads; e0 < cells; e0 += f8::kThreads) {
+    const int e = e0 + threadIdx.x;
+    pass(e, e < cells ? lbt[e] : 0.f);
+  }
+  const f8::Skip skip{need, live, scan, on == g, k, gs, g, open, gmint, rows};
+  const float* ctr = ct + (int64_t)r * d * f8::pad_centroids(k);
+  const float* csqr = csq + (int64_t)r * k;
+  // the live vectors of chunks 0 and 1 (the sweep lists the rest)
+  const int n_first = skip.fill(0);
+  if (n_first > 0) f8::start_stage<true>(sm, ctr, k, d, dc, 0, skip, n_first);
+  const int n_second = n_first == f8::kVecs ? skip.fill(1) : 0;
+  f8::load_rows(sm, x + r * x_rstride, row0, rows, d);
+  if (n_first <= f8::kVecs / 2)   // one chunk, half full: half the FMAs
+    f8::sweep<true, true, kVecGroups, true>(sm, ctr, csqr, k, d, dc, skip,
+                                            n_first);
+  else
+    f8::sweep<true, true, kVecGroups>(sm, ctr, csqr, k, d, dc, skip, n_first,
+                                      n_second);
+  if (threadIdx.x < rows) {
+    labels[at + threadIdx.x] = sm.lab[threadIdx.x];
+    mind[at + threadIdx.x] = sm.mind[threadIdx.x];
+  }
 }
 
 }  // namespace repro
 
 using namespace repro;
 
-// Launches the three kernels of one step on `stream`.  Pointers are device
-// pointers; w may be null (every weight 1).  x_rstride / w_rstride are the
-// element offsets between problems (0 when shared).  lab0 (R, N) int32,
-// lb (R, N, G) and ub (R, N) float32 are the squared bounds; gmin (R, N,
-// G) and skipped (R,) int64 are outputs besides the fused step's.  csq
-// (R*K floats), part (R*n_slabs*K*(d+1)), part_e (R*n_slabs) and
-// part_skip (R*n_slabs int64) are scratch.  Returns the first CUDA error
-// (0 on success); nothing synchronises.
+// Floats of scratch one launch needs: C transposed, |c|^2, the energy's
+// partials.
+extern "C" long long fused_bounds_scratch_floats(int r, int k, int d) {
+  return f8::scratch_floats(r, k, d) + (long long)r * kEnergyBlocks;
+}
+
+// Launches one step on `stream`, as fused_lloyd_launch does with the
+// bounded sweep.  lab0 (R, N) int32, lb (R, N, G) and ub (R, N) float32 are
+// the squared bounds; gmin (R, N, G) and skipped (R,) int64 are outputs
+// besides the fused step's.  part_skip (R * tiles int32) is scratch
+// besides fused_lloyd_launch's.  Returns the first CUDA error (0 on
+// success); nothing synchronises.
 extern "C" int fused_bounds_launch(
     const void* x, long long x_rstride, const void* c, const void* w,
     long long w_rstride, const void* lab0, const void* lb, const void* ub,
-    int r, int n, int k, int d, int gs, int g, int n_slabs,
-    int tiles_per_slab, void* csq, void* labels, void* mind, void* gmin,
-    void* part, void* part_e, void* part_skip, void* sums, void* counts,
-    void* energy, void* skipped, void* stream) {
+    int r, int n, int k, int d, int gs, int g, const int* lay, void* scratch,
+    void* labels, void* mind, void* gmin, void* part, void* part_skip,
+    void* sums, void* counts, void* energy, void* skipped, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t rows = (int64_t)r * k;
-  row_sqnorms<<<(unsigned)((rows + 7) / 8), kThreads, 0, s>>>(
-      static_cast<const float*>(c), rows, d, static_cast<float*>(csq));
-  cudaError_t err = cudaGetLastError();
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  const size_t extra = bounds_extra(g);
+  const int dc = f8::stage_depth(d, f8::optin_bytes(device), extra, true);
+  if (dc == 0) return (int)cudaErrorInvalidValue;
+  float *ct, *csq;
+  err = f8::prepare_c(s, static_cast<const float*>(c), r, k, d,
+                      static_cast<float*>(scratch), &ct, &csq);
   if (err != cudaSuccess) return (int)err;
 
-  const size_t smem = bounds_smem_bytes(d, g);
-  err = set_smem(fused_bounds_step, smem);
+  const size_t smem = f8::smem_bytes(d, dc, extra, true);
+  // REPRO_BOUNDS_GENERAL_MERGE (scripts/bounds_merge_probe.py builds a
+  // copy with it) takes the general merge at every group size
+#ifdef REPRO_BOUNDS_GENERAL_MERGE
+  auto kernel = bounds_tiles<false>;
+#else
+  auto kernel = gs % 4 == 0 && k % 4 == 0 ? bounds_tiles<true>
+                                          : bounds_tiles<false>;
+#endif
+  err = set_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  fused_bounds_step<<<dim3(n_slabs, r), kThreads, smem, s>>>(
-      static_cast<const float*>(x), x_rstride, static_cast<const float*>(c),
-      static_cast<const float*>(csq), static_cast<const float*>(w), w_rstride,
+  const int n_tiles = cdiv(n, f8::kRows);
+  const float* wf = static_cast<const float*>(w);
+  kernel<<<dim3(n_tiles, r), f8::kThreads, smem, s>>>(
+      static_cast<const float*>(x), x_rstride, ct, csq,
       static_cast<const int*>(lab0), static_cast<const float*>(lb),
-      static_cast<const float*>(ub), n, k, d, gs, g, n_slabs, tiles_per_slab,
+      static_cast<const float*>(ub), n, k, d, dc, gs, g,
       static_cast<int*>(labels), static_cast<float*>(mind),
-      static_cast<float*>(gmin), static_cast<float*>(part),
-      static_cast<float*>(part_e), static_cast<long long*>(part_skip));
+      static_cast<float*>(gmin), static_cast<int*>(part_skip));
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  return (int)launch_reduce_slabs(
-      s, r, static_cast<const float*>(part), static_cast<const float*>(part_e),
-      static_cast<const long long*>(part_skip), n_slabs, k, d,
-      static_cast<float*>(sums), static_cast<float*>(counts),
-      static_cast<float*>(energy), static_cast<long long*>(skipped));
+  const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
+                        lay[4], lay[5], lay[6], lay[7]};
+  err = launch_segment_sum(s, static_cast<const float*>(x), x_rstride,
+                           static_cast<const int*>(labels), wf, w_rstride, r,
+                           n, k, d, ul, static_cast<float*>(part),
+                           static_cast<float*>(sums),
+                           static_cast<float*>(counts));
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_energy(s, r, static_cast<const float*>(mind), wf,
+                            w_rstride, n, csq + (int64_t)r * k,
+                            static_cast<const int*>(part_skip), n_tiles,
+                            static_cast<float*>(energy),
+                            static_cast<long long*>(skipped));
 }
 
-// Widest d whose tile and G need bits fit the shared memory a block may
-// opt in to on `device`; -1 when the device cannot be queried.
+// Widest d whose tile, lists of live vectors and G need bits fit the
+// shared memory a block may opt in to on `device`, for G groups (any K);
+// -1 when the device cannot be queried.
 extern "C" int fused_bounds_max_features(int device, int g) {
-  const int widest = max_features(device);
-  if (widest < 0) return widest;
-  const long long bits = (long long)sizeof(unsigned) * need_words(g);
-  const long long per_col = (long long)sizeof(float) * kXLd;
-  const long long room = widest - (bits + per_col - 1) / per_col;
-  return room < 0 ? 0 : (int)room;
+  return f8::max_features(device, bounds_extra(g), true);
 }
 
-// Rows per tile: the unit of the slab layout and of the skip test.
-extern "C" int fused_bounds_tile_rows() { return kTN; }
+// Rows per tile: the unit of the skip test.
+extern "C" int fused_bounds_tile_rows() { return f8::kRows; }
 
 extern "C" const char* fused_bounds_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

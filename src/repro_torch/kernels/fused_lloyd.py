@@ -1,6 +1,9 @@
-"""One Lloyd step in one pass over X: the CUDA kernels
-``csrc/fused_lloyd.cu`` and ``csrc/fused_bounds.cu`` and their plain
-PyTorch versions.
+"""One Lloyd step in one call: the CUDA kernels ``csrc/fused_lloyd.cu``
+and ``csrc/fused_bounds.cu`` and their plain PyTorch versions.  On the
+card a step is the 8 x 8 sweep (labels and distances), then the update
+kernel's segment sum over those labels and the energy; the TPU kernel's
+single pass over X does not pay on the H100 (csrc/fused_lloyd.cu says
+why).
 
 Counterpart of ``repro.kernels.fused_lloyd.fused_lloyd_pallas``: the TPU
 kernel ``_fused_kernel``, and with ``bounds=`` the tile-skipping
@@ -20,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref, tiles
+from repro_torch.kernels import build, ref, tiles, update
 
 launches = 0
 plain_calls = 0
@@ -48,12 +51,22 @@ def fused_lloyd_plain(x: torch.Tensor, c: torch.Tensor,
     return stacked if batched else tuple(o[0] for o in stacked)
 
 
+def _stats_layout(lib: ctypes.CDLL, n: int, r: int, k: int, d: int):
+    """The segment sum's layout (tiles.update_layout, with the geometry
+    the library reports) and the same as the int array the launch takes."""
+    lay = update.layout(lib, n, r, k, d)
+    arr = (ctypes.c_int * 8)(lay.groups, lay.width, lay.warps, lay.ranges,
+                             lay.range_k, lay.slabs, lay.tiles_per_slab,
+                             lay.smem_bytes)
+    return lay, arr
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.fused_lloyd_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, p, ll, i, i, i, i, i, i,
-                       p, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, ll, p, p, ll, i, i, i, i, p,
+                       p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.fused_lloyd_error_string.argtypes = [ctypes.c_int]
         lib.fused_lloyd_error_string.restype = ctypes.c_char_p
@@ -61,13 +74,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.fused_lloyd_max_features.restype = ctypes.c_int
         lib.fused_lloyd_tile_rows.argtypes = []
         lib.fused_lloyd_tile_rows.restype = ctypes.c_int
+        lib.fused_lloyd_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.fused_lloyd_scratch_floats.restype = ctypes.c_longlong
+        lib.update_geometry.argtypes = [p]
+        lib.update_geometry.restype = None
     return lib
 
 
 def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
                 w: Optional[torch.Tensor] = None, *, bounds=None,
                 gs: Optional[int] = None):
-    """Assignment + weighted cluster stats + energy in ONE pass over x.
+    """Assignment + weighted cluster stats + energy in one call.
 
     x (N, d) or (R, N, d); c (K, d) or (R, K, d); w None, (N,) or (R, N)
     row weights that scale sums/counts/energy (labels and min_sqdist stay
@@ -97,17 +114,15 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"R={r} exceeds {tiles.MAX_PROBLEMS} problems")
     lib = _bind(build.load("fused_lloyd"))
     tiles.check_cuda_operands(lib.fused_lloyd_max_features, x, c, w)
-    n_slabs, per_slab = tiles.slab_layout(n, r, k, d,
-                                          lib.fused_lloyd_tile_rows())
+    lay, lay_arr = _stats_layout(lib, n, r, k, d)
     f32 = dict(dtype=torch.float32, device=x.device)
     labels = torch.empty((r, n), dtype=torch.int32, device=x.device)
     mind = torch.empty((r, n), **f32)
     sums = torch.empty((r, k, d), **f32)
     counts = torch.empty((r, k), **f32)
     energy = torch.empty((r,), **f32)
-    csq = torch.empty((r, k), **f32)
-    part = torch.empty((r, n_slabs, k, d + 1), **f32)
-    part_e = torch.empty((r, n_slabs), **f32)
+    scratch = torch.empty(lib.fused_lloyd_scratch_floats(r, k, d), **f32)
+    part = torch.empty((r, lay.slabs, k, d + 1), **f32)
     x_rstride = n * d if x.dim() == 3 else 0
     w_rstride = n if (w is not None and w.dim() == 2) else 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -115,10 +130,9 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
         rc = lib.fused_lloyd_launch(
             x.data_ptr(), x_rstride, c.data_ptr(),
             None if w is None else w.data_ptr(), w_rstride,
-            r, n, k, d, n_slabs, per_slab, csq.data_ptr(),
+            r, n, k, d, lay_arr, scratch.data_ptr(),
             labels.data_ptr(), mind.data_ptr(), part.data_ptr(),
-            part_e.data_ptr(), sums.data_ptr(), counts.data_ptr(),
-            energy.data_ptr(), stream)
+            sums.data_ptr(), counts.data_ptr(), energy.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"fused_lloyd launch failed: CUDA error {rc} "
                            f"({lib.fused_lloyd_error_string(rc).decode()})")
@@ -175,15 +189,19 @@ def _bind_bounds(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.fused_bounds_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, p, ll, p, p, p, i, i, i, i, i, i, i, i,
-                       p, p, p, p, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, ll, p, p, ll, p, p, p, i, i, i, i, i, i, p,
+                       p, p, p, p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.fused_bounds_error_string.argtypes = [ctypes.c_int]
         lib.fused_bounds_error_string.restype = ctypes.c_char_p
-        lib.fused_bounds_max_features.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.fused_bounds_max_features.argtypes = [ctypes.c_int] * 2
         lib.fused_bounds_max_features.restype = ctypes.c_int
         lib.fused_bounds_tile_rows.argtypes = []
         lib.fused_bounds_tile_rows.restype = ctypes.c_int
+        lib.fused_bounds_scratch_floats.argtypes = [ctypes.c_int] * 3
+        lib.fused_bounds_scratch_floats.restype = ctypes.c_longlong
+        lib.update_geometry.argtypes = [p]
+        lib.update_geometry.restype = None
     return lib
 
 
@@ -203,7 +221,8 @@ def _fused_bounds(x, c, w, bounds, gs):
         lambda dev: lib.fused_bounds_max_features(dev, g), x, c, w, lab0,
         lb_sq, ub_sq)
     tile_rows = lib.fused_bounds_tile_rows()
-    n_slabs, per_slab = tiles.slab_layout(n, r, k, d, tile_rows)
+    lay, lay_arr = _stats_layout(lib, n, r, k, d)
+    n_tiles = tiles.cdiv(n, tile_rows)
     f32 = dict(dtype=torch.float32, device=x.device)
     labels = torch.empty((r, n), dtype=torch.int32, device=x.device)
     mind = torch.empty((r, n), **f32)
@@ -212,10 +231,9 @@ def _fused_bounds(x, c, w, bounds, gs):
     counts = torch.empty((r, k), **f32)
     energy = torch.empty((r,), **f32)
     skipped = torch.empty((r,), dtype=torch.int64, device=x.device)
-    csq = torch.empty((r, k), **f32)
-    part = torch.empty((r, n_slabs, k, d + 1), **f32)
-    part_e = torch.empty((r, n_slabs), **f32)
-    part_skip = torch.empty((r, n_slabs), dtype=torch.int64, device=x.device)
+    scratch = torch.empty(lib.fused_bounds_scratch_floats(r, k, d), **f32)
+    part = torch.empty((r, lay.slabs, k, d + 1), **f32)
+    part_skip = torch.empty((r, n_tiles), dtype=torch.int32, device=x.device)
     x_rstride = n * d if x.dim() == 3 else 0
     w_rstride = n if (w is not None and w.dim() == 2) else 0
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -224,9 +242,9 @@ def _fused_bounds(x, c, w, bounds, gs):
             x.data_ptr(), x_rstride, c.data_ptr(),
             None if w is None else w.data_ptr(), w_rstride,
             lab0.data_ptr(), lb_sq.data_ptr(), ub_sq.data_ptr(),
-            r, n, k, d, int(gs), g, n_slabs, per_slab, csq.data_ptr(),
+            r, n, k, d, int(gs), g, lay_arr, scratch.data_ptr(),
             labels.data_ptr(), mind.data_ptr(), gmin_sq.data_ptr(),
-            part.data_ptr(), part_e.data_ptr(), part_skip.data_ptr(),
+            part.data_ptr(), part_skip.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), energy.data_ptr(),
             skipped.data_ptr(), stream)
     if rc != 0:
@@ -234,7 +252,10 @@ def _fused_bounds(x, c, w, bounds, gs):
             f"fused_bounds launch failed: CUDA error {rc} "
             f"({lib.fused_bounds_error_string(rc).decode()})")
     bounds_launches += 1
-    n_cells = torch.tensor(tiles.cdiv(n, tile_rows) * g, **f32)
+    # the cell count made on the card: a host tensor would be a copy that
+    # keeps the next launch waiting, a Python divisor a multiplication by
+    # its reciprocal, not the plain version's division
+    n_cells = torch.full((), n_tiles * g, **f32)
     skipped_frac = skipped.to(torch.float32) / n_cells
     out = (labels, mind, sums, counts, energy, gmin_sq, skipped_frac)
     return out if batched else tuple(o[0] for o in out)

@@ -10,7 +10,7 @@ a centroid past K never competes for the argmin (the TPU pads it with
 |c|^2 = f32 max), and a row past N adds nothing to the stats (the TPU
 gives it weight 0).
 
-The tile geometry is the CUDA sources' alone (csrc/nearest.cuh): the
+The tile geometry is the CUDA sources' alone (csrc/sweep_fp32.cuh): the
 wrappers ask the built library for the widest d a tile takes and for the
 rows per tile, and pass them in here.
 """
@@ -18,12 +18,10 @@ rows per tile, and pass them in here.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional
 
 import torch
 
-MAX_SLABS = 264          # 2 x 132 SMs: row slabs of the fused kernel
-PARTIAL_BYTES = 1 << 28  # cap on the fused kernel's per-slab partial stats
 MAX_PROBLEMS = 65535     # the grid's y extent
 UPDATE_BLOCKS = 132      # one update block on each of 132 SMs
 UPDATE_PARTIAL_BYTES = 24 << 20   # the update's partials: half the 50 MB L2
@@ -33,21 +31,10 @@ def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def slab_layout(n: int, r: int, k: int, d: int,
-                tile_rows: int) -> Tuple[int, int]:
-    """(n_slabs, tiles_per_slab) of the fused kernel: at most MAX_SLABS
-    contiguous slabs of ``tile_rows``-row tiles, fewer when the
-    (R, P, K, d+1) f32 partials would pass PARTIAL_BYTES.  Depends on the
-    shapes only, so a step is reproducible bit for bit."""
-    n_tiles = cdiv(n, tile_rows)
-    cap = max(1, min(MAX_SLABS, PARTIAL_BYTES // (r * k * (d + 1) * 4)))
-    per = cdiv(n_tiles, min(cap, n_tiles))
-    return cdiv(n_tiles, per), per
-
-
 @dataclass(frozen=True)
 class UpdateLayout:
-    """Launch layout of the update kernel (csrc/update.cu).
+    """Launch layout of the update kernel (csrc/update.cu, whose segment
+    sum csrc/segment_sum.cuh shares with the fused kernels).
 
     Block (slab, range, group, r) owns the row tiles of one slab, the
     clusters [q * range_k, min((q + 1) * range_k, K)) of range q and the
@@ -70,7 +57,7 @@ class UpdateLayout:
 def update_staged_pitch(width: int) -> int:
     """Floats of one staged X row of a ``width``-column group: the 16-byte
     vectors that cover it from any alignment, plus 4 where that makes the
-    pitch 4 mod 8 (csrc/update.cu ``staged_pitch``)."""
+    pitch 4 mod 8 (csrc/segment_sum.cuh ``staged_pitch``)."""
     vec = cdiv(width + 3, 4)
     return 4 * vec + 4 * (vec % 2 == 0)
 
@@ -80,7 +67,7 @@ def update_smem_bytes(tile_rows: int, stages: int, width: int,
     """Shared bytes of one update block: the (range_k, width | 1) partial,
     ``stages`` slots of a staged (tile_rows, update_staged_pitch(width))
     X tile, its labels and its weights, and three words per row of two
-    tiles (the rows' peers); csrc/update.cu ``update_smem``."""
+    tiles (the rows' peers); csrc/segment_sum.cuh ``update_smem``."""
     return 4 * (range_k * (width | 1)
                 + stages * tile_rows * (update_staged_pitch(width) + 2)
                 + 6 * tile_rows)

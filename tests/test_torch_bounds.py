@@ -195,8 +195,8 @@ CASES = {
 @pytest.mark.parametrize("gs", [8, 24, 40])
 @pytest.mark.parametrize("case", list(CASES))
 def test_fused_bounds_plain_matches_jax_kernel(case, gs):
-    """gs = 24 and 40 divide neither the 64-row tile nor a 64-centroid
-    chunk; the JAX kernel runs the port's row tile and gs as its k tile."""
+    """gs = 24 and 40 divide neither the 64-row tile nor K; the JAX kernel
+    runs the port's row tile and gs as its k tile."""
     n, d, k, r, x_batched, weights = CASES[case]
     x, c, w = _problem(n, d, k, r, x_batched, weights, seed=gs)
     xt, wt = torch.from_numpy(x), None if w is None else torch.from_numpy(w)
@@ -213,6 +213,53 @@ def test_fused_bounds_plain_matches_jax_kernel(case, gs):
         _j(args[0]), _j(args[1]), _j(args[2]), tn=tile_rows, tk=gs,
         interpret=True, bounds=tuple(_j(b) for b in args[3:])))
     _assert_bounded_step_close(got, want, x, bnds[1], bnds[2], tile_rows)
+
+
+def _loose_bounds(x, c, gs, rng):
+    """Valid bounds at any group size (the engine rounds its groups to 8):
+    lab0 the nearest centroid of c moved a little, ub^2 the squared
+    distance to it grown by 10%, lb^2 each group's squared minimum shrunk
+    by a random factor in [0.9, 1].  In f64, then f32."""
+    x64, c64 = x.astype(np.float64), c.astype(np.float64)
+    d2 = ((x64[:, None] - c64[None]) ** 2).sum(-1)
+    moved = c64 + 0.1 * rng.standard_normal(c.shape)
+    lab0 = ((x64[:, None] - moved[None]) ** 2).sum(-1).argmin(1)
+    ub_sq = 1.1 * d2[np.arange(len(x)), lab0]
+    k, g = c.shape[0], -(-c.shape[0] // gs)
+    d2 = np.concatenate([d2, np.full((len(x), g * gs - k), np.inf)], axis=1)
+    lb_sq = d2.reshape(len(x), g, gs).min(-1) * rng.uniform(0.9, 1.0,
+                                                              (len(x), g))
+    return (lab0.astype(np.int32), lb_sq.astype(np.float32),
+            ub_sq.astype(np.float32))
+
+
+@pytest.mark.parametrize("gs", [7, 100, 200])
+def test_fused_bounds_plain_matches_jax_kernel_across_chunks(gs):
+    """K = 300 > 256, so the CUDA kernel's 256-centroid chunks split the
+    centroids: groups of 100 and 200 straddle the chunk boundary, and 7 is
+    not a multiple of the 4-centroid copy vector.  The bounds are built at
+    exactly gs; rows come cluster by cluster, so cells skip."""
+    rng = np.random.default_rng(gs)
+    k, d, n = 300, 8, 390
+    centers = rng.standard_normal((k, d)).astype(np.float32) * 20.0
+    x = centers[np.sort(rng.integers(0, k, n))] + rng.standard_normal(
+        (n, d)).astype(np.float32)
+    c = centers + 0.5 * rng.standard_normal((k, d)).astype(np.float32)
+    w = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    bnds = _loose_bounds(x, c, gs, rng)
+    tile_rows = build.tile_rows()
+    got = F.fused_bounds_plain(torch.from_numpy(x), torch.from_numpy(c),
+                               torch.from_numpy(w),
+                               *(torch.from_numpy(b) for b in bnds), gs,
+                               tile_rows)
+    want = fused_lloyd_pallas(_j(x), _j(c), _j(w), tn=tile_rows, tk=gs,
+                              interpret=True,
+                              bounds=tuple(_j(b) for b in bnds))
+    assert 0.0 < float(got[6]) < 1.0
+    _assert_bounded_step_close(
+        [o[None] for o in got], [np.asarray(o)[None] for o in want], x,
+        torch.from_numpy(bnds[1])[None], torch.from_numpy(bnds[2])[None],
+        tile_rows)
 
 
 def test_fused_bounds_skips_on_ordered_rows():

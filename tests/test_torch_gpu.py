@@ -10,10 +10,11 @@ order than cuBLAS), sums within 1e-4 and counts within 1e-5 (reduction
 order), energy within 1e-6 relative.  The fused-bounds kernel besides:
 the skipped share exact and every skipped group's minimum bit for bit
 (both pass the input bound through), computed group minima within 1e-5.
-The assignment kernel's 8 x 8 sweep and the fused kernels' 4 x 4 one sum
-each cross term in the same order, so their distances are equal bit for
-bit.  On exact small-integer data every distance is exact, so a tie goes
-to the lowest index.  Relaunches are bitwise equal.
+The fused step launches the assignment kernel's own sweep (8 x 8 register
+blocks, csrc/sweep_fp32.cuh), so its labels and distances are the
+assignment's by construction; the bounded sweep computes each distance
+with the same FMA chain.  On exact small-integer data every distance is
+exact, so a tie goes to the lowest index.  Relaunches are bitwise equal.
 """
 
 import numpy as np
@@ -310,3 +311,171 @@ def test_cuda_tensors_never_reach_a_plain_version(cuda):
         get_backend(name).update(x, m.labels_, 12, m.centroids_)
     assert (F.plain_calls, F.bounds_plain_calls, A.plain_calls,
             U.plain_calls) == (0, 0, 0, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,r", [(5000, 69, 1000, None),
+                                     (3001, 20, 300, 3), (2000, 385, 50, None)])
+def test_fused_distances_equal_the_assignment(cuda, n, d, k, r):
+    """Several 256-centroid chunks and C stages: the fused step's labels and
+    min_sqdist are the assignment kernel's, bit for bit (both launch one
+    sweep: this holds the two wrappers' operands and outputs together)."""
+    x, c, _ = _inputs(cuda, n, d, k, r, False, None, seed=k)
+    got = F.fused_lloyd(x, c)
+    lab, mind = A.assignment(x, c)
+    assert torch.equal(got[0], lab) and torch.equal(got[1], mind)
+
+
+@pytest.mark.gpu
+def test_fused_at_k_20000(cuda):
+    """The largest partials: (slabs, 20000, d + 1) floats."""
+    x, c, w = _inputs(cuda, 6000, 16, 20000, None, False, "n", seed=2)
+    got = [g.cpu() for g in F.fused_lloyd(x, c, w)]
+    want = [v.cpu() for v in F.fused_lloyd_plain(x, c, w)]
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
+    again = F.fused_lloyd(x, c, w)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bounded", [False, True])
+def test_fused_at_its_widest_d(cuda, bounded):
+    """The widest d each fused kernel takes (its X tile, shallowest C stage
+    and own shared words fill a block's shared memory), and one more
+    raising ValueError."""
+    k, gs = 70, 16
+    g = -(-k // gs)
+    if bounded:
+        lib = F._bind_bounds(build.load("fused_bounds"))
+        widest = lib.fused_bounds_max_features(0, g)
+    else:
+        widest = F._bind(build.load("fused_lloyd")).fused_lloyd_max_features(0)
+    assert widest >= 700
+
+    def run(x, c):
+        if not bounded:
+            return F.fused_lloyd(x, c)
+        n = x.shape[0]
+        bnds = (torch.zeros(n, dtype=torch.int32, device=cuda),
+                torch.zeros(n, g, device=cuda),
+                torch.full((n,), float("inf"), device=cuda))
+        return F.fused_lloyd(x, c, bounds=bnds, gs=gs)
+
+    x, c, _ = _inputs(cuda, 300, widest, k, None, False, None, seed=3)
+    got = run(x, c)
+    want = F.fused_lloyd_plain(x, c)
+    np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                  want[0].cpu().numpy())
+    np.testing.assert_allclose(got[1].cpu(), want[1].cpu(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got[2].cpu(), want[2].cpu(), rtol=1e-4,
+                               atol=1e-4)
+    with pytest.raises(ValueError):
+        run(torch.zeros(10, widest + 1, device=cuda),
+            torch.zeros(k, widest + 1, device=cuda))
+
+
+def _loose_bounds(x, c, gs, seed):
+    """Valid bounds at any group size (the engine rounds its groups to 8):
+    lab0 the nearest centroid of c moved a little, ub^2 the squared
+    distance to it grown by 10%, lb^2 each group's squared minimum shrunk
+    by a random factor in [0.9, 1]."""
+    rng = np.random.default_rng(seed)
+    x64, c64 = x.double(), c.double()
+    d2 = torch.cdist(x64, c64) ** 2
+    moved = c64 + 0.1 * torch.from_numpy(
+        rng.standard_normal(tuple(c.shape))).to(c.device)
+    lab0 = torch.cdist(x64, moved).argmin(dim=1)
+    ub_sq = 1.1 * d2.gather(1, lab0[:, None])[:, 0]
+    k, g = c.shape[0], -(-c.shape[0] // gs)
+    pad = torch.full((x.shape[0], g * gs - k), float("inf"),
+                     dtype=torch.float64, device=x.device)
+    gmin = torch.cat([d2, pad], dim=1).reshape(-1, g, gs).amin(dim=-1)
+    shrink = torch.from_numpy(rng.uniform(0.9, 1.0, tuple(gmin.shape)))
+    lb_sq = gmin * shrink.to(x.device)
+    return (lab0.to(torch.int32), lb_sq.float().contiguous(),
+            ub_sq.float().contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gs", [7, 100, 200, 512])
+def test_fused_bounds_group_sizes_at_k_1000(cuda, gs):
+    """Groups that do not divide 4 (7), straddle the 256-centroid chunk
+    (100, 200) or span chunks (512).  Rows come cluster by cluster, three
+    to a centroid, so many (tile, group) cells skip."""
+    rng = np.random.default_rng(gs)
+    centers = rng.standard_normal((1000, 24)).astype(np.float32) * 20.0
+    x = np.repeat(centers, 3, axis=0) + rng.standard_normal(
+        (3000, 24)).astype(np.float32)
+    c = centers + 0.5 * rng.standard_normal((1000, 24)).astype(np.float32)
+    w = rng.uniform(0.0, 2.0, 3000).astype(np.float32)
+    x, c, w = (torch.from_numpy(a).to(cuda) for a in (x, c, w))
+    bnds = _loose_bounds(x, c, gs, seed=gs)
+    got = [g.cpu() for g in F.fused_lloyd(x, c, w, bounds=bnds, gs=gs)]
+    want = [v.cpu() for v in F.fused_bounds_plain(
+        x, c, w, *bnds, gs, build.tile_rows())]
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    atol = 1e-6 * float(torch.sum(x * x, dim=-1).max())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
+    assert torch.equal(got[6], want[6]) and float(got[6]) > 0.4
+    skipped = ~ref.computed_cells(bnds[1].cpu(), bnds[2].cpu(),
+                                  build.tile_rows())
+    assert torch.equal(got[5][skipped], bnds[1].cpu()[skipped])
+    np.testing.assert_allclose(got[5], want[5], rtol=1e-5, atol=atol)
+    again = F.fused_lloyd(x, c, w, bounds=bnds, gs=gs)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("skipping", [False, True])
+def test_fused_bounds_at_k_120000(cuda, skipping):
+    """K = 120,000 at d = 69, past where a list of all the live vectors
+    would fill a block's shared memory: the bounded kernel lists them a
+    chunk at a time.  Without skipping every group is computed (469
+    chunks), and the labels and distances are the assignment kernel's bit
+    for bit; with skipping, rows come in runs near nearby centroids, so a
+    tile computes a few of its 235 groups, split over several chunks."""
+    k, d, n, gs = 120_000, 69, 1024, 512
+    g = -(-k // gs)
+    rng = np.random.default_rng(12)
+    centers = rng.standard_normal((k, d)).astype(np.float32) * 4.0
+    pick = np.sort(rng.choice(k, n, replace=False))
+    x = centers[pick] + rng.standard_normal((n, d)).astype(np.float32)
+    c = centers + 0.1 * rng.standard_normal((k, d)).astype(np.float32)
+    x, c = (torch.from_numpy(a).to(cuda) for a in (x, c))
+    if skipping:
+        bnds = _loose_bounds(x, c, gs, seed=12)
+    else:
+        bnds = (torch.zeros(n, dtype=torch.int32, device=cuda),
+                torch.zeros(n, g, device=cuda),
+                torch.full((n,), float("inf"), device=cuda))
+    got = [t.cpu() for t in F.fused_lloyd(x, c, bounds=bnds, gs=gs)]
+    want = [t.cpu() for t in F.fused_bounds_plain(
+        x, c, None, *bnds, gs, build.tile_rows())]
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    atol = 1e-6 * float(torch.sum(x * x, dim=-1).max())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
+    assert torch.equal(got[6], want[6])
+    np.testing.assert_allclose(got[5], want[5], rtol=1e-5, atol=atol)
+    if skipping:
+        assert float(got[6]) > 0.5
+        skipped = ~ref.computed_cells(bnds[1].cpu(), bnds[2].cpu(),
+                                      build.tile_rows())
+        assert torch.equal(got[5][skipped], bnds[1].cpu()[skipped])
+    else:
+        assert float(got[6]) == 0.0
+        lab, mind = A.assignment(x, c)
+        assert torch.equal(got[0], lab.cpu()) and torch.equal(got[1],
+                                                              mind.cpu())
+    again = F.fused_lloyd(x, c, bounds=bnds, gs=gs)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))

@@ -18,7 +18,7 @@ from repro.kernels.assignment import assignment_pallas
 from repro.kernels.fused_lloyd import fused_lloyd_pallas
 from repro_torch.kernels import assignment as A
 from repro_torch.kernels import fused_lloyd as F
-from repro_torch.kernels import tiles
+from repro_torch.kernels import build, tiles
 
 torch.set_num_threads(2)
 
@@ -154,14 +154,19 @@ def test_operand_checks(case, exc):
                                      (2_458_285, 1, 1000, 69),
                                      (100_000, 3, 256, 69),
                                      (10_000_000, 8, 65536, 128)])
-def test_slab_layout_covers_every_tile(n, r, k, d):
-    tile_rows = 64                       # fused_lloyd_tile_rows() of the .cu
-    n_slabs, per = tiles.slab_layout(n, r, k, d, tile_rows)
-    n_tiles = tiles.cdiv(n, tile_rows)
-    assert 1 <= n_slabs <= tiles.MAX_SLABS
-    assert (n_slabs - 1) * per < n_tiles <= n_slabs * per
-    assert n_slabs == 1 or \
-        r * n_slabs * k * (d + 1) * 4 <= tiles.PARTIAL_BYTES
+def test_stats_layout_covers_every_row_and_cluster(n, r, k, d):
+    """The fused kernels add their stats with the update kernel's segment
+    sum: its layout, at their shapes, gives every row tile, cluster and
+    output column (d + 1, the last the weight total) one block."""
+    geom = tuple(build.constant("segment_sum.cuh", name) for name in (
+        "kUpdateRows", "kUpdateStages", "kUpdateWarps", "kUpdateSmem"))
+    lay = tiles.update_layout(n, r, k, d, *geom)
+    rows = lay.tiles_per_slab * lay.tile_rows
+    assert (lay.slabs - 1) * rows < n <= lay.slabs * rows
+    assert lay.ranges * lay.range_k >= k > (lay.ranges - 1) * lay.range_k
+    assert lay.groups * lay.width >= d + 1
+    assert lay.slabs == 1 or \
+        r * lay.slabs * k * (d + 1) * 4 <= tiles.UPDATE_PARTIAL_BYTES
 
 
 def test_pad_rows_repeats_the_last_row():

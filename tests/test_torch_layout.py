@@ -6,7 +6,8 @@ checked on the CPU (nothing here needs a card or the JAX package):
 * ``tiles.update_layout`` — the update kernel's blocks cover every row
   tile, output column and cluster exactly once, fit the shared memory of a
   block (232,448 bytes on an H100), give every warp a column, and depend
-  on the shapes alone.  The geometry is read from csrc/update.cu, as the
+  on the shapes alone.  The geometry is read from csrc/segment_sum.cuh
+  (the update kernel's, which the fused kernels share), as the
   built library reports it.
 * split TF32 — cross terms as three TF32 products,
   x_hi.c_hi + (x_hi.c_lo + x_lo.c_hi), with f32 sums.  Emulated here with
@@ -32,8 +33,9 @@ SMEM_PER_BLOCK = 232448          # H100: the most shared memory of a block
 
 
 def _geometry():
-    """(tile_rows, stages, max_warps, smem_budget) of csrc/update.cu."""
-    return tuple(build.constant("update.cu", name) for name in (
+    """(tile_rows, stages, max_warps, smem_budget) of
+    csrc/segment_sum.cuh."""
+    return tuple(build.constant("segment_sum.cuh", name) for name in (
         "kUpdateRows", "kUpdateStages", "kUpdateWarps", "kUpdateSmem"))
 
 
@@ -45,7 +47,8 @@ SHAPES = [(2458285, 1000, 69, 1), (16384, 1000, 69, 1), (1000, 1, 69, 1),
           (65, 20000, 818, 2), (1, 1, 1, 1), (4097, 1000, 9, 1)]
 
 
-# what block (slab, range q, group g) owns, as csrc/update.cu computes it
+# what block (slab, range q, group g) owns, as csrc/segment_sum.cuh
+# computes it
 def _rows(lay, n, slab):
     per = lay.tiles_per_slab * lay.tile_rows
     return min(slab * per, n), min((slab + 1) * per, n)
