@@ -13,7 +13,8 @@ Phases, each fatal on failure:
      divide 64, the default 512 at K = 1000 among them, and on
      cluster-ordered cases where most cells skip); the update at
      K = 20,000 (cluster ranges); the assignment on exact integer ties
-     (the lowest index wins) and on a NaN row;
+     (the lowest index wins) and on a NaN row; two cases at the paper's
+     Table 3 shapes (K = 10 on d = 2, K = 100 on d = 3);
   4. repeated launches of every case are bitwise equal;
   5. the main path at full size: AAKMeans(n_clusters=1000,
      backend="fused").fit(x).predict(x) on the USCensus1990 shape
@@ -42,9 +43,30 @@ Phases, each fatal on failure:
      nothing skipped and on the cluster-ordered run's last step, in turns
      (each time the mean of two turns in opposite orders), the fused
      step's time over the pair's; the assignment at predict's chunk;
-     beside their bound, plain and library times.  A distance kernel's bound is the lower of its FP32-core bound
+     beside their bound, plain and library times; the dense oracle's
+     one-hot stats against index_add_, and its step.  A distance kernel's bound is the lower of its FP32-core bound
      and its split-TF32 bound (three TF32 products per f32 product on the
      tensor cores); both are printed.
+  9. the single-problem path at full size: aa_kmeans(backend="fused")
+     from phase 5's seeds equals phase 5's fit bit for bit (it is the
+     batched driver at R = 1); aa_kmeans_traced on an instrumented engine
+     takes its iterations, with one pass for the init, one per accepted
+     iteration, two per rejected one and one that detects convergence;
+  10. the paper's Tables 2 and 3 at full size on the same data: Table 3's
+     five cases (kmeans++, afk-mc2, bf, clarans at K = 10, clarans at
+     K = 100, seeded on the card and timed apart), each as lloyd_kmeans
+     against aa_kmeans on "dense" and as the same-engine pair on "fused";
+     lloyd_iteration on pallas_lloyd_ops (the assignment and update
+     kernels) against the dense ops; the traced fused_bounds engine at
+     K = 100; Table 2's fixed and dynamic m at m0 = 2 and 5.  Energies
+     finite, seeds (K, d) on the card, a converged Lloyd run's labels its
+     centroids' assignment, each algorithm's fused and dense runs within
+     1e-3; who wins is printed, not checked.  Then the fused step, the
+     assignment and the update against their plain versions at each
+     case's last AA centroids, and the bounded step with 16-centroid
+     groups at K = 100, as phases 3 and 5 hold them;
+Phases 9 and 10 run between phases 7 and 8, so that phase 8's kernel line
+counts their launches.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -80,17 +102,24 @@ CASES = [
     ("wide d=561", 1500, 40, 561, 2, False, "rn"),
     ("K=1000, default groups", 3000, 1000, 69, None, False, "n"),
     ("R=2, K=700", 2500, 700, 40, 2, False, "rn"),
+    ("Table 3: K=10, d=2", 5000, 10, 2, None, False, None),
+    ("Table 3: K=100, d=3", 5000, 100, 3, None, False, "n"),
 ]
 # group size of the fused-bounds kernel per case, none clipped by K (None:
 # the engine's default, 512 at K = 1000, so G = 2); 24, 40 and 200 divide
 # neither 64 (the row tile) nor K, groups of 200 straddle the 256-centroid
-# chunk at K = 700, and 512 spans two chunks
-CASE_GROUPS = (8, 24, 64, 40, 16, 24, None, 200)
+# chunk at K = 700, and 512 spans two chunks; at Table 3's shapes 8 gives
+# G = 2 at K = 10 and 24 G = 5 at K = 100
+CASE_GROUPS = (8, 24, 64, 40, 16, 24, None, 200, 8, 24)
 # cluster-ordered cases: (K, rows per cluster, group size, the least
 # skipped share); the owner's group never skips, so G = 2 skips < 1/2
 ORDERED_CASES = ((64, 256, 8, 0.5), (1000, 80, 200, 0.5),
                  (1000, 80, None, 0.25))
 ORDERED_GS = 64   # groups of the cluster-ordered runs (G = 16 at K = 1000)
+# the paper's Table 3 cases (seeding, K) and phase 10's iteration cap
+TABLE3_CASES = (("kmeans++", 10), ("afk-mc2", 10), ("bf", 10),
+                ("clarans", 10), ("clarans", 100))
+PHASE10_MAX_ITER = 1000
 
 
 class PhaseError(RuntimeError):
@@ -333,12 +362,276 @@ def distance_bound_ms(n_bytes, n_cross, n_other):
     return (tc, tc_by, fp32, tc) if tc < fp32 else (fp32, fp32_by, fp32, tc)
 
 
+def phase9(torch, x, c0, model, zero_counts, read_counts, path_launches):
+    """The single-problem path at full size: aa_kmeans on phase 5's data
+    from phase 5's seeds is phase 5's fit (the batched driver at R = 1)
+    bit for bit; the traced driver on an instrumented engine counts one
+    pass for the init, one per accepted iteration, two per rejected one
+    and one that detects convergence, and takes aa_kmeans's iterations."""
+    import numpy as np
+    from repro_torch.core.backends import get_backend, instrument
+    from repro_torch.core.kmeans import (KMeansConfig, aa_kmeans,
+                                         aa_kmeans_traced)
+    print("phase 9: the single-problem path at full size (aa_kmeans, "
+          "fused, phase 5's seeds)")
+    cfg = KMeansConfig(k=MAIN_K, max_iter=model.max_iter)
+    zero_counts()
+    t0 = time.perf_counter()
+    res = aa_kmeans(x, c0, cfg, backend="fused")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, plain = read_counts()
+    path_launches["aa_kmeans (fused)"] = counts
+    n_iter, n_acc = int(res.n_iter), int(res.n_accepted)
+    converged = bool(res.converged)
+    trips = 2 * n_iter - 2 + int(converged) - n_acc
+    same = {"labels": torch.equal(res.labels, model.labels_),
+            "centroids": torch.equal(res.centroids, model.centroids_),
+            "energy": float(res.energy) == model.inertia_,
+            "n_iter": n_iter == model.n_iter_,
+            "n_accepted": n_acc == model.n_accepted_}
+    print(f"  aa_kmeans: {wall!r} s wall, n_iter {n_iter}, n_accepted "
+          f"{n_acc}, converged {converged}, energy {float(res.energy)!r}; "
+          f"trips {trips}, fused launches {counts['fused_lloyd']}, "
+          f"plain-version calls {plain}")
+    print(f"  equal bit for bit to phase 5's fit: {same}", flush=True)
+    check(all(same.values()), f"aa_kmeans differs from phase 5's fit: "
+          f"{same}")
+    check(counts["fused_lloyd"] == 1 + trips and plain == 0
+          and sum(counts.values()) == counts["fused_lloyd"],
+          "aa_kmeans did not run on the fused kernel, one launch a trip")
+    passes = []
+    bk = instrument(get_backend("fused"), lambda: passes.append(1))
+    zero_counts()
+    tr = aa_kmeans_traced(x, c0, cfg, backend=bk)
+    counts_t, plain_t = read_counts()
+    path_launches["aa_kmeans_traced (fused)"] = counts_t
+    expected = 1 + sum(1 if a else 2 for a in tr.accepted) \
+        + int(bool(tr.result.converged))
+    m = np.array(tr.m_values)
+    print(f"  aa_kmeans_traced on the instrumented engine: "
+          f"{tr.wall_time_s!r} s wall, n_iter {int(tr.result.n_iter)}, "
+          f"n_accepted {int(tr.result.n_accepted)}; steps {len(passes)} vs "
+          f"1 + sum(1 if accepted else 2) + converged = {expected}; fused "
+          f"launches {counts_t['fused_lloyd']}; m over the iterations: mean "
+          f"{float(m.mean())!r}, max {int(m.max())}", flush=True)
+    check(len(passes) == expected == counts_t["fused_lloyd"]
+          and plain_t == 0, "the traced pass count breaks the acceptance "
+          "formula")
+    check(int(tr.result.n_iter) == n_iter
+          and int(tr.result.n_accepted) == n_acc,
+          "aa_kmeans_traced takes other iterations than aa_kmeans")
+    sys.stdout.flush()
+
+
+def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
+            tile_rows):
+    """The paper's protocols on the card at full size on the USCensus1990
+    stand-in: Table 3's five cases (seeded on the card, seeding timed
+    apart), each as lloyd_kmeans against aa_kmeans on "dense" and as the
+    same-engine pair on "fused"; one lloyd_iteration on the assignment
+    and update kernels (pallas_lloyd_ops) against the dense ops; the
+    traced bounded engine at K = 100; Table 2's four runs.  Who wins is
+    printed, not checked.  Then each kernel against its plain version at
+    phase 10's shapes; -> the largest absolute distance (update: sums)
+    error per kernel."""
+    import numpy as np
+    from benchmarks_torch.common import timed
+    from repro_torch.core.anderson import AAConfig
+    from repro_torch.core import init_schemes
+    from repro_torch.core.backends import get_backend
+    from repro_torch.core.init_schemes import INIT_SCHEMES
+    from repro_torch.core.kmeans import (KMeansConfig, aa_kmeans,
+                                         aa_kmeans_traced)
+    from repro_torch.core.lloyd import lloyd_iteration, lloyd_kmeans
+    from repro_torch.kernels import assignment as A
+    from repro_torch.kernels import fused_lloyd as F
+    from repro_torch.kernels import update as U
+    from repro_torch.kernels.ops import pallas_lloyd_ops
+    n, d = x.shape
+    cap = PHASE10_MAX_ITER
+    print(f"phase 10: Tables 2 and 3 on the card ({MAIN_N_NAME}, {n} x {d}; "
+          f"max_iter {cap}, the protocol's 1000)")
+    fused = get_backend("fused")
+
+    def once(fn):
+        """(output, wall s) of one run, ending in a device sync."""
+        return timed(fn, warmup=0, reps=1)
+
+    zero_counts()
+    summary = {"dense": [0, 0, 0], "fused": [0, 0, 0]}  # wins, iter wins, n
+    seeds, finals = {}, {}
+    for init, k in TABLE3_CASES:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        c0, seed_s = once(lambda: INIT_SCHEMES[init](gen, x, k))
+        check(tuple(c0.shape) == (k, d) and c0.device.type == "cuda",
+              f"{init} seeds: shape {tuple(c0.shape)} on {c0.device}")
+        seeds[(init, k)] = c0
+        cfg = KMeansConfig(k=k, max_iter=cap)
+        lcfg = KMeansConfig(k=k, max_iter=cap, accelerated=False)
+        lloyd_d, t_ld = once(lambda: lloyd_kmeans(x, c0, k, cap))
+        aa_d, t_ad = once(lambda: aa_kmeans(x, c0, cfg, backend="dense"))
+        lloyd_f, t_lf = once(lambda: aa_kmeans(x, c0, lcfg, backend=fused))
+        aa_f, t_af = once(lambda: aa_kmeans(x, c0, cfg, backend=fused))
+        rows = (("dense", lloyd_d[3], float(lloyd_d[2]), t_ld, aa_d, t_ad),
+                ("fused", int(lloyd_f.n_iter), float(lloyd_f.energy), t_lf,
+                 aa_f, t_af))
+        finals[(init, k)] = aa_f.centroids
+        # clarans's swap trials (one cost read each), so that its seeding
+        # time can be read per trial
+        line = [f"  {init} K={k}: seeding {seed_s!r} s"
+                + (f" ({init_schemes.clarans_trials} trials)"
+                   if init == "clarans" else "")]
+        for eng, it_l, e_l, t_l, aa, t_a in rows:
+            e_a = float(aa.energy)
+            check(np.isfinite(e_l) and np.isfinite(e_a),
+                  f"{init} K={k} {eng}: a non-finite energy")
+            summary[eng][0] += int(t_a < t_l)
+            summary[eng][1] += int(int(aa.n_iter) < it_l)
+            summary[eng][2] += 1
+            line.append(f"{eng}: Lloyd {it_l} it {t_l!r} s mse "
+                        f"{e_l / n!r} | AA {int(aa.n_accepted)}/"
+                        f"{int(aa.n_iter)} {t_a!r} s mse {e_a / n!r}")
+        # each algorithm on the two engines from the same seeds: only
+        # rounding sets them apart (phase 6's 1e-3)
+        rel_l = abs(float(lloyd_f.energy) - float(lloyd_d[2])) \
+            / float(lloyd_d[2])
+        rel_a = abs(float(aa_f.energy) - float(aa_d.energy)) \
+            / float(aa_d.energy)
+        line.append(f"fused vs dense final energies: Lloyd {rel_l:.2e}, "
+                    f"AA {rel_a:.2e} relative")
+        print("\n    ".join(line), flush=True)
+        check(rel_l <= 1e-3 and rel_a <= 1e-3, f"{init} K={k}: the fused "
+              f"and dense runs end far apart")
+        # Lloyd's fixed point: a converged run's labels are the assignment
+        # of its centroids (each engine's own assignment)
+        if lloyd_d[3] < cap:
+            check(torch.equal(lloyd_d[1], get_backend("dense").assign(
+                x, lloyd_d[0]).labels), f"{init} K={k}: dense Lloyd's "
+                "labels are not its centroids' assignment")
+        if bool(lloyd_f.converged):
+            check(torch.equal(lloyd_f.labels, fused.assign(
+                x, lloyd_f.centroids).labels), f"{init} K={k}: fused "
+                "Lloyd's labels are not its centroids' assignment")
+        # one Lloyd step on the assignment and update kernels against the
+        # dense ops, and both against the f64 means of the kernels' labels:
+        # the dense ops sum a cluster's rows (~250,000 at K = 10) in long
+        # f32 matmul accumulations, about 1e-5 from the exact means, so
+        # between the two only the stats' reduction-order tolerance holds
+        # (1e-4 of their scale, as phases 3-5a); the kernels are held to
+        # 1e-5 of the exact means
+        c1_p, lab_p, e_p = lloyd_iteration(x, c0, k, ops=pallas_lloyd_ops())
+        c1_d, lab_d, e_d = lloyd_iteration(x, c0, k)
+        agree, gap = tie_gap(torch, lab_p[None], lab_d[None], x, c0[None])
+        sums = torch.zeros((k, d), dtype=torch.float64, device=dev)
+        sums.index_add_(0, lab_p.long(), x.double())
+        counts = torch.bincount(lab_p.long(), minlength=k).double()
+        exact = torch.where(counts[:, None] > 0, sums / counts.clamp_min(
+            1.0)[:, None], c0.double())
+        scale = exact.abs().max().clamp_min(1.0)
+        err_p = float((c1_p.double() - exact).abs().max() / scale)
+        err_d = float((c1_d.double() - exact).abs().max() / scale)
+        err_pd = float((c1_p - c1_d).abs().max()
+                       / c1_d.abs().max().clamp_min(1.0))
+        print(f"    lloyd_iteration on pallas_lloyd_ops vs the dense ops: "
+              f"labels agree {agree:.7f} (near-tie gap {gap:.2e}), "
+              f"centroids {err_pd:.2e} of their scale, energy rel "
+              f"{abs(float(e_p) - float(e_d)) / float(e_d):.2e}; against "
+              f"the f64 means: kernels {err_p:.2e}, dense ops {err_d:.2e}")
+        check(agree == 1.0 or gap <= 1e-5, f"{init} K={k}: pallas ops' "
+              f"labels differ beyond a near tie")
+        check(err_pd <= 1e-4, f"{init} K={k}: pallas ops' centroids off "
+              f"the dense ops' by {err_pd:.2e}")
+        check(err_p <= 1e-5, f"{init} K={k}: pallas ops' centroids off "
+              f"the f64 means by {err_p:.2e}")
+    for eng, (wins, iter_wins, total) in summary.items():
+        print(f"  Table 3 summary, {eng}: AA faster in {wins}/{total}, fewer "
+              f"iterations in {iter_wins}/{total}")
+    # the bounded engine's trace at K = 100 (16-centroid groups, G = 7)
+    c0 = seeds[("clarans", 100)]
+    tr = aa_kmeans_traced(x, c0, KMeansConfig(k=100, max_iter=cap),
+                          backend=get_backend("fused_bounds",
+                                              group_size=16))
+    post = tr.bound_phases["post_accept"]
+    print(f"  aa_kmeans_traced on fused_bounds (clarans K=100, gs 16): "
+          f"{int(tr.result.n_accepted)}/{int(tr.result.n_iter)} in "
+          f"{tr.wall_time_s!r} s, mse {tr.mse!r}; skipped share after the "
+          f"first accepted iteration {post['skipped_frac']!r} over "
+          f"{post['n_iters']} iterations")
+    check(np.isfinite(tr.mse) and len(tr.bound_stats) == len(tr.energies),
+          "the bounded trace")
+    # Table 2: fixed and dynamic m from the kmeans++ seeds at K = 10
+    c0 = seeds[("kmeans++", 10)]
+    times = {}
+    for m0 in (2, 5):
+        for dynamic in (False, True):
+            cfg = KMeansConfig(k=10, max_iter=cap,
+                               aa=AAConfig(m0=m0, dynamic_m=dynamic))
+            tr = aa_kmeans_traced(x, c0, cfg, backend="dense")
+            check(np.isfinite(tr.mse), "Table 2: a non-finite energy")
+            times[(m0, dynamic)] = tr.wall_time_s
+            print(f"  Table 2, m0={m0} {'dynamic' if dynamic else 'fixed'}: "
+                  f"{int(tr.result.n_accepted)}/{int(tr.result.n_iter)} "
+                  f"{tr.wall_time_s!r} s mse {tr.mse!r}, m mean "
+                  f"{float(np.mean(tr.m_values))!r} max "
+                  f"{max(tr.m_values)}")
+    print(f"  Table 2 summary: dynamic m faster at m0=2 "
+          f"{times[(2, True)] <= times[(2, False)]}, at m0=5 "
+          f"{times[(5, True)] <= times[(5, False)]}")
+    counts, plain = read_counts()
+    path_launches["Tables 2 and 3"] = counts
+    print(f"  launches: {counts}; plain-version calls {plain}", flush=True)
+    check(plain == 0, "phase 10 called a plain version")
+    check(all(v > 0 for v in counts.values()),
+          "phase 10 did not launch every kernel")
+    # every kernel of phase 10 against its plain version at the shapes
+    # phase 10 gives it (the counts are read, so these launches are not
+    # the path's): the fused step, the assignment and the update at each
+    # case's last AA centroids and their labels (means: the seeds are rows
+    # of x, where |x|^2 - 2 x.c + |c|^2 cancels to a few ulps of |x|^2 on
+    # either side), and the bounded step with 16-centroid groups on the
+    # bounds of two real steps from the clarans K = 100 seeds
+    errs = dict.fromkeys(counts, 0.0)
+    for (init, k), c in finals.items():
+        got = tuple(o[None] for o in F.fused_lloyd(x, c))
+        res = compare(torch, got, tuple(o[None] for o in F.fused_lloyd_plain(
+            x, c)), x, c[None], None)
+        res_a = compare(torch, tuple(o[None] for o in A.assignment(x, c)),
+                        tuple(o[None] for o in A.assignment_plain(x, c)),
+                        x, c[None], None)
+        lab = got[0][0]
+        res_u = compare_stats(U.update(x, lab, k), U.update_plain(x, lab, k))
+        print(f"  [{init} K={k}, last AA centroids] fused vs plain: "
+              f"{fmt(res)}; assignment vs plain: {fmt(res_a)}; update vs "
+              f"plain: sums {res_u['sums_rel']:.2e} (abs "
+              f"{res_u['sums_abs']:.2e}), counts {res_u['counts_rel']:.2e}")
+        accept(res, f"fused [{init} K={k}]")
+        accept(res_a, f"assignment [{init} K={k}]")
+        accept_stats(res_u, f"update [{init} K={k}]")
+        errs["fused_lloyd"] = max(errs["fused_lloyd"], res["mind_abs"])
+        errs["assignment"] = max(errs["assignment"], res_a["mind_abs"])
+        errs["update"] = max(errs["update"], res_u["sums_abs"])
+    cb, gs, bnds = drifted_bounds(16, x, seeds[("clarans", 100)][None],
+                                  None, steps=2)
+    res_b = compare_bounds(torch, F.fused_lloyd(x, cb, bounds=bnds, gs=gs),
+                           F.fused_bounds_plain(x, cb, None, *bnds, gs,
+                                                tile_rows),
+                           x, cb, None, bnds[1], bnds[2], tile_rows)
+    print(f"  [clarans K=100, two steps' bounds] fused_bounds (gs={gs}, "
+          f"G={bnds[1].shape[-1]}) vs plain: {fmt_bounds(res_b)}",
+          flush=True)
+    accept_bounds(res_b, "fused_bounds [clarans K=100, gs 16]",
+                  exact_labels=False)
+    errs["fused_bounds"] = res_b["mind_abs"]
+    return errs
+
+
 def run():
     """All phases; returns (nvidia-smi line, device name).  Raises
     PhaseError (or whatever a failing call raises) on the first failure."""
     import numpy as np
     import torch
-    from repro_torch.core import AAKMeans, get_backend
+    from repro_torch.core import AAKMeans, get_backend, lloyd
     from repro_torch.core.api import PREDICT_CHUNK
     from repro_torch.core.backends import bounds
     from repro_torch.core.backends.fused_bounds import (engine_group_size,
@@ -569,8 +862,11 @@ def run():
           f"and copied in {time.perf_counter() - t0:.1f} s")
     check(tuple(x.shape) == (spec.n, spec.d), "dataset shape")
     t0 = time.perf_counter()
-    batched_init("kmeans++", torch.Generator(device=dev).manual_seed(0), x,
-                 MAIN_K, 1)
+    # the fit's own seeds (AAKMeans seeds from a generator at seed 0);
+    # phase 9 starts from them
+    c0_main = batched_init("kmeans++",
+                           torch.Generator(device=dev).manual_seed(0), x,
+                           MAIN_K, 1)[0]
     torch.cuda.synchronize()
     seed_s = time.perf_counter() - t0
     model = AAKMeans(n_clusters=MAIN_K, backend="fused", n_init=1)
@@ -877,6 +1173,15 @@ def run():
     del xm, runs
     sys.stdout.flush()
 
+    phase9(torch, x, c0_main, model, zero_counts, read_counts,
+           path_launches)
+    errs10 = phase10(torch, dev, x, zero_counts, read_counts, path_launches,
+                     tile_rows)
+    main_abs_err = max(main_abs_err, errs10["fused_lloyd"])
+    assign_abs_err = max(assign_abs_err, errs10["assignment"])
+    update_abs_err = max(update_abs_err, errs10["update"])
+    bounds_abs_err = max(bounds_abs_err, errs10["fused_bounds"])
+
     print("phase 8: times at the main path's shapes (CUDA events, after a "
           "warm-up)")
     n, d, k = spec.n, spec.d, MAIN_K
@@ -975,6 +1280,23 @@ def run():
           f"{update_ms!r} ms, bound {update_bound!r} ms ({update_by}), "
           f"plain {update_plain_ms!r} ms, index_add_ (sums only) "
           f"{update_lib_ms!r} ms")
+    # the dense oracle's stats (lloyd.weighted_cluster_sums: one-hot
+    # matmuls over row chunks, so they repeat bit for bit) against the
+    # index_add_ pair they replace, and the dense step they sit in
+    ones = torch.ones(n, device=dev)
+    lab_l = lab_p.long()
+    onehot_ms = event_ms(torch, lambda i: lloyd.weighted_cluster_sums(
+        x, lab_p, ones, k), 3, warmup=1)
+    index_add_ms = event_ms(torch, lambda i: (
+        torch.zeros(k, d, device=dev).index_add_(0, lab_l, x),
+        torch.zeros(k, device=dev).index_add_(0, lab_l, ones)), 3, warmup=1)
+    dense = get_backend("dense")
+    dense_step_ms = event_ms(torch, lambda i: dense.step(x, c_fin, k), 3,
+                             warmup=1)
+    print(f"  the dense oracle's stats (N={n}, K={k}, d={d}): one-hot "
+          f"chunks {onehot_ms!r} ms, index_add_ (sums and counts) "
+          f"{index_add_ms!r} ms; the dense step {dense_step_ms!r} ms")
+    del ones, lab_l
 
     def bounds_cost(g, skip):
         """(bytes, cross-term operations, other operations) of one bounded

@@ -1,7 +1,18 @@
-"""Algorithm 1 of the paper, batched over R restarts or problems
-(counterpart of ``repro.core.kmeans``: ``_init_state`` :131,
-``_complete_batched_iteration`` :519, ``_batched_body`` :579, the
-non-segmented ``aa_kmeans_batched`` :666-756, ``select_best`` :831).
+"""Algorithm 1 of the paper (counterpart of ``repro.core.kmeans``:
+``_init_state`` :131, ``aa_kmeans`` :415, ``_complete_batched_iteration``
+:519, ``_batched_body`` :579, the non-segmented ``aa_kmeans_batched``
+:666-756, ``select_best`` :831, ``KMeansTrace`` / ``split_bound_phases``
+/ ``aa_kmeans_traced`` :1126-1245).
+
+Three drivers over one loop body:
+
+  * ``aa_kmeans_batched`` — R restarts or problems driven together;
+  * ``aa_kmeans``         — one problem: the batched driver at R = 1, so
+                            both give the same bits;
+  * ``aa_kmeans_traced``  — one problem, recording per iteration what the
+                            paper's Tables 2 and 3 report (energies, the
+                            window size m, acceptances, bound stats, the
+                            wall time).
 
 The JAX ``lax.while_loop`` becomes a host loop with one device-to-host
 sync per trip (``any(active)``).  Each trip is ONE batched backend step
@@ -18,6 +29,7 @@ the reference vmaps per restart is written out over that axis.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, NamedTuple, Optional, Union
 
 import torch
@@ -25,6 +37,9 @@ import torch
 from repro_torch.core import anderson
 from repro_torch.core.anderson import AAConfig, AAState
 from repro_torch.core.backends import Backend, get_backend
+from repro_torch.core.backends.base import from_lloyd_ops
+from repro_torch.core.backends.bounds import extract_stats
+from repro_torch.core.lloyd import DENSE_OPS, LloydOps
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,20 +81,27 @@ class _BatchedState(NamedTuple):
     pending: torch.Tensor
 
 
-BackendLike = Union[str, Backend, None]
+BackendLike = Union[str, Backend, LloydOps, None]
 
 
-def resolve_backend(backend: BackendLike) -> Backend:
-    """A Backend passes through, a registry name is looked up, None is
-    the dense engine."""
+def resolve_backend(backend: BackendLike,
+                    ops: Optional[LloydOps] = None) -> Backend:
+    """The (backend=, ops=) pair the solvers accept: a Backend passes
+    through, a registry name is looked up, a legacy LloydOps (as backend=
+    or as a non-default ops=) is adapted through ``from_lloyd_ops``;
+    otherwise the dense engine."""
     if isinstance(backend, Backend):
         return backend
     if isinstance(backend, str):
         return get_backend(backend)
-    if backend is None:
-        return get_backend("dense")
-    raise TypeError(f"backend= expects a registry name or a Backend; got "
-                    f"{type(backend).__name__}")
+    if isinstance(backend, LloydOps):
+        return from_lloyd_ops(backend)
+    if backend is not None:
+        raise TypeError(f"backend= expects a registry name, a Backend or a "
+                        f"LloydOps; got {type(backend).__name__}")
+    if ops is not None and ops is not DENSE_OPS:
+        return from_lloyd_ops(ops)
+    return get_backend("dense")
 
 
 def _select_rows(mask: torch.Tensor, on_true, on_false):
@@ -101,7 +123,7 @@ def _init_state(x, c0s, cfg: KMeansConfig, backend: Backend,
     """Line 1 for every restart: C^1 = C_AU^1 = G(C^0), F^0 = C^1 - C^0,
     E^0 = +inf — one batched step."""
     k, r = cfg.k, c0s.shape[0]
-    carry = backend.init_carry(x, c0s, k)
+    carry = backend.batched_init_carry(x, c0s, k)
     res0, carry = backend.batched_step(x, c0s, k, carry, w=w)
     c1 = backend.centroids_from_step(x, res0, k, c0s)
     aa = anderson.aa_init(r, k * x.shape[-1], cfg.aa, x.dtype, x.device)
@@ -250,3 +272,144 @@ def select_best(results: KMeansResult) -> KMeansResult:
     masked = torch.where(torch.isfinite(e), e, float("inf"))
     best = torch.argmin(masked)
     return KMeansResult(*(a[best] for a in results))
+
+
+def _check_single(x, c0):
+    if x.dim() != 2 or c0.dim() != 2:
+        raise ValueError(f"x must be (N, d) and c0 (K, d); got "
+                         f"{tuple(x.shape)}, {tuple(c0.shape)}")
+
+
+def _unbatch(res: KMeansResult) -> KMeansResult:
+    return KMeansResult(*(a[0] for a in res))
+
+
+def aa_kmeans(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
+              ops: Optional[LloydOps] = None,
+              backend: BackendLike = None) -> KMeansResult:
+    """Algorithm 1 on one problem: x (N, d), c0 (K, d).
+
+    ``backend`` selects the engine ("dense" | "blocked" | "fused" |
+    "pallas" | "fused_bounds", a Backend, or a legacy LloydOps); ``ops``
+    is the legacy LloydOps injection point, adapted through the shim.
+    The reference decides accept or revert inside ``lax.cond``; here the
+    solve is the batched driver at R = 1, which carries that decision to
+    the next trip (``pending``), so it costs one sync per trip and gives
+    the same bits as ``aa_kmeans_batched(x, c0[None], ...)``.  The
+    checkpoint, metrics and reorder keywords of the reference are not
+    ported yet."""
+    _check_single(x, c0)
+    return _unbatch(aa_kmeans_batched(x, c0[None], cfg,
+                                      resolve_backend(backend, ops)))
+
+
+def _bound_scalars(carry) -> dict:
+    """{"eliminated_frac", "skipped_frac"} of a carry's BoundStats (of
+    problem 0 in a batched carry), or {} for a stateless backend."""
+    bs = extract_stats(carry)
+    if bs is None:
+        return {}
+    elim, skip = torch.stack([bs.eliminated_frac.reshape(-1)[0],
+                              bs.skipped_frac.reshape(-1)[0]]).tolist()
+    return {"eliminated_frac": elim, "skipped_frac": skip}
+
+
+class KMeansTrace(NamedTuple):
+    result: KMeansResult
+    energies: list          # E^t per iteration (post-revert)
+    m_values: list          # m after adjustment, per iteration
+    accepted: list          # bool per iteration
+    wall_time_s: float
+    mse: float              # final E / N — the paper's reported MSE
+    # per-iteration {"eliminated_frac", "skipped_frac"} of bound backends
+    # (fused_bounds), read off the carry's BoundStats; () otherwise
+    bound_stats: tuple = ()
+    # bound_stats split at the first accepted iteration
+    # (split_bound_phases); None without bound stats
+    bound_phases: Optional[dict] = None
+
+
+def split_bound_phases(accepted, bound_stats):
+    """Split per-iteration bound stats at the first accepted iteration:
+    the early iterations run on slack bounds, so their fractions sit near
+    0 whatever the engine, and averaging them into the converged tail
+    dilutes every reported fraction.
+
+    Returns {} without bound stats; otherwise "pre_accept" /
+    "post_accept" entries of {n_iters, <mean of each stat key>}, an empty
+    phase reporting n_iters = 0 and None means."""
+    bound_stats = list(bound_stats)
+    if not bound_stats:
+        return {}
+    accepted = list(accepted)[:len(bound_stats)]
+    first = next((i for i, a in enumerate(accepted) if a), len(bound_stats))
+    keys = sorted(bound_stats[0])
+
+    def phase(rows):
+        out = {"n_iters": len(rows)}
+        for key in keys:
+            out[key] = (sum(r[key] for r in rows) / len(rows)) if rows \
+                else None
+        return out
+
+    return {"pre_accept": phase(bound_stats[:first]),
+            "post_accept": phase(bound_stats[first:])}
+
+
+def _sync(x: torch.Tensor) -> None:
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+
+
+def _trip_scalars(st: _LoopState) -> list:
+    """(t, converged, n_acc, m, e_last) of problem 0, read in one
+    device-to-host copy."""
+    return torch.stack([v[0].to(torch.float64) for v in (
+        st.t, st.converged, st.n_acc, st.aa.m, st.e_last)]).tolist()
+
+
+def aa_kmeans_traced(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
+                     ops: Optional[LloydOps] = None,
+                     backend: BackendLike = None,
+                     warmup: bool = False) -> KMeansTrace:
+    """Algorithm 1 on one problem, recording the statistics of Tables 2
+    and 3: per completed iteration its energy, window size and accept
+    decision, read in one copy per trip of the same loop ``aa_kmeans``
+    runs, so the trajectory is its own; a bound backend's stats take a
+    second copy per iteration.
+
+    ``warmup=True`` runs the init step and one trip first, so the first
+    launch's kernel build is not timed.  ``wall_time_s`` ends in
+    ``torch.cuda.synchronize()`` on CUDA.  The headline times of the
+    tables come from untraced runs; these reads are stats."""
+    _check_single(x, c0)
+    bk = resolve_backend(backend, ops)
+    c0s = c0[None]
+    if warmup:
+        batched_trip(x, _init_state(x, c0s, cfg, bk), cfg, bk)
+        _sync(x)
+    t0 = time.perf_counter()
+    bst = _init_state(x, c0s, cfg, bk)
+    energies, m_vals, acc, bstats = [], [], [], []
+    t_done, n_acc = 0, 0
+    while True:
+        vals = _trip_scalars(bst.inner)
+        t, converged = int(vals[0]), bool(vals[1])
+        if t > t_done and not converged:
+            # an iteration completed on the last trip
+            energies.append(vals[4])
+            m_vals.append(int(vals[3]))
+            acc.append(int(vals[2]) > n_acc)
+            scalars = _bound_scalars(bst.inner.carry)
+            if scalars:
+                bstats.append(scalars)
+        t_done, n_acc = t, int(vals[2])
+        if converged or t >= cfg.max_iter:
+            break
+        bst = batched_trip(x, bst, cfg, bk)
+    _sync(x)
+    wall = time.perf_counter() - t0
+    result = _unbatch(_result_from_state(bst.inner))
+    mse = float(result.energy) / x.shape[0]
+    return KMeansTrace(result, energies, m_vals, acc, wall, mse,
+                       tuple(bstats), split_bound_phases(acc, bstats))

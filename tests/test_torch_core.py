@@ -111,8 +111,9 @@ def test_adjust_m_matches_jax(dynamic_m):
             assert int(got.m[row]) == int(want.m), (m0, ec, ep, ep2)
 
 
-@pytest.mark.parametrize("n_active", [1, 5, 30])
-def test_spd_solve_matches_jax(n_active):
+def _well_conditioned_systems(n_active):
+    """Three (30, 30) systems: an SPD block on n_active columns, identity
+    on the rest."""
     rng = np.random.default_rng(n_active)
     n = 30
     grams, rhss = [], []
@@ -122,14 +123,55 @@ def test_spd_solve_matches_jax(n_active):
         gram[:n_active, :n_active] = a @ a.T + 1e-3 * np.eye(n_active)
         grams.append(gram)
         rhss.append(rng.standard_normal(n))
-    grams = np.array(grams, np.float32)
-    rhss = np.array(rhss, np.float32)
+    return np.array(grams, np.float32), np.array(rhss, np.float32)
+
+
+def _rank_deficient_system(m_active, d_flat, seed=0, mbar=12):
+    """One window system built as ``aa_push_and_solve`` builds it (active
+    columns' normal equations, relative ridge 1e-12, identity on the
+    inactive rest), the way tests/test_properties.py builds it.  With
+    d_flat 1 the Gram block of m_active columns has rank 1 < m: the cases
+    Hypothesis pinned against the reference's solve (seed 0), where the
+    unpivoted elimination and linalg.solve part and either may give NaN;
+    d_flat 4 and 11 are their full-rank neighbours.  The port must give
+    the reference's bits, NaN included."""
+    rng = np.random.default_rng(seed)
+    d_f = rng.standard_normal((mbar, d_flat)).astype(np.float32)
+    f = rng.standard_normal((d_flat,)).astype(np.float32)
+    active = np.arange(mbar) < m_active
+    a_mask = np.where(active[:, None], d_f, np.float32(0))
+    gram = (jnp.asarray(a_mask) @ jnp.asarray(a_mask).T)
+    rhs = jnp.asarray(a_mask) @ jnp.asarray(f)
+    lam = 1e-12 * (jnp.trace(gram) + 1.0)
+    eye = jnp.eye(mbar, dtype=jnp.float32)
+    gram = jnp.where(jnp.asarray(active[:, None] & active[None, :]), gram,
+                     0.0) + eye * jnp.where(jnp.asarray(active), lam, 1.0)
+    return np.array(gram)[None], np.array(rhs)[None]
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(("well", 1), id="1"),
+    pytest.param(("well", 5), id="5"),
+    pytest.param(("well", 30), id="30"),
+    *[pytest.param(("rank-deficient", m, d), id=f"rank-deficient-m{m}-d{d}")
+      for m in (2, 3) for d in (1, 4, 11)]])
+def test_spd_solve_matches_jax(case):
+    """Well-conditioned systems within 1e-5 (the same elimination, the
+    inputs' rounding apart); the rank-deficient ones bit for bit, NaN
+    where the reference gives NaN."""
+    if case[0] == "well":
+        grams, rhss = _well_conditioned_systems(case[1])
+    else:
+        grams, rhss = _rank_deficient_system(*case[1:])
     got = anderson._spd_solve(torch.from_numpy(grams), torch.from_numpy(rhss))
-    for i in range(3):
-        want = janderson._spd_solve(jnp.asarray(grams[i]),
-                                    jnp.asarray(rhss[i]))
-        np.testing.assert_allclose(got[i].numpy(), np.asarray(want),
-                                   rtol=1e-5, atol=1e-5)
+    for i in range(grams.shape[0]):
+        want = np.asarray(janderson._spd_solve(jnp.asarray(grams[i]),
+                                               jnp.asarray(rhss[i])))
+        if case[0] == "well":
+            np.testing.assert_allclose(got[i].numpy(), want, rtol=1e-5,
+                                       atol=1e-5)
+        else:
+            np.testing.assert_array_equal(got[i].numpy(), want)
 
 
 def test_aa_push_and_solve_matches_jax():
@@ -246,7 +288,7 @@ def test_batched_init_shapes_and_reproducibility():
                        weights=torch.ones(2, 150))
     assert per.shape == (2, 5, 4)
     with pytest.raises(ValueError):
-        batched_init("afk-mc2", torch.Generator(), xt, 5, 1)
+        batched_init("no-such-scheme", torch.Generator(), xt, 5, 1)
     with pytest.raises(ValueError):
         batched_init("random", torch.Generator(), xt.expand(2, 150, 4), 5, 3)
 
@@ -291,7 +333,8 @@ def test_step_slots_match_jax_dense(name):
 
 
 def test_registry_and_precision():
-    assert backend_names() == ("dense", "fused", "fused_bounds", "pallas")
+    assert backend_names() == ("blocked", "dense", "fused", "fused_bounds",
+                               "pallas")
     assert get_backend("fused") is get_backend("fused")
     with pytest.raises(KeyError):
         get_backend("hamerly")

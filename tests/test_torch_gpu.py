@@ -479,3 +479,95 @@ def test_fused_bounds_at_k_120000(cuda, skipping):
                                                               mind.cpu())
     again = F.fused_lloyd(x, c, bounds=bnds, gs=gs)
     assert all(torch.equal(a.cpu(), b) for a, b in zip(again, got))
+
+
+# -- the single-problem path --------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k", [(20000, 16, 40), (5000, 2, 10),
+                                   (5000, 3, 100)])
+def test_aa_kmeans_is_the_batched_driver_on_the_card(cuda, n, d, k):
+    """aa_kmeans runs the batched driver at R = 1: equal bit for bit, at a
+    small shape and at Table 3's (K = 10 on d = 2, K = 100 on d = 3)."""
+    from repro_torch.core.init_schemes import kmeanspp_init
+    from repro_torch.core.kmeans import (KMeansConfig, aa_kmeans,
+                                         aa_kmeans_batched)
+    x = torch.from_numpy(make_blobs(n, d, k, seed=d)).to(cuda)
+    c0 = kmeanspp_init(torch.Generator(device=cuda).manual_seed(0), x, k)
+    cfg = KMeansConfig(k=k)
+    F.launches = F.plain_calls = 0
+    one = aa_kmeans(x, c0, cfg, backend="fused")
+    assert F.launches >= 2 and F.plain_calls == 0
+    batched = aa_kmeans_batched(x, c0[None], cfg, backend="fused")
+    for a, b in zip(one, batched):
+        assert torch.equal(a, b[0])
+
+
+class _HostCopies(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the size of every device-to-host copy."""
+
+    def __init__(self):
+        super().__init__()
+        self.sizes = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if isinstance(out, torch.Tensor) and out.device.type == "cpu" and any(
+                isinstance(a, torch.Tensor) and a.device.type == "cuda"
+                for a in args):
+            self.sizes.append(out.numel())
+        return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["afk-mc2", "bf", "clarans"])
+def test_seedings_stay_on_the_card(cuda, name):
+    """Each seeding returns a CUDA tensor and copies no more than a few
+    hundred scalars to the host (afk-mc2's chain values, clarans's trial
+    costs), never X."""
+    from repro_torch.core.init_schemes import INIT_SCHEMES
+    x = torch.from_numpy(make_blobs(20000, 8, 10, seed=6)).to(cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    with _HostCopies() as copies:
+        c = INIT_SCHEMES[name](gen, x, 10)
+    assert c.device.type == "cuda" and c.shape == (10, 8)
+    assert bool(torch.isfinite(c).all())
+    assert max(copies.sizes, default=0) <= 300, max(copies.sizes)
+
+
+@pytest.mark.gpu
+def test_pallas_lloyd_ops_launch_both_kernels(cuda):
+    from repro_torch.core.lloyd import DENSE_OPS, lloyd_iteration
+    from repro_torch.kernels.ops import pallas_lloyd_ops
+    x = torch.from_numpy(make_blobs(30000, 69, 10, seed=7)).to(cuda)
+    c = x[:10].clone()
+    A.launches = U.launches = A.plain_calls = U.plain_calls = 0
+    c1, lab, e = lloyd_iteration(x, c, 10, ops=pallas_lloyd_ops())
+    assert (A.launches, U.launches) == (1, 1)
+    assert A.plain_calls == U.plain_calls == 0
+    c1_d, lab_d, e_d = lloyd_iteration(x, c, 10, ops=DENSE_OPS)
+    assert torch.equal(lab, lab_d)
+    np.testing.assert_allclose(c1.cpu().numpy(), c1_d.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(float(e), float(e_d), rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_lloyd_kmeans_repeats_bit_for_bit_on_the_card(cuda):
+    """The dense stats on CUDA are one-hot matmuls added in a fixed order
+    (no float atomics), so Lloyd from one seed set repeats exactly; they
+    agree with the CPU's index_add_ within the stats' 1e-4."""
+    from repro_torch.core import lloyd
+    x = torch.from_numpy(make_blobs(200000, 9, 10, seed=8, spread=1.5)).to(
+        cuda)
+    c0 = x[:10].clone()
+    a = lloyd.lloyd_kmeans(x, c0, 10, 60)
+    b = lloyd.lloyd_kmeans(x, c0, 10, 60)
+    assert a[3] == b[3] and torch.equal(a[0], b[0]) \
+        and torch.equal(a[1], b[1])
+    lab = a[1]
+    sums, counts = lloyd.cluster_sums(x, lab, 10)
+    sums_c, counts_c = lloyd.cluster_sums(x.cpu(), lab.cpu(), 10)
+    np.testing.assert_allclose(sums.cpu().numpy(), sums_c.numpy(),
+                               rtol=1e-4, atol=1e-2)
+    np.testing.assert_array_equal(counts.cpu().numpy(), counts_c.numpy())
