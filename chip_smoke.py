@@ -32,11 +32,28 @@ Phases, each fatal on failure:
      then the cluster-ordered layout with 64-centroid groups, its skipped
      shares per trip; the kernel against its plain version on each run's
      last bounds;
+  5c. the locality engine at full size on the unordered rows:
+     AAKMeans(backend=get_backend("fused_bounds_reorder", group_size=64))
+     from phase 5's seeds, then predict; one bounded and one update
+     launch per step, predict's assignment chunks, no other kernel and no
+     plain version; the sorts happened; skipped shares per trip; beside
+     it the raw fused_bounds fit with the same groups from the same seeds;
+     the last step's labels and min_sqdist, gathered back to original
+     order, equal bit for bit to the raw kernel's step on the original
+     rows with the carry permuted back; the bounded kernel on the sorted
+     rows and the update on the fit's labels against their plain
+     versions;
   6. the dense oracle's fit from the same seeds at full size ends at the
      fused fit's energy;
   7. fused against dense trajectories at a mid size, every fused step
      redone by the dense oracle, every fused-bounds step by the fused
-     kernel;
+     kernel; fused_bounds_reorder sorting on any change against never
+     sorting, bit for bit on every result leaf, each wrapped step's
+     labels and min_sqdist equal bit for bit to the raw kernel's on the
+     original rows and the final energies within 1e-4 of the raw
+     fused_bounds solve's, at R = 1 (aa_kmeans) and R = 2; at the R = 2
+     run's last carry the bounded kernel on the sorted (2, N, d) rows and
+     the update on each restart's labels against their plain versions;
   8. kernel times (CUDA events) at the main path's shapes: the fused step,
      the pallas pair (the assignment at all rows and the update) and the
      bounded step at the default groups and at 64-centroid groups with
@@ -46,7 +63,11 @@ Phases, each fatal on failure:
      beside their bound, plain and library times; the dense oracle's
      one-hot stats against index_add_, and its step.  A distance kernel's bound is the lower of its FP32-core bound
      and its split-TF32 bound (three TF32 products per f32 product on the
-     tensor cores); both are printed.
+     tensor cores); both are printed.  The locality engine's costs
+     per step at phase 5c's last carry, in turns: the sort and carry
+     re-gather, the X gather, the update, the bounded step on the sorted
+     rows and the whole wrapped step, beside the raw bounded step on the
+     original rows at the same carry;
   9. the single-problem path at full size: aa_kmeans(backend="fused")
      from phase 5's seeds equals phase 5's fit bit for bit (it is the
      batched driver at R = 1); aa_kmeans_traced on an instrumented engine
@@ -64,7 +85,12 @@ Phases, each fatal on failure:
      1e-3; who wins is printed, not checked.  Then the fused step, the
      assignment and the update against their plain versions at each
      case's last AA centroids, and the bounded step with 16-centroid
-     groups at K = 100, as phases 3 and 5 hold them;
+     groups at K = 100, as phases 3 and 5 hold them.  Last, the CPU
+     bound engines (hamerly, elkan, yinyang: masked dense PyTorch) at
+     K = 100, max_iter 100, from the clarans seeds: each wrapped in the
+     locality engine equal to its raw solve on every leaf, energies
+     within 1e-3 of dense's, and hamerly_kmeans's labels equal to
+     lloyd_kmeans's;
 Phases 9 and 10 run between phases 7 and 8, so that phase 8's kernel line
 counts their launches.
 Every path is driven with the launch counts set to 0 just before it and
@@ -299,16 +325,19 @@ def drifted_bounds(group_size, x, c, w, steps):
 
 class StepRecorder:
     """A backend whose batched step records each step's skipped share
-    (fused_bounds carries) and keeps the last step's inputs."""
+    (the carry's BoundStats, wherever it sits: a locality carry holds the
+    bound carry inside) and keeps the last step's inputs and carry."""
 
     def __init__(self, bk):
         import dataclasses
-        self.skips, self.last = [], None
+        from repro_torch.core.backends.bounds import extract_stats
+        self.skips, self.last, self.out = [], None, None
 
         def step(x_, cs, k, carries, w=None):
             self.last = (cs, carries)
             res, carries = bk.batched_step(x_, cs, k, carries, w=w)
-            self.skips.append(carries[4].skipped_frac)
+            self.skips.append(extract_stats(carries).skipped_frac)
+            self.out = carries
             return res, carries
 
         self.backend = dataclasses.replace(bk, name=f"{bk.name}+record",
@@ -360,6 +389,130 @@ def distance_bound_ms(n_bytes, n_cross, n_other):
     tc_by = ("bytes" if t_bytes >= max(t_tc, t_other) else
              "split-tf32 operations" if t_tc >= t_other else "operations")
     return (tc, tc_by, fp32, tc) if tc < fp32 else (fp32, fp32_by, fp32, tc)
+
+
+def phase5c(torch, x, c0, model, zero_counts, read_counts, path_launches,
+            tile_rows):
+    """The locality engine at full size on phase 5's unordered rows from
+    phase 5's seeds, beside the raw bounded fit with the same groups;
+    -> (what phase 8 times: the wrapper, the last step's centroids and
+    carry, and the raw kernel's bounds at that carry on the original rows;
+    the bounded kernel's and the update's largest absolute error against
+    their plain versions)."""
+    import numpy as np
+    from repro_torch.core import AAKMeans, get_backend
+    from repro_torch.core.api import PREDICT_CHUNK
+    from repro_torch.core.backends.fused_bounds import (engine_group_size,
+                                                        squared_bounds)
+    from repro_torch.core.locality import (ReorderConfig, inner_carry,
+                                           permutation, permute_bound_carry,
+                                           resort, sort_count, sorted_rows)
+    from repro_torch.kernels import fused_lloyd as F
+    from repro_torch.kernels import update as U
+    n, k = x.shape[0], MAIN_K
+    gs = engine_group_size(k, ORDERED_GS)
+    chunks = -(-n // PREDICT_CHUNK)
+    print(f"phase 5c: fused_bounds_reorder at full size on the unordered "
+          f"rows (gs {gs}, G {-(-k // gs)}; phase 5's seeds)")
+    bk_r = get_backend("fused_bounds_reorder", group_size=ORDERED_GS)
+    runs = {}
+    for label, bk in (("fused_bounds_reorder", bk_r),
+                      ("raw fused_bounds", get_backend(
+                          "fused_bounds", group_size=ORDERED_GS))):
+        rec = StepRecorder(bk)
+        zero_counts()
+        t0 = time.perf_counter()
+        fitted = AAKMeans(n_clusters=k, backend=rec.backend,
+                          n_init=1).fit(x, c0s=c0[None])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        counts_fit, plain_fit = read_counts()
+        trips = trips_of(fitted)
+        skips = torch.cat(rec.skips).tolist()
+        rel = abs(fitted.inertia_ - model.inertia_) / model.inertia_
+        runs[label] = (fitted, rec)
+        print(f"  {label}: fit {fit_s!r} s (seeds given), "
+              f"{fit_s / (1 + trips) * 1e3!r} ms wall a step; n_iter_ "
+              f"{fitted.n_iter_}, n_accepted_ {fitted.n_accepted_}, "
+              f"inertia_ {fitted.inertia_!r}, {rel:.2e} relative from the "
+              f"fused fit's; skipped share: first trip {skips[1]!r}, "
+              f"median {float(np.median(skips))!r}, last trip "
+              f"{skips[-1]!r}; launches {counts_fit} vs 1 + trips = "
+              f"{1 + trips}; plain-version calls {plain_fit}", flush=True)
+        check(counts_fit["fused_bounds"] == 1 + trips and plain_fit == 0,
+              f"{label}: bounded launches != 1 + trips")
+        check(rel <= 1e-3, f"{label} and fused fits end far apart")
+        if bk is bk_r:
+            check(counts_fit["update"] == 1 + trips
+                  and counts_fit["fused_lloyd"] == 0
+                  and counts_fit["assignment"] == 0,
+                  "the reorder fit did not take one bounded and one "
+                  "update launch a step and nothing else")
+            t0 = time.perf_counter()
+            labels = fitted.predict(x)
+            predict_s = time.perf_counter() - t0
+            counts, plain = read_counts()
+            path_launches["fused_bounds_reorder fit + predict"] = counts
+            n_sorts = int(sort_count(rec.out)[0])
+            perm = permutation(rec.out)[0]
+            moved = int((perm != torch.arange(n, device=perm.device)).sum())
+            print(f"    predict {predict_s!r} s, assignment launches "
+                  f"{counts['assignment']} vs {chunks} chunks, plain-version "
+                  f"calls {plain}; sorts {n_sorts}, rows away from their "
+                  f"original slot {moved}", flush=True)
+            check(counts["assignment"] == chunks and plain == 0,
+                  "reorder predict launches != chunks")
+            check(n_sorts > 0 and moved > 0, "the reorder fit never sorted")
+            check(labels.shape == (n,), "reorder predict labels")
+        else:
+            path_launches["fused_bounds fit, gs 64, unordered"] = counts_fit
+            check(sum(counts_fit.values()) == counts_fit["fused_bounds"],
+                  "the raw bounded fit launched another kernel")
+    # the last step again, through the wrapper (original-order outputs),
+    # and the raw kernel on the original rows with the carry the wrapper's
+    # kernel saw, permuted back: each row's outcome is its own
+    fitted, rec = runs["fused_bounds_reorder"]
+    cs_last, carry_last = rec.last
+    res_w, _ = bk_r.batched_step(x, cs_last, k, carry_last)
+    # the wrapper's own sort decision (the registry's default policy)
+    carry_s = resort(carry_last, k, ReorderConfig())
+    bnds_raw = squared_bounds(permute_bound_carry(inner_carry(carry_s),
+                                                  carry_s[1]), cs_last, k,
+                              gs)
+    raw = F.fused_lloyd(x, cs_last, bounds=bnds_raw, gs=gs)
+    same = {"labels": torch.equal(res_w.labels, raw[0]),
+            "min_sqdist": torch.equal(res_w.min_sqdist, raw[1])}
+    print(f"  the last step through the wrapper vs the raw kernel on the "
+          f"original rows (carry permuted back): equal bit for bit {same} "
+          f"({int((res_w.labels != raw[0]).sum())} labels, "
+          f"{int((res_w.min_sqdist != raw[1]).sum())} distances differ); "
+          f"raw kernel's skipped share there {float(raw[6][0])!r}")
+    check(all(same.values()), "the wrapper's last step differs from the raw "
+          "kernel's on the original rows")
+    # the path's kernels against their plain versions at its own shapes:
+    # the bounded kernel on the sorted rows (per-problem X), the update on
+    # the fit's original-order labels
+    xp = sorted_rows(x, carry_s[0])
+    bnds_s = squared_bounds(inner_carry(carry_s), cs_last, k, gs)
+    res_b = compare_bounds(torch, F.fused_lloyd(xp, cs_last, bounds=bnds_s,
+                                                gs=gs),
+                           F.fused_bounds_plain(xp, cs_last, None, *bnds_s,
+                                                gs, tile_rows),
+                           xp, cs_last, None, bnds_s[1], bnds_s[2],
+                           tile_rows)
+    print(f"  fused_bounds vs plain on the sorted rows at the last step: "
+          f"{fmt_bounds(res_b)}")
+    accept_bounds(res_b, "fused_bounds on the sorted rows",
+                  exact_labels=False)
+    del xp
+    lab = fitted.labels_
+    res_u = compare_stats(U.update(x, lab, k), U.update_plain(x, lab, k))
+    print(f"  update vs plain on the reorder fit's labels: sums "
+          f"{res_u['sums_rel']:.2e} (abs {res_u['sums_abs']:.2e}), counts "
+          f"{res_u['counts_rel']:.2e}", flush=True)
+    accept_stats(res_u, "update on the reorder fit's labels")
+    return ((bk_r, cs_last, carry_last, bnds_raw, gs),
+            res_b["mind_abs"], res_u["sums_abs"])
 
 
 def phase9(torch, x, c0, model, zero_counts, read_counts, path_launches):
@@ -441,6 +594,7 @@ def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
     from repro_torch.core import init_schemes
     from repro_torch.core.backends import get_backend
     from repro_torch.core.init_schemes import INIT_SCHEMES
+    from repro_torch.core.hamerly import hamerly_kmeans
     from repro_torch.core.kmeans import (KMeansConfig, aa_kmeans,
                                          aa_kmeans_traced)
     from repro_torch.core.lloyd import lloyd_iteration, lloyd_kmeans
@@ -623,6 +777,42 @@ def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
     accept_bounds(res_b, "fused_bounds [clarans K=100, gs 16]",
                   exact_labels=False)
     errs["fused_bounds"] = res_b["mind_abs"]
+    # the CPU bound engines (masked dense PyTorch, no kernel of their own)
+    # from the clarans K = 100 seeds: wrapped in the locality engine equal
+    # to raw on every leaf, and near dense's energy
+    c0 = seeds[("clarans", 100)]
+    cfg = KMeansConfig(k=100, max_iter=100)
+    dense_res = aa_kmeans(x, c0, cfg, backend="dense")
+    e_dense = float(dense_res.energy)
+    for name in ("hamerly", "elkan", "yinyang"):
+        pair = {}
+        for which in (name, f"{name}_reorder"):
+            pair[which] = once(lambda: aa_kmeans(x, c0, cfg, backend=which))
+        (raw, t_raw), (wrapped, t_wr) = pair.values()
+        same = [torch.equal(a, b) for a, b in zip(raw, wrapped)]
+        rel = abs(float(raw.energy) - e_dense) / e_dense
+        print(f"  {name} (K=100, max_iter 100): raw {t_raw!r} s, wrapped "
+              f"{t_wr!r} s; {int(raw.n_accepted)}/{int(raw.n_iter)}, energy "
+              f"{float(raw.energy)!r}, {rel:.2e} relative from dense's "
+              f"({int(dense_res.n_accepted)}/{int(dense_res.n_iter)}); "
+              f"wrapped equal bit for bit on "
+              f"{dict(zip(type(raw)._fields, same))}", flush=True)
+        check(all(same), f"{name}: the wrapped solve differs from the raw")
+        check(rel <= 1e-3, f"{name}: the energy is far from dense's")
+    # hamerly_kmeans's step i assigns at the centroids of update i - 1,
+    # lloyd_kmeans's iteration j at those of update j: with one more step
+    # the baseline ends on the assignment Lloyd ends on
+    (c_h, lab_h, e_h, it_h, frac_h), t_h = once(
+        lambda: hamerly_kmeans(x, c0, 100, max_iter=101))
+    (c_l, lab_l, e_l, it_l), t_l = once(lambda: lloyd_kmeans(x, c0, 100,
+                                                             100))
+    print(f"  hamerly_kmeans {t_h!r} s ({it_h} iterations, mean scan "
+          f"fraction {float(frac_h)!r}) vs lloyd_kmeans {t_l!r} s ({it_l}): "
+          f"labels equal {torch.equal(lab_h, lab_l)} "
+          f"({int((lab_h != lab_l).sum())} differ), energies "
+          f"{float(e_h)!r} and {float(e_l)!r}", flush=True)
+    check(torch.equal(lab_h, lab_l) and it_h == it_l + 1,
+          "hamerly_kmeans and lloyd_kmeans part")
     return errs
 
 
@@ -637,8 +827,12 @@ def run():
     from repro_torch.core.backends.fused_bounds import (engine_group_size,
                                                         squared_bounds)
     from repro_torch.core.init_schemes import batched_init
-    from repro_torch.core.kmeans import (KMeansConfig, _init_state,
+    from repro_torch.core.kmeans import (KMeansConfig, KMeansResult,
+                                         _init_state, aa_kmeans,
                                          aa_kmeans_batched, batched_trip)
+    from repro_torch.core.locality import (ReorderConfig, inner_carry,
+                                           permute_bound_carry, resort,
+                                           sort_count, sorted_rows)
     from repro_torch.data.synthetic import (DATASETS, dataset_components,
                                             make_dataset)
     from repro_torch.device import resolve_device
@@ -1084,6 +1278,13 @@ def run():
     del got
     sys.stdout.flush()
 
+    reorder_last, err_b, err_u = phase5c(torch, x, c0_main, model,
+                                         zero_counts, read_counts,
+                                         path_launches, tile_rows)
+    bounds_abs_err = max(bounds_abs_err, err_b)
+    update_abs_err = max(update_abs_err, err_u)
+    sys.stdout.flush()
+
     print("phase 6: the dense oracle from the same seeds at full size")
     t0 = time.perf_counter()
     dense_model = AAKMeans(n_clusters=MAIN_K, backend="dense",
@@ -1170,6 +1371,115 @@ def run():
     check(torch.equal(runs["fused"].centroids,
                       runs["fused, each step redone by dense"].centroids),
           "the fused trajectory is not reproducible")
+    # the locality engine: sorting on any change ("always") against never
+    # sorting ("never") is one program on other data, so bit for bit.
+    # Against the raw engine the strict claim is per step: each wrapped
+    # step's labels and min_sqdist equal the raw kernel's on the original
+    # rows with the carry permuted back (redone below).  Whole fits may
+    # part, since the raw step's energy is the kernel's row sum and the
+    # wrapper's a torch.sum, and a near tie in the accept test then goes
+    # either way: they are held to 1e-4 (the sound runs part by 3.92e-07
+    # at R = 1 and 7.19e-05 at R = 2 on the H100), the per-step bit
+    # equality carrying the strict claim.
+    always_cfg = ReorderConfig(churn_threshold=0.0)
+    zero_counts()
+    mid = {}
+    for r in (1, 2):
+        rec = StepRecorder(get_backend("fused_bounds_reorder",
+                                       group_size=ORDERED_GS,
+                                       churn_threshold=0.0))
+        never_bk = get_backend("fused_bounds_reorder", group_size=ORDERED_GS,
+                               churn_threshold=1.5)
+        if r == 1:
+            raw = aa_kmeans(xm, c0s[0], cfg, backend=bounded)
+            always = aa_kmeans(xm, c0s[0], cfg, backend=rec.backend)
+            never = aa_kmeans(xm, c0s[0], cfg, backend=never_bk)
+        else:
+            raw = aa_kmeans_batched(xm, c0s[:r], cfg, backend=bounded)
+            always = aa_kmeans_batched(xm, c0s[:r], cfg, backend=rec.backend)
+            never = aa_kmeans_batched(xm, c0s[:r], cfg, backend=never_bk)
+        mid[r] = (raw, always, never, sort_count(rec.out).tolist())
+    counts, plain = read_counts()
+    path_launches["fused_bounds_reorder at mid size"] = counts
+    check(plain == 0, "phase 7's reorder runs called a plain version")
+    gs_m = engine_group_size(256, ORDERED_GS)
+    # the path's kernels against their plain versions at its own shapes
+    # (the counts are read, so these launches are not counted): at the
+    # R = 2 run's last carry, the bounded kernel on the sorted rows
+    # (per-problem X, (2, N, d)) and the update on each restart's labels
+    cs_m, carry_m = rec.last
+    carry_ms = resort(carry_m, 256, always_cfg)
+    xp = sorted_rows(xm, carry_ms[0])
+    bnds_m = squared_bounds(inner_carry(carry_ms), cs_m, 256, gs_m)
+    res_b = compare_bounds(torch, F.fused_lloyd(xp, cs_m, bounds=bnds_m,
+                                                gs=gs_m),
+                           F.fused_bounds_plain(xp, cs_m, None, *bnds_m,
+                                                gs_m, tile_rows),
+                           xp, cs_m, None, bnds_m[1], bnds_m[2], tile_rows)
+    print(f"  fused_bounds vs plain on the sorted rows at the R=2 run's last "
+          f"step: {fmt_bounds(res_b)}")
+    accept_bounds(res_b, "fused_bounds on phase 7's sorted rows",
+                  exact_labels=False)
+    del xp
+    bounds_abs_err = max(bounds_abs_err, res_b["mind_abs"])
+    for i, lab in enumerate(mid[2][1].labels):
+        res_u = compare_stats(U.update(xm, lab, 256),
+                              U.update_plain(xm, lab, 256))
+        print(f"  update vs plain on the R=2 reorder solve's labels "
+              f"(restart {i}): sums {res_u['sums_rel']:.2e} (abs "
+              f"{res_u['sums_abs']:.2e}), counts {res_u['counts_rel']:.2e}")
+        accept_stats(res_u, f"update on phase 7's labels (restart {i})")
+        update_abs_err = max(update_abs_err, res_u["sums_abs"])
+    for r, (raw, always, never, sorts) in mid.items():
+        worst_r = {"steps": 0, "labels": 0, "mind": 0, "sums": 0,
+                   "energy": 0.0}
+        inner_bk = get_backend("fused_bounds_reorder", group_size=ORDERED_GS,
+                               churn_threshold=0.0)
+
+        def redone(x_, cs, k, carries, w=None):
+            res, out = inner_bk.batched_step(x_, cs, k, carries, w=w)
+            carry_s = resort(carries, k, always_cfg)
+            raw_step = F.fused_lloyd(x_, cs, bounds=squared_bounds(
+                permute_bound_carry(inner_carry(carry_s), carry_s[1]), cs,
+                k, gs_m), gs=gs_m)
+            worst_r["steps"] += 1
+            worst_r["labels"] += int((res.labels != raw_step[0]).sum())
+            worst_r["mind"] += int((res.min_sqdist != raw_step[1]).sum())
+            worst_r["sums"] += int((res.sums != raw_step[2]).sum())
+            worst_r["energy"] = max(worst_r["energy"], float(
+                ((res.energy - raw_step[4]).abs() / raw_step[4]).max()))
+            return res, out
+
+        redo = dataclasses.replace(inner_bk, name="reorder+redone",
+                                   batched_step_fn=redone)
+        again = aa_kmeans(xm, c0s[0], cfg, backend=redo) if r == 1 else \
+            aa_kmeans_batched(xm, c0s[:r], cfg, backend=redo)
+        same = [torch.equal(a, b) for a, b in zip(always, never)]
+        same_again = all(torch.equal(a, b) for a, b in zip(always, again))
+        e_rel = float(((always.energy - raw.energy).abs()
+                       / raw.energy).max())
+        driver = "aa_kmeans" if r == 1 else "aa_kmeans_batched"
+        print(f"  fused_bounds_reorder at R={r} ({driver}): always vs never "
+              f"equal bit for bit on {dict(zip(KMeansResult._fields, same))};"
+              f" sorts {sorts}; n_iter {always.n_iter.tolist()}, n_accepted "
+              f"{always.n_accepted.tolist()}, energy "
+              f"{always.energy.tolist()}; the raw solve: n_iter "
+              f"{raw.n_iter.tolist()}, n_accepted {raw.n_accepted.tolist()},"
+              f" energy {raw.energy.tolist()}, labels equal "
+              f"{torch.equal(always.labels, raw.labels)}, final energies "
+              f"{e_rel:.2e} relative apart", flush=True)
+        print(f"    {worst_r['steps']} wrapped steps redone by the raw kernel "
+              f"on the original rows: {worst_r['labels']} labels and "
+              f"{worst_r['mind']} min_sqdist differ, {worst_r['sums']} sums "
+              f"differ bit for bit, energies at most {worst_r['energy']:.2e}"
+              f" relative apart; the redone run is the always run bit for "
+              f"bit {same_again}", flush=True)
+        check(all(same), f"R={r}: always and never sorting differ")
+        check(min(sorts) > 0, f"R={r}: the always policy never sorted")
+        check(worst_r["labels"] == worst_r["mind"] == 0 and same_again,
+              f"R={r}: a wrapped step differs from the raw kernel's")
+        check(e_rel <= 1e-4, f"R={r}: the reorder and raw solves end far "
+              f"apart")
     del xm, runs
     sys.stdout.flush()
 
@@ -1208,6 +1518,30 @@ def run():
         turned[f"fused_bounds, {what}"] = (
             lambda i, xb=xb, cb=cb, gs=gs, bnds=bnds: F.fused_lloyd(
                 xb, cb, bounds=bnds, gs=gs))
+    # the locality engine's parts of a step at phase 5c's last carry: the
+    # sort decision (a stable sort and the carry's re-gather, computed
+    # every step), the X gather, the update on the original-order labels,
+    # the bounded step on the sorted rows, and the whole wrapped step;
+    # beside them the raw bounded step on the original rows at the same
+    # carry
+    bk_r, cs_r, carry_r, bnds_rr, gs_r = reorder_last
+    cfg_r = ReorderConfig()
+    carry_rs = resort(carry_r, k, cfg_r)
+    xp_r = sorted_rows(x, carry_rs[0])
+    bnds_rs = squared_bounds(inner_carry(carry_rs), cs_r, k, gs_r)
+    lab_r = bk_r.batched_step(x, cs_r, k, carry_r)[0].labels[0]
+    reorder_parts = {
+        "reorder: sort + carry re-gather": lambda i: resort(carry_r, k,
+                                                            cfg_r),
+        "reorder: X gather": lambda i: sorted_rows(x, carry_rs[0]),
+        "reorder: update": lambda i: U.update(x, lab_r, k),
+        "reorder: bounded step, sorted rows": lambda i: F.fused_lloyd(
+            xp_r, cs_r, bounds=bnds_rs, gs=gs_r),
+        "reorder: the whole wrapped step": lambda i: bk_r.batched_step(
+            x, cs_r, k, carry_r),
+        "raw bounded step, original rows, same carry": lambda i:
+            F.fused_lloyd(x, cs_r, bounds=bnds_rr, gs=gs_r)}
+    turned.update(reorder_parts)
     turns = {what: [] for what in turned}
     for order in (list(turned), list(reversed(turned))):
         for what in order:
@@ -1323,6 +1657,21 @@ def run():
         torch, lambda i: F.fused_bounds_plain(x, c_p, None, *bnds0,
                                               gs_main, tile_rows), 3,
         warmup=1)
+    skip_sorted = float(F.fused_lloyd(xp_r, cs_r, bounds=bnds_rs,
+                                      gs=gs_r)[6][0])
+    skip_raw = float(F.fused_lloyd(x, cs_r, bounds=bnds_rr, gs=gs_r)[6][0])
+    g_r = bnds_rs[1].shape[-1]
+    sorted_bound = distance_bound_ms(*bounds_cost(g_r, skip_sorted))
+    raw_bound = distance_bound_ms(*bounds_cost(g_r, skip_raw))
+    print(f"  the locality engine at phase 5c's last step (gs {gs_r}; skipped "
+          f"share {skip_sorted!r} on the sorted rows, {skip_raw!r} on the "
+          f"original rows): " + "; ".join(
+              f"{what} {turn_ms[what]!r} ms" for what in reorder_parts)
+          + f"; bounded step bounds: sorted rows {sorted_bound[0]!r} ms "
+          f"({sorted_bound[1]}; FP32-core bound {sorted_bound[2]!r} ms), "
+          f"original rows {raw_bound[0]!r} ms ({raw_bound[1]}; FP32-core "
+          f"bound {raw_bound[2]!r} ms)")
+    del xp_r, carry_rs, bnds_rs, reorder_last, reorder_parts
     print(f"  fused_bounds plain (default groups, skip 0): "
           f"{bounds_plain_ms!r} ms; the ordered run converged at skip "
           f"{skip_conv!r}")

@@ -2,8 +2,12 @@
 
 Public surface (this slice):
     AAKMeans           — estimator: fit / predict / transform / inertia_
+    aa_kmeans          — Algorithm 1 on one problem
     aa_kmeans_batched  — R restarts/problems driven together
+    aa_kmeans_traced   — one problem, with per-iteration statistics
     select_best        — best-of-R selection
+    lloyd_kmeans / hamerly_kmeans — the Lloyd and Hamerly-bound baselines
+    ReorderConfig/reorder_backend — the locality engine
     KMeansConfig/AAConfig — solver configuration
     get_backend/Backend/StepResult/Precision — step-primitive engine
 """
@@ -12,6 +16,11 @@ from repro_torch.core.anderson import AAConfig                  # noqa: F401
 from repro_torch.core.api import AAKMeans, NotFittedError       # noqa: F401
 from repro_torch.core.backends import (Backend, Precision,      # noqa: F401
                                        StepResult, get_backend)
+from repro_torch.core.hamerly import hamerly_kmeans             # noqa: F401
 from repro_torch.core.kmeans import (KMeansConfig,              # noqa: F401
-                                     KMeansResult, aa_kmeans_batched,
+                                     KMeansResult, aa_kmeans,
+                                     aa_kmeans_batched, aa_kmeans_traced,
                                      select_best)
+from repro_torch.core.lloyd import lloyd_kmeans                 # noqa: F401
+from repro_torch.core.locality import (ReorderConfig,           # noqa: F401
+                                       reorder_backend)

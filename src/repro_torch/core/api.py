@@ -7,8 +7,11 @@
 
 ``backend`` names the engine: "fused" (one kernel pass per step),
 "pallas" (the assignment kernel, then the update kernel), "fused_bounds"
-(the fused pass skipping centroid groups by carried bounds) or "dense"
-(plain PyTorch, the oracle).
+(the fused pass skipping centroid groups by carried bounds), "dense"
+(plain PyTorch, the oracle), the bound engines "hamerly", "elkan" and
+"yinyang" (masked dense PyTorch), or any bound engine's "<name>_reorder"
+variant (the locality engine: rows sorted by label once assignments
+settle, e.g. ``get_backend("fused_bounds_reorder", group_size=64)``).
 
 ``fit`` seeds R = n_init restarts, solves them together with the batched
 driver and keeps the best; ``predict`` / ``transform`` run in fixed-shape
@@ -88,8 +91,10 @@ class AAKMeans:
     eps2: float = 0.5
     ridge: float = 1e-12
     seed: int = 0
-    # "dense" | "fused" | "pallas" | "fused_bounds" or a Backend instance
-    # (e.g. get_backend("fused_bounds", group_size=64))
+    # a registry name ("dense" | "blocked" | "fused" | "pallas" |
+    # "hamerly" | "elkan" | "yinyang" | "fused_bounds" | "<bound
+    # engine>_reorder") or a Backend instance (e.g.
+    # get_backend("fused_bounds_reorder", group_size=64))
     backend: object = "dense"
     # None means CUDA (RuntimeError without a card); "cpu" runs the
     # kernels' plain versions

@@ -228,7 +228,8 @@ def backend_names() -> Tuple[str, ...]:
 
 def get_backend(name: str, **opts) -> Backend:
     """Construct (and cache) a backend by name: "dense" | "blocked" |
-    "fused" | "pallas" | "fused_bounds"."""
+    "fused" | "pallas" | "hamerly" | "elkan" | "yinyang" |
+    "fused_bounds", or a bound engine's "<name>_reorder" variant."""
     if name not in _REGISTRY:
         raise KeyError(f"unknown backend {name!r}; registered: "
                        f"{', '.join(backend_names())}")

@@ -1,17 +1,19 @@
-"""The carry contract of the bound-based engines (counterpart of
-``repro.core.backends.bounds``, lines 59-164; the elkan/yinyang step
-``make_group_bound_backend`` is still to be ported).
+"""The carry contract of the bound-based engines and the group-filtered
+step of elkan and yinyang (counterpart of ``repro.core.backends.bounds``).
 
     carry = (labels, upper, lower, c_last, BoundStats)
 
     labels : (N,)    int32  assignment the bounds are valid for
     upper  : (N,)    f32    u_i >= d(x_i, c_{labels_i})       (Euclidean)
     lower  : (N, G)  f32    l_{i,g} <= min_{j in group g} d(x_i, c_j)
+             — or (N,) for hamerly, where l_i bounds the SECOND-closest
     c_last : (K, d)  f32    centroids the step last saw (drift anchor)
     stats  : BoundStats     share of the work the bounds removed
 
 each with a leading R axis in the batched driver, which keeps one carry
-for all R restarts (the reference vmaps per restart).  The lower bounds
+for all R restarts (the reference vmaps per restart; the CPU engines,
+which set only ``step_fn``, get it from ``Backend.batched_step``'s
+per-restart fallback).  The lower bounds
 are inclusive: l_{i,g} bounds the min over ALL centroids of group g, the
 assigned one included, so the owner group always has l_g <= d(x, c_a)
 <= u and a skip test ``l_g <= u`` never skips it.  Groups are contiguous
@@ -29,6 +31,11 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.core import lloyd
+from repro_torch.core.backends.base import (DEFAULT_PRECISION, Backend,
+                                            Precision, StepResult)
+from repro_torch.core.lloyd import pairwise_sqdist
 
 # The "tile" group policy of the reference (repro/core/backends/bounds.py
 # :98-107): groups of min(GROUP_TILE_MAX, round_up(K, GROUP_ROUND))
@@ -74,13 +81,19 @@ def round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def resolve_group_size(k: int, group_size: Optional[int]) -> int:
+def resolve_group_size(k: int, group_size: Optional[int],
+                       policy: str = "tile") -> int:
     """Centroids per group.  An explicit ``group_size`` wins (clipped to
-    [1, K]); otherwise the reference's "tile" policy, min(GROUP_TILE_MAX,
-    round_up(K, GROUP_ROUND))."""
+    [1, K]); otherwise "tile" gives min(GROUP_TILE_MAX, round_up(K,
+    GROUP_ROUND)) and "yinyang" the classic t = ceil(K/10) groups."""
     if group_size is not None:
         return max(1, min(int(group_size), k))
-    return min(GROUP_TILE_MAX, round_up(k, GROUP_ROUND))
+    if policy == "tile":
+        return min(GROUP_TILE_MAX, round_up(k, GROUP_ROUND))
+    if policy == "yinyang":
+        g = max(1, -(-k // 10))
+        return -(-k // g)
+    raise ValueError(f"unknown group-size policy {policy!r}")
 
 
 def group_layout(k: int, gs: int) -> Tuple[int, int]:
@@ -135,3 +148,75 @@ def init_carry(x: torch.Tensor, c: torch.Tensor, k: int, gs: int):
             torch.zeros(lead + (n, g), device=dev),
             c.to(torch.float32),
             BoundStats.zeros(lead, dev))
+
+
+def cpu_engine_stats(x, labels, k):
+    """Per-cluster sums and counts of the CPU bound engines (hamerly,
+    elkan, yinyang): their step's stats and their ``stats_fn``, so the
+    locality engine's recomputation gives the step's bits."""
+    return lloyd.cluster_sums(x.to(torch.float32), labels, k)
+
+
+def make_group_bound_backend(name: str, precision: Precision,
+                             group_size: Optional[int], policy: str,
+                             center_gate: bool) -> Backend:
+    """The group-filtered bound step shared by elkan and yinyang
+    (reference ``bounds.py:171-259``).
+
+    Both scan only the groups whose lower bound could beat the exact
+    distance to the assigned centroid; elkan also prices the K x K
+    centre-centre matrix for the global gate (d(x, c_a) <= s(a), half the
+    distance from c_a to its nearest other centroid: no centroid can beat
+    a, skip every group).  Masked dense code, as in the reference: the
+    distances are computed for all (row, centroid) pairs and applied under
+    the need mask, and a skipped group keeps its drift-updated bound,
+    never the dense group minimum, so the trajectory is that of an engine
+    that really skips."""
+
+    def gs_of(k):
+        return resolve_group_size(k, group_size, policy)
+
+    def init_carry_fn(x, c, k):
+        return init_carry(x, c, k, gs_of(k))
+
+    def step_fn(x, c, k, carry):
+        labels0, upper, lower, c_last, _ = carry
+        g, gs = group_layout(k, gs_of(k))
+        xf, cf = x.to(torch.float32), c.to(torch.float32)
+        upper, lower = drift_update(labels0, upper, lower,
+                                    centroid_drift(cf, c_last), g, gs)
+        lab0 = labels0.long()
+        sq = pairwise_sqdist(xf, cf)
+        d = torch.sqrt(sq)                                       # (N, K)
+        d_a = torch.gather(d, 1, lab0[:, None])[:, 0]
+        need_g = lower <= d_a[:, None]                           # (N, G)
+        if center_gate:
+            cc = torch.sqrt(pairwise_sqdist(cf, cf))
+            eye = torch.eye(k, dtype=torch.bool, device=cf.device)
+            s_half = 0.5 * torch.amin(cc.masked_fill(eye, float("inf")),
+                                      dim=1)
+            need_g = need_g & ~(d_a <= s_half[lab0])[:, None]
+        cols = torch.arange(k, device=x.device)
+        cand = need_g[:, group_ids(k, gs, x.device).long()] \
+            | (cols[None, :] == lab0[:, None])
+        # the argmin over the squared distances, as lloyd.assign takes it
+        # (sqrt would tie two squares an ulp apart), first index on ties
+        u_sq, labels = torch.min(torch.where(cand, sq, float("inf")), dim=1)
+        u_new = torch.sqrt(u_sq)
+        labels = labels.to(torch.int32)
+        # scanned groups get the exact (inclusive) group min; skipped
+        # groups keep the drift-updated bound
+        lower_new = torch.where(need_g, group_min(d, g, gs), lower)
+        nonowner = torch.arange(g, device=x.device)[None, :] \
+            != (labels0 // gs)[:, None]
+        eliminated = ~torch.any(need_g & nonowner, dim=1)
+        stats = BoundStats(torch.mean(eliminated.to(torch.float32)),
+                           1.0 - torch.mean(need_g.to(torch.float32)))
+        mind = u_new * u_new
+        sums, counts = cpu_engine_stats(x, labels, k)
+        res = StepResult(labels, mind, sums, counts, torch.sum(mind))
+        return res, (labels, u_new, lower_new, cf, stats)
+
+    return Backend(name=name, step_fn=step_fn, stats_fn=cpu_engine_stats,
+                   assign_fn=lloyd.assign, init_carry_fn=init_carry_fn,
+                   precision=precision)

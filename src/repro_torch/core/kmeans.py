@@ -40,6 +40,7 @@ from repro_torch.core.backends import Backend, get_backend
 from repro_torch.core.backends.base import from_lloyd_ops
 from repro_torch.core.backends.bounds import extract_stats
 from repro_torch.core.lloyd import DENSE_OPS, LloydOps
+from repro_torch.core.locality import maybe_reorder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,8 +243,8 @@ def _check_inputs(x, c0s, weights):
 
 def aa_kmeans_batched(x: torch.Tensor, c0s: torch.Tensor,
                       cfg: KMeansConfig, backend: BackendLike = None, *,
-                      weights: Optional[torch.Tensor] = None
-                      ) -> KMeansResult:
+                      weights: Optional[torch.Tensor] = None,
+                      reorder=False) -> KMeansResult:
     """Batched Algorithm 1: R independent solves driven together.
 
     ``c0s`` (R, K, d) — one seed set per restart; ``x`` (N, d) shared by
@@ -254,9 +255,14 @@ def aa_kmeans_batched(x: torch.Tensor, c0s: torch.Tensor,
     while the others continue, so its trajectory is the sequential one.
     Returns a ``KMeansResult`` with a leading R axis on every leaf; use
     ``select_best`` for the winner.
+
+    ``reorder=True`` (or a ``locality.ReorderConfig``) wraps a bound
+    backend in the locality engine, with one permutation per restart:
+    the engine sees each restart's rows sorted by its labels, the result
+    is in original row order.
     """
     _check_inputs(x, c0s, weights)
-    bk = resolve_backend(backend)
+    bk = maybe_reorder(resolve_backend(backend), reorder)
     bst = _init_state(x, c0s, cfg, bk, w=weights)
     while bool(torch.any(_is_active(bst.inner, cfg.max_iter))):
         bst = batched_trip(x, bst, cfg, bk, w=weights)
@@ -286,21 +292,28 @@ def _unbatch(res: KMeansResult) -> KMeansResult:
 
 def aa_kmeans(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
               ops: Optional[LloydOps] = None,
-              backend: BackendLike = None) -> KMeansResult:
+              backend: BackendLike = None, *,
+              reorder=False) -> KMeansResult:
     """Algorithm 1 on one problem: x (N, d), c0 (K, d).
 
     ``backend`` selects the engine ("dense" | "blocked" | "fused" |
-    "pallas" | "fused_bounds", a Backend, or a legacy LloydOps); ``ops``
+    "pallas" | "hamerly" | "elkan" | "yinyang" | "fused_bounds", a
+    "<name>_reorder" variant, a Backend, or a legacy LloydOps); ``ops``
     is the legacy LloydOps injection point, adapted through the shim.
+    ``reorder=True`` (or a ``locality.ReorderConfig``) wraps a bound
+    backend in the locality engine (``core/locality.py``): it sees rows
+    sorted by label once assignments settle, the results stay in
+    original row order.
     The reference decides accept or revert inside ``lax.cond``; here the
     solve is the batched driver at R = 1, which carries that decision to
     the next trip (``pending``), so it costs one sync per trip and gives
     the same bits as ``aa_kmeans_batched(x, c0[None], ...)``.  The
-    checkpoint, metrics and reorder keywords of the reference are not
-    ported yet."""
+    checkpoint and metrics keywords of the reference are not ported
+    yet."""
     _check_single(x, c0)
     return _unbatch(aa_kmeans_batched(x, c0[None], cfg,
-                                      resolve_backend(backend, ops)))
+                                      resolve_backend(backend, ops),
+                                      reorder=reorder))
 
 
 def _bound_scalars(carry) -> dict:
@@ -322,7 +335,8 @@ class KMeansTrace(NamedTuple):
     wall_time_s: float
     mse: float              # final E / N — the paper's reported MSE
     # per-iteration {"eliminated_frac", "skipped_frac"} of bound backends
-    # (fused_bounds), read off the carry's BoundStats; () otherwise
+    # (hamerly, elkan, yinyang, fused_bounds, and their reorder
+    # wrappers), read off the carry's BoundStats; () otherwise
     bound_stats: tuple = ()
     # bound_stats split at the first accepted iteration
     # (split_bound_phases); None without bound stats
@@ -371,7 +385,8 @@ def _trip_scalars(st: _LoopState) -> list:
 def aa_kmeans_traced(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
                      ops: Optional[LloydOps] = None,
                      backend: BackendLike = None,
-                     warmup: bool = False) -> KMeansTrace:
+                     warmup: bool = False,
+                     reorder=False) -> KMeansTrace:
     """Algorithm 1 on one problem, recording the statistics of Tables 2
     and 3: per completed iteration its energy, window size and accept
     decision, read in one copy per trip of the same loop ``aa_kmeans``
@@ -381,9 +396,10 @@ def aa_kmeans_traced(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
     ``warmup=True`` runs the init step and one trip first, so the first
     launch's kernel build is not timed.  ``wall_time_s`` ends in
     ``torch.cuda.synchronize()`` on CUDA.  The headline times of the
-    tables come from untraced runs; these reads are stats."""
+    tables come from untraced runs; these reads are stats.  ``reorder=``
+    enables the locality engine as in ``aa_kmeans``."""
     _check_single(x, c0)
-    bk = resolve_backend(backend, ops)
+    bk = maybe_reorder(resolve_backend(backend, ops), reorder)
     c0s = c0[None]
     if warmup:
         batched_trip(x, _init_state(x, c0s, cfg, bk), cfg, bk)

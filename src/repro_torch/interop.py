@@ -76,9 +76,12 @@ def _t(a, device) -> torch.Tensor:
 
 
 def _carry(node, device):
-    """A backend carry: () for the stateless engines, or the bound
-    contract (labels, upper, lower, c_last, BoundStats) — the reference's
-    BoundStats is matched by its field names."""
+    """A backend carry, leaf by leaf: () for the stateless engines; the
+    bound contract (labels, upper, lower, c_last, BoundStats), lower
+    (N, G) or hamerly's (N,); or the locality engine's (perm, inv,
+    labels_sort, t, n_sorts, inner carry), whose t and n_sorts are (R,)
+    in a batched state.  The reference's BoundStats is matched by its
+    field names."""
     if getattr(node, "_fields", None) == BoundStats._fields:
         return BoundStats(*(_t(a, device) for a in node))
     if isinstance(node, tuple):

@@ -333,10 +333,12 @@ def test_step_slots_match_jax_dense(name):
 
 
 def test_registry_and_precision():
-    assert backend_names() == ("blocked", "dense", "fused", "fused_bounds",
-                               "pallas")
+    assert backend_names() == (
+        "blocked", "dense", "elkan", "elkan_reorder", "fused", "fused_bounds",
+        "fused_bounds_reorder", "hamerly", "hamerly_reorder", "pallas",
+        "yinyang", "yinyang_reorder")
     assert get_backend("fused") is get_backend("fused")
     with pytest.raises(KeyError):
-        get_backend("hamerly")
+        get_backend("no_such_engine")
     with pytest.raises(NotImplementedError):
         Precision(compute=torch.bfloat16)

@@ -571,3 +571,111 @@ def test_lloyd_kmeans_repeats_bit_for_bit_on_the_card(cuda):
     np.testing.assert_allclose(sums.cpu().numpy(), sums_c.numpy(),
                                rtol=1e-4, atol=1e-2)
     np.testing.assert_array_equal(counts.cpu().numpy(), counts_c.numpy())
+
+
+# -- the locality engine and the CPU bound engines ----------------------------
+
+def _unordered_blobs(cuda, n, d, k, seed):
+    """Blobs with their rows shuffled, so no tile shares an owner until
+    the locality engine sorts them."""
+    x = make_blobs(n, d, k, seed=seed, spread=2.0)
+    x = x[np.random.default_rng(seed).permutation(n)]
+    return torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+
+
+@pytest.mark.gpu
+def test_reorder_last_step_equals_the_raw_kernel_bitwise(cuda):
+    """The wrapper's step, gathered back to original order, equals the
+    raw bounded kernel's step on the original rows with the carry the
+    wrapper's kernel saw permuted back: each row's labels and min_sqdist
+    are its own.  The fit launches one bounded and one update kernel a
+    step and no plain version."""
+    import dataclasses
+    from repro_torch.core.locality import (ReorderConfig, inner_carry,
+                                           permute_bound_carry, resort,
+                                           sort_count)
+    x = _unordered_blobs(cuda, 30000, 16, 64, seed=3)
+    k, gs = 64, 8
+    bk = get_backend("fused_bounds_reorder", group_size=gs)
+    last = {}
+
+    def step(x_, cs, k_, carries, w=None):
+        last["in"] = (cs, carries)
+        res, last["out"] = bk.batched_step(x_, cs, k_, carries, w=w)
+        return res, last["out"]
+
+    F.bounds_launches = U.launches = F.bounds_plain_calls = 0
+    U.plain_calls = 0
+    model = AAKMeans(n_clusters=k, device=cuda, backend=dataclasses.replace(
+        bk, batched_step_fn=step)).fit(x)
+    steps = F.bounds_launches
+    assert steps > 2 and U.launches == steps
+    assert F.bounds_plain_calls == U.plain_calls == 0
+    assert int(sort_count(last["out"])[0]) > 0
+    cs, carry = last["in"]
+    res, _ = bk.batched_step(x, cs, k, carry)
+    carry_s = resort(carry, k, ReorderConfig())
+    bnds = squared_bounds(permute_bound_carry(inner_carry(carry_s),
+                                              carry_s[1]), cs, k, gs)
+    raw = F.fused_lloyd(x, cs, bounds=bnds, gs=gs)
+    assert torch.equal(res.labels, raw[0])
+    assert torch.equal(res.min_sqdist, raw[1])
+    assert np.isfinite(model.inertia_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [1, 2])
+def test_reorder_always_equals_never_on_the_card(cuda, r):
+    """Sorting on any change and never sorting run one program on other
+    data: equal on every result leaf.  Each wrapped step's labels and
+    min_sqdist equal the raw kernel's on the original rows with the carry
+    permuted back (whole fits against the raw engine may part at a near
+    tie of the accept test: its energy is the kernel's row sum, the
+    wrapper's a torch.sum)."""
+    import dataclasses
+    from repro_torch.core.kmeans import KMeansConfig, aa_kmeans_batched
+    from repro_torch.core.locality import (ReorderConfig, inner_carry,
+                                           permute_bound_carry, resort)
+    x = _unordered_blobs(cuda, 20000, 12, 40, seed=4)
+    c0s = torch.stack([x[i * 40:(i + 1) * 40] for i in range(r)])
+    cfg, gs = KMeansConfig(k=40, max_iter=80), 8
+    always_cfg = ReorderConfig(churn_threshold=0.0)
+    always_bk = get_backend("fused_bounds_reorder", group_size=gs,
+                            churn_threshold=0.0)
+    differ = []
+
+    def redone(x_, cs, k, carries, w=None):
+        res, out = always_bk.batched_step(x_, cs, k, carries, w=w)
+        carry_s = resort(carries, k, always_cfg)
+        raw = F.fused_lloyd(x_, cs, gs=gs, bounds=squared_bounds(
+            permute_bound_carry(inner_carry(carry_s), carry_s[1]), cs, k,
+            gs))
+        differ.append(int((res.labels != raw[0]).sum())
+                      + int((res.min_sqdist != raw[1]).sum()))
+        return res, out
+
+    F.bounds_plain_calls = U.plain_calls = 0
+    always = aa_kmeans_batched(x, c0s, cfg, backend=dataclasses.replace(
+        always_bk, batched_step_fn=redone))
+    never = aa_kmeans_batched(x, c0s, cfg, backend=get_backend(
+        "fused_bounds_reorder", group_size=gs, churn_threshold=1.5))
+    assert F.bounds_plain_calls == U.plain_calls == 0
+    assert all(torch.equal(a, b) for a, b in zip(always, never))
+    assert len(differ) > 2 and sum(differ) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["hamerly", "elkan", "yinyang"])
+def test_cpu_bound_engines_wrapped_equal_raw_on_the_card(cuda, name):
+    """The masked dense engines on CUDA tensors: wrapped in the locality
+    engine equal to raw on every leaf, the energy within 1e-5 of
+    dense's."""
+    from repro_torch.core.kmeans import KMeansConfig, aa_kmeans
+    x = _unordered_blobs(cuda, 20000, 69, 30, seed=5)
+    c0 = x[:30].clone()
+    cfg = KMeansConfig(k=30, max_iter=60)
+    raw = aa_kmeans(x, c0, cfg, backend=name)
+    wrapped = aa_kmeans(x, c0, cfg, backend=name, reorder=True)
+    assert all(torch.equal(a, b) for a, b in zip(raw, wrapped))
+    e_dense = float(aa_kmeans(x, c0, cfg, backend="dense").energy)
+    assert abs(float(raw.energy) - e_dense) <= 1e-5 * e_dense
