@@ -91,8 +91,23 @@ Phases, each fatal on failure:
      locality engine equal to its raw solve on every leaf, energies
      within 1e-3 of dense's, and hamerly_kmeans's labels equal to
      lloyd_kmeans's;
-Phases 9 and 10 run between phases 7 and 8, so that phase 8's kernel line
-counts their launches.
+  11. streaming mini-batch Algorithm 1 at full size on the same data:
+     MiniBatchAAKMeans(n_clusters=1000, chunk_size=65536, epochs=5,
+     val_size=16384, backend="fused").fit(x): 38 chunks (the last
+     padded at weight 0), fused launches 2 x n_steps_ + 1, predict's
+     assignment chunks, no plain version; the fit repeated bit-equal;
+     labels_ equal to the assignment kernel's at all rows; the driver
+     aa_kmeans_minibatch on the fit's own inputs under
+     torch.cuda.set_sync_debug_mode("error") (no sync in its loop),
+     bit-equal to the fit; the fused kernel on the padded tail chunk
+     against its plain version and against the truncated chunk; then
+     aa_kmeans_minibatch_streamed from the host training rows, 2 epochs,
+     at prefetch 2, 1, 1 and 2 in turns: equal bit for bit, every chunk metered, peak
+     device memory under a quarter of X, per-chunk gather, staging, copy
+     and step times; the fused kernel at R = 2 on the validation rows at
+     the final (c, c_au) against its plain version.
+Phases 9, 10 and 11 run between phases 7 and 8, so that phase 8's kernel
+line counts their launches.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -146,6 +161,8 @@ ORDERED_GS = 64   # groups of the cluster-ordered runs (G = 16 at K = 1000)
 TABLE3_CASES = (("kmeans++", 10), ("afk-mc2", 10), ("bf", 10),
                 ("clarans", 10), ("clarans", 100))
 PHASE10_MAX_ITER = 1000
+# phase 11: MiniBatchAAKMeans(chunk_size, epochs, val_size) at full size
+STREAM_CHUNK, STREAM_EPOCHS, STREAM_VAL = 65536, 5, 16384
 
 
 class PhaseError(RuntimeError):
@@ -575,6 +592,247 @@ def phase9(torch, x, c0, model, zero_counts, read_counts, path_launches):
           and int(tr.result.n_accepted) == n_acc,
           "aa_kmeans_traced takes other iterations than aa_kmeans")
     sys.stdout.flush()
+
+
+class StepEvents:
+    """A backend whose streaming chunk steps record CUDA events: one as
+    the guard (the batched step) starts, one as the chunk step ends; the
+    last guard's operands (the final pick's (c, c_au)) are kept."""
+
+    def __init__(self, torch, bk):
+        self.marks, self.last_guard = [], None
+
+        def guard(x_, cs, k, carries, w=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append([ev, None])
+            self.last_guard = (x_, cs)
+            return bk.batched_step(x_, cs, k, carries, w=w)
+
+        def chunk(x_, c, k, w, carry):
+            out = bk.minibatch_step(x_, c, k, w, carry)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks[-1][1] = ev
+            return out
+
+        self.backend = dataclasses.replace(
+            bk, name=f"{bk.name}+events", batched_step_fn=guard,
+            minibatch_step_fn=chunk)
+
+    def step_ms(self):
+        """Per chunk step: (guard start to chunk-step end, guard start to
+        the next guard's start) in device milliseconds."""
+        done = [m for m in self.marks if m[1] is not None]
+        work = [a.elapsed_time(b) for a, b in done]
+        span = [a[0].elapsed_time(b[0])
+                for a, b in zip(self.marks, self.marks[1:])]
+        return work, span
+
+
+def phase11(torch, x, inertia, zero_counts, read_counts, path_launches):
+    """Streaming mini-batch Algorithm 1 at full size: the device-resident
+    fit (launch counts, a bit-equal repeat, labels_ against the
+    assignment kernel, the driver again with no sync allowed, bit-equal),
+    the streamed driver from the host at prefetch 2 and 1 (bit-equal,
+    device memory far below X, every chunk metered), and the fused kernel
+    against its plain version at this path's shapes; -> the fused
+    kernel's largest absolute distance error."""
+    import numpy as np
+    from repro_torch.core import MiniBatchAAKMeans, get_backend
+    from repro_torch.core.api import PREDICT_CHUNK
+    from repro_torch.core.kmeans import (aa_kmeans_minibatch,
+                                         aa_kmeans_minibatch_streamed)
+    from repro_torch.kernels import assignment as A
+    from repro_torch.kernels import fused_lloyd as F
+    from repro_torch.runtime import IngestMeter
+    n, d = x.shape
+    print(f"phase 11: streaming mini-batch Algorithm 1 at full size "
+          f"(MiniBatchAAKMeans, fused, K={MAIN_K}, chunk {STREAM_CHUNK}, "
+          f"{STREAM_EPOCHS} epochs, {STREAM_VAL} validation rows)")
+
+    def make():
+        return MiniBatchAAKMeans(n_clusters=MAIN_K, chunk_size=STREAM_CHUNK,
+                                 epochs=STREAM_EPOCHS, val_size=STREAM_VAL,
+                                 backend="fused", seed=0)
+
+    model = make()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(x)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, plain = read_counts()
+    path_launches["MiniBatchAAKMeans fit + labels_"] = counts
+    n_train = n - STREAM_VAL
+    n_chunks = -(-n_train // STREAM_CHUNK)
+    tail = n_train - (n_chunks - 1) * STREAM_CHUNK
+    predict_chunks = -(-n // PREDICT_CHUNK)
+    print(f"  fit {fit_s!r} s (split, seeding, chunking, the driver and "
+          f"labels_ included): {n_chunks} chunks (the last {tail} real "
+          f"rows and {STREAM_CHUNK - tail} at weight 0), n_steps_ "
+          f"{model.n_steps_}, n_accepted_ {model.n_accepted_}, validation "
+          f"energy {model.energy_!r}")
+    print(f"  fused launches {counts['fused_lloyd']} vs 2 x n_steps_ + 1 = "
+          f"{2 * model.n_steps_ + 1}; assignment launches "
+          f"{counts['assignment']} vs predict chunks {predict_chunks}; "
+          f"plain-version calls {plain}", flush=True)
+    check(model.n_steps_ == STREAM_EPOCHS * n_chunks, "n_steps_")
+    check(counts["fused_lloyd"] == 2 * model.n_steps_ + 1,
+          "fused launches != 2 x n_steps_ + 1")
+    check(counts["assignment"] == predict_chunks,
+          "assignment launches != predict chunks")
+    check(counts["update"] == counts["fused_bounds"] == 0 and plain == 0,
+          "the streaming fit launched another kernel or a plain version")
+    check(np.isfinite(model.energy_) and model.energy_ > 0, "energy_")
+    lab_all = A.assignment(x, model.centroids_)[0]
+    same_lab = bool(np.array_equal(model.labels_, lab_all.cpu().numpy()))
+    e_full = float(F.fused_lloyd(x, model.centroids_)[4])
+    print(f"  labels_ equal to the assignment kernel's at all rows on the "
+          f"final centroids: {same_lab}; full-X energy of the final "
+          f"centroids {e_full!r} beside phase 5's inertia_ {inertia!r} "
+          f"({e_full / inertia - 1:+.4%})")
+    check(same_lab, "labels_ differ from the assignment kernel's")
+    check(np.isfinite(e_full), "full-X energy")
+
+    again = make().fit(x)
+    same = {"centroids": torch.equal(again.centroids_, model.centroids_),
+            "energy_": again.energy_ == model.energy_,
+            "n_accepted_": again.n_accepted_ == model.n_accepted_}
+    print(f"  the fit again from seed 0, equal bit for bit: {same}")
+    check(all(same.values()), f"the repeated fit differs: {same}")
+    del again
+
+    # the driver alone on the fit's own inputs, with any sync an error
+    inp = model.fit_inputs(x)
+    cfg = model._config()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        res = aa_kmeans_minibatch(inp.chunks.chunks, inp.chunks.weights,
+                                  inp.x_val, inp.c0, cfg, backend="fused",
+                                  generator=inp.generator)
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    driver_s = time.perf_counter() - t0
+    same = {"centroids": torch.equal(res.centroids, model.centroids_),
+            "energy": float(res.energy) == model.energy_,
+            "n_accepted": int(res.n_accepted) == model.n_accepted_,
+            "n_steps": res.n_steps == model.n_steps_}
+    print(f"  aa_kmeans_minibatch under set_sync_debug_mode('error'): "
+          f"{res.n_steps} steps enqueued in {enqueue_s!r} s, done in "
+          f"{driver_s!r} s ({res.n_steps / driver_s!r} steps/s, "
+          f"{driver_s / res.n_steps * 1e3!r} ms a step); equal to the fit "
+          f"bit for bit: {same}", flush=True)
+    check(all(same.values()), f"the driver differs from the fit: {same}")
+
+    # the kernels at this path's shapes: R = 2 over the validation rows
+    # at the final (c, c_au) (caught by the streamed run's recorder
+    # below), and the weighted step on the padded tail chunk
+    c_fin = model.centroids_
+    xt, wt = inp.chunks.chunks[-1], inp.chunks.weights[-1]
+    got = F.fused_lloyd(xt, c_fin, wt)
+    want = F.fused_lloyd_plain(xt, c_fin, wt)
+    res_tail = compare(torch, tuple(g[None] for g in got),
+                       tuple(v[None] for v in want), xt, c_fin[None], wt)
+    print(f"  fused on the padded tail chunk ({tail} rows at weight 1) vs "
+          f"plain: {fmt(res_tail)}")
+    accept(res_tail, "fused on the padded tail chunk")
+    trunc = F.fused_lloyd(xt[:tail].contiguous(), c_fin,
+                          torch.ones(tail, device=x.device))
+    pad_vs = {"labels": torch.equal(got[0][:tail], trunc[0]),
+              "min_sqdist": torch.equal(got[1][:tail], trunc[1])}
+    stats_v = compare_stats(got[2:4], trunc[2:4])
+    e_rel = float((got[4] - trunc[4]).abs() / trunc[4])
+    print(f"  padded against truncated tail: real rows equal bit for bit "
+          f"{pad_vs}; sums {stats_v['sums_rel']:.2e}, counts "
+          f"{stats_v['counts_rel']:.2e}, energy {e_rel:.2e} relative")
+    check(all(pad_vs.values()), f"padding moved the real rows: {pad_vs}")
+    accept_stats(stats_v, "padded against truncated tail")
+    check(e_rel <= 1e-6, f"padded tail energy off by {e_rel:.2e}")
+    abs_err = res_tail["mind_abs"]
+
+    # the streamed driver from the host: the fit's training rows, its
+    # seeds and validation chunk, prefetch 2 then 1
+    x_host = inp.chunks.chunks.reshape(-1, d)[:n_train].cpu().numpy()
+    x_val, c0 = inp.x_val, inp.c0
+    del inp, res, got, want, trunc
+    torch.cuda.synchronize()
+    scfg = dataclasses.replace(cfg, epochs=2)
+    x_mb = n * d * 4 / 1e6
+    runs = []
+    # in turns, so neither depth gets the warmer machine
+    for prefetch in (2, 1, 1, 2):
+        meter = IngestMeter()
+        rec = StepEvents(torch, get_backend("fused"))
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        meter.start()
+        out = aa_kmeans_minibatch_streamed(
+            x_host, x_val, c0, scfg, backend=rec.backend,
+            chunk_size=STREAM_CHUNK, seed=0, prefetch=prefetch,
+            drop_remainder=True, meter=meter)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts_s, plain_s = read_counts()
+        peak_mb = (torch.cuda.max_memory_allocated() - before) / 1e6
+        work, span = rec.step_ms()
+        copy = meter.copy_ms()
+        steps = out.n_steps
+        runs.append((prefetch, wall, out, rec))
+        path_launches.setdefault(
+            f"aa_kmeans_minibatch_streamed (prefetch {prefetch})", counts_s)
+
+        def med_mean(v, scale=1.0):
+            return (f"{float(np.median(v)) * scale!r}, "
+                    f"{float(np.mean(v)) * scale!r}")
+
+        print(f"  streamed, prefetch {prefetch}: {wall!r} s wall, {steps} "
+              f"steps, {meter.chunks} chunks metered ({meter.bytes} B, "
+              f"IngestMeter {meter.gbps!r} GB/s); per chunk (median, mean): "
+              f"host gather {med_mean(meter.fetch_s, 1e3)} ms; pinned "
+              f"staging {med_mean(meter.stage_s, 1e3)} ms; copy "
+              f"{med_mean(copy)} ms; step (guard to chunk step, events) "
+              f"{med_mean(work)} ms; step span (guard to guard) "
+              f"{med_mean(span)} ms; peak device memory above the start "
+              f"{peak_mb!r} MB (X is {x_mb!r} MB)", flush=True)
+        check(meter.chunks == steps == 2 * (n_train // STREAM_CHUNK),
+              "the meter missed chunks")
+        check(len(copy) == steps, "a copy was not timed")
+        check(counts_s["fused_lloyd"] == 2 * steps + 1 and plain_s == 0,
+              "the streamed run did not run on the fused kernel")
+        check(peak_mb < x_mb / 4, f"the streamed run held {peak_mb} MB on "
+              f"the card, over a quarter of X")
+    _, _, a, rec2 = runs[0]
+    same = {"centroids": all(torch.equal(a.centroids, r[2].centroids)
+                             for r in runs),
+            "energy": all(torch.equal(a.energy, r[2].energy) for r in runs),
+            "n_accepted": all(torch.equal(a.n_accepted, r[2].n_accepted)
+                              for r in runs),
+            "n_steps": all(a.n_steps == r[2].n_steps for r in runs)}
+    walls = {p: [r[1] for r in runs if r[0] == p] for p in (2, 1)}
+    print(f"  the four streamed runs (prefetch 2, 1, 1, 2) equal bit for "
+          f"bit: {same}; mean wall prefetch 2 "
+          f"{sum(walls[2]) / 2!r} s, prefetch 1 {sum(walls[1]) / 2!r} s; "
+          f"validation energy {float(a.energy)!r}, n_accepted "
+          f"{int(a.n_accepted)}")
+    check(all(same.values()), f"prefetch depths differ: {same}")
+
+    xv, cs = rec2.last_guard
+    got = F.fused_lloyd(xv, cs)
+    want = F.fused_lloyd_plain(xv, cs)
+    res_g = compare(torch, got, want, xv, cs, None)
+    print(f"  fused at R = 2 on the validation rows ({xv.shape[0]} x {d}) "
+          f"at the final (c, c_au) vs plain: {fmt(res_g)}")
+    accept(res_g, "fused at the guard's shape")
+    sys.stdout.flush()
+    return max(abs_err, res_g["mind_abs"])
 
 
 def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
@@ -1488,6 +1746,8 @@ def run():
     errs10 = phase10(torch, dev, x, zero_counts, read_counts, path_launches,
                      tile_rows)
     main_abs_err = max(main_abs_err, errs10["fused_lloyd"])
+    main_abs_err = max(main_abs_err, phase11(
+        torch, x, model.inertia_, zero_counts, read_counts, path_launches))
     assign_abs_err = max(assign_abs_err, errs10["assignment"])
     update_abs_err = max(update_abs_err, errs10["update"])
     bounds_abs_err = max(bounds_abs_err, errs10["fused_bounds"])

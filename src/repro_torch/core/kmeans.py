@@ -1,8 +1,9 @@
 """Algorithm 1 of the paper (counterpart of ``repro.core.kmeans``:
 ``_init_state`` :131, ``aa_kmeans`` :415, ``_complete_batched_iteration``
 :519, ``_batched_body`` :579, the non-segmented ``aa_kmeans_batched``
-:666-756, ``select_best`` :831, ``KMeansTrace`` / ``split_bound_phases``
-/ ``aa_kmeans_traced`` :1126-1245).
+:666-756, ``select_best`` :831, the non-segmented ``aa_kmeans_minibatch`` :976
+and ``aa_kmeans_minibatch_streamed`` :1049, ``KMeansTrace`` /
+``split_bound_phases`` / ``aa_kmeans_traced`` :1126-1245).
 
 Three drivers over one loop body:
 
@@ -24,6 +25,11 @@ Finished restarts are frozen row-wise (``_select_rows``).
 
 Every state leaf carries the leading R axis; the completion logic that
 the reference vmaps per restart is written out over that axis.
+
+Two streaming drivers run the chunk-step state machine of
+``core/minibatch.py``: ``aa_kmeans_minibatch`` over device-resident
+chunks and ``aa_kmeans_minibatch_streamed`` over host chunks with the
+copies prefetched.  Neither syncs with the device inside its loop.
 """
 
 from __future__ import annotations
@@ -41,6 +47,12 @@ from repro_torch.core.backends.base import from_lloyd_ops
 from repro_torch.core.backends.bounds import extract_stats
 from repro_torch.core.lloyd import DENSE_OPS, LloydOps
 from repro_torch.core.locality import maybe_reorder
+from repro_torch.core.minibatch import (MiniBatchConfig, MiniBatchResult,
+                                        guard_pick, minibatch_init,
+                                        minibatch_iteration, run_epoch,
+                                        stack_traces)
+from repro_torch.data.streaming import stream_chunks
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,6 +290,116 @@ def select_best(results: KMeansResult) -> KMeansResult:
     masked = torch.where(torch.isfinite(e), e, float("inf"))
     best = torch.argmin(masked)
     return KMeansResult(*(a[best] for a in results))
+
+
+def aa_kmeans_minibatch(chunks: torch.Tensor, weights: torch.Tensor,
+                        x_val: torch.Tensor, c0: torch.Tensor,
+                        cfg: MiniBatchConfig, backend: BackendLike = None,
+                        generator: Optional[torch.Generator] = None,
+                        return_trace: bool = False, *, device=None):
+    """Streaming Algorithm 1 over device-resident chunks.
+
+    ``chunks`` (n_chunks, B, d) with the row-weight mask ``weights``
+    (n_chunks, B) (``data.streaming.chunk_dataset`` makes both),
+    ``x_val`` (V, d) the validation chunk of the energy guard, ``c0``
+    (K, d) the seeds.  Runs ``cfg.epochs`` epochs, each over every chunk
+    in an order drawn on the host from ``generator`` (a CPU
+    ``torch.Generator``; default seed 0): a chunk is a view taken with a
+    host int, where a device permutation would have to be read back
+    before it could index anything.  So the loop never syncs with the
+    device.  The operands go to ``device`` (None: CUDA) first.
+
+    Returns a ``MiniBatchResult`` whose centroids are the final
+    guard-picked iterate; with ``return_trace=True`` also a
+    ``MiniBatchTrace`` with leaves of shape (epochs, n_chunks).  The
+    reference's checkpoint, metrics and mesh keywords are not ported
+    yet."""
+    if chunks.dim() != 3:
+        raise ValueError(f"chunks must be (n_chunks, B, d); got "
+                         f"{tuple(chunks.shape)}")
+    if tuple(weights.shape) != tuple(chunks.shape[:2]):
+        raise ValueError(f"weights {tuple(weights.shape)} must match "
+                         f"chunks' leading dims {tuple(chunks.shape[:2])}")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if generator.device.type != "cpu":
+        raise ValueError("the chunk order is drawn on the host: generator "
+                         "must be a CPU torch.Generator")
+    dev = resolve_device(device)
+    chunks, weights, x_val, c0 = (t.to(dev) for t in (chunks, weights,
+                                                      x_val, c0))
+    bk = resolve_backend(backend)
+    state = minibatch_init(c0, cfg, bk)
+    traces = []
+    for _ in range(cfg.epochs):
+        perm = torch.randperm(chunks.shape[0], generator=generator)
+        state, trace = run_epoch(chunks, weights, x_val, state, cfg, bk,
+                                 perm.tolist())
+        traces.append(trace)
+    c_fin, e_fin, _, _ = guard_pick(x_val, state, cfg, bk)
+    result = MiniBatchResult(c_fin, e_fin, state.t, state.n_acc)
+    if not return_trace:
+        return result
+    return result, stack_traces(traces) if traces else None
+
+
+def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
+                                 c0: torch.Tensor, cfg: MiniBatchConfig,
+                                 backend: BackendLike = None, *,
+                                 chunk_size: Optional[int] = None,
+                                 seed: int = 0, prefetch: int = 2,
+                                 drop_remainder: bool = False,
+                                 sort_chunks: bool = False, meter=None,
+                                 return_trace: bool = False, device=None):
+    """Streaming Algorithm 1 over a host-resident source, with the
+    host-to-device copies prefetched (``data.streaming.stream_chunks``
+    over ``runtime.prefetch``): chunk t+1's copy runs while chunk t's
+    step does.
+
+    ``source`` is a host array (chunked and shuffled per epoch by
+    ``host_chunk_stream`` from ``seed``; ``chunk_size`` defaults to
+    ``cfg.chunk_size``) or any iterator of host chunks (``chunk_size`` and
+    ``seed`` ignored; the caller owns the order and bakes ``cfg.epochs``
+    into it).  Each chunk runs one ``minibatch_iteration`` with unit row
+    weights, the state machine of ``aa_kmeans_minibatch``; chunks and
+    state live on ``device`` (None: CUDA).  Uniform chunk lengths
+    (``drop_remainder=True`` for an array source) keep the kernels at one
+    shape.
+
+    ``sort_chunks=True`` sorts each chunk's rows by the driver's current
+    centroids before the copy (stale by the prefetch depth, which shapes
+    locality only, never the numbers); reading them costs a sync per
+    chunk.  ``meter`` (an ``IngestMeter``) records the ingest.
+
+    Returns a ``MiniBatchResult`` (with ``return_trace=True`` also a
+    ``MiniBatchTrace`` stacked over all chunk steps)."""
+    dev = resolve_device(device)
+    # float64 narrows to float32, as the prefetcher narrows the chunks
+    x_val, c0 = (t.to(dev, torch.float32 if t.dtype == torch.float64
+                      else t.dtype)
+                 for t in map(torch.as_tensor, (x_val, c0)))
+    bk = resolve_backend(backend)
+    state = minibatch_init(c0, cfg, bk)
+
+    def sort_by():
+        return state.c.cpu().numpy()
+
+    is_iter = hasattr(source, "__next__")
+    traces = []
+    for xc in stream_chunks(
+            source, None if is_iter else (chunk_size or cfg.chunk_size),
+            epochs=cfg.epochs, seed=seed, drop_remainder=drop_remainder,
+            prefetch=prefetch, device=dev, meter=meter,
+            sort_by=sort_by if sort_chunks else None):
+        w = torch.ones((xc.shape[0],), dtype=torch.float32, device=dev)
+        state, trace = minibatch_iteration(xc, w, x_val, state, cfg, bk)
+        if return_trace:
+            traces.append(trace)
+    c_fin, e_fin, _, _ = guard_pick(x_val, state, cfg, bk)
+    result = MiniBatchResult(c_fin, e_fin, state.t, state.n_acc)
+    if not return_trace:
+        return result
+    return result, stack_traces(traces) if traces else None
 
 
 def _check_single(x, c0):

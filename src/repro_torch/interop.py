@@ -6,6 +6,7 @@ arrays) — what the reference's ``AAKMeans.save`` artifact and
 
     estimator_from_arrays(params, arrays)  -> fitted port AAKMeans
     batched_state_from_numpy(tree)         -> port _BatchedState
+    minibatch_state_from_numpy(tree)       -> port MiniBatchState
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch.core.anderson import AAState
 from repro_torch.core.api import AAKMeans
 from repro_torch.core.backends.bounds import BoundStats
 from repro_torch.core.kmeans import _BatchedState, _LoopState
+from repro_torch.core.minibatch import MiniBatchState
 from repro_torch.device import resolve_device
 
 # Reference constructor fields the port has no counterpart for; they do
@@ -103,3 +105,17 @@ def batched_state_from_numpy(tree, device=None) -> _BatchedState:
     return _BatchedState(
         _LoopState(aa=aa, carry=_carry(tuple(inner.carry), dev), **leaves),
         _t(tree.pending, dev))
+
+
+def minibatch_state_from_numpy(tree, device=None) -> MiniBatchState:
+    """The port's ``MiniBatchState`` from the reference's (numpy leaves of
+    ``repro.core.minibatch.MiniBatchState``), so one chunk step can run in
+    both packages from identical mid-stream state.  The reference's one
+    Anderson window gains the port's leading window axis of 1, and its
+    step count ``t`` becomes the host int the port keeps."""
+    dev = resolve_device(device)
+    aa = AAState(*(_t(getattr(tree.aa, f), dev)[None]
+                   for f in AAState._fields))
+    leaves = {f: _t(getattr(tree, f), dev) for f in MiniBatchState._fields
+              if f not in ("aa", "t")}
+    return MiniBatchState(aa=aa, t=int(np.asarray(tree.t)), **leaves)

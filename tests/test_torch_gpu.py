@@ -679,3 +679,89 @@ def test_cpu_bound_engines_wrapped_equal_raw_on_the_card(cuda, name):
     assert all(torch.equal(a, b) for a, b in zip(raw, wrapped))
     e_dense = float(aa_kmeans(x, c0, cfg, backend="dense").energy)
     assert abs(float(raw.energy) - e_dense) <= 1e-5 * e_dense
+
+
+# -- the streaming path --------------------------------------------------------
+
+def _stream_problem(device, n=20000, d=16, k=40):
+    x = make_blobs(n, d, k, seed=2, spread=3.0)
+    x_val = torch.from_numpy(x[:1024]).to(device)
+    return x[1024:], x_val, x_val[:k].clone()
+
+
+@pytest.mark.gpu
+def test_prefetched_stream_equals_synchronous_copies_on_the_card(cuda):
+    """The streamed driver at prefetch 1, 2 and 3 (pinned slots, copies
+    on a side stream) against chunk steps on chunks copied one by one with
+    a blocking copy: equal bit for bit."""
+    from repro_torch.core.kmeans import aa_kmeans_minibatch_streamed
+    from repro_torch.core.minibatch import (MiniBatchConfig, guard_pick,
+                                            minibatch_init,
+                                            minibatch_iteration)
+    from repro_torch.data.streaming import host_chunk_stream
+    from repro_torch.runtime import IngestMeter
+    x_host, x_val, c0 = _stream_problem(cuda)
+    cfg = MiniBatchConfig(k=40, chunk_size=2048, epochs=2)
+    bk = get_backend("fused")
+    state = minibatch_init(c0, cfg, bk)
+    for chunk in host_chunk_stream(x_host, 2048, epochs=2, seed=3):
+        xc = torch.from_numpy(chunk).to(cuda)
+        w = torch.ones(xc.shape[0], device=cuda)
+        state, _ = minibatch_iteration(xc, w, x_val, state, cfg, bk)
+    c_sync, e_sync, _, _ = guard_pick(x_val, state, cfg, bk)
+    for prefetch in (1, 2, 3):
+        meter = IngestMeter()
+        res = aa_kmeans_minibatch_streamed(x_host, x_val, c0, cfg,
+                                           backend="fused", seed=3,
+                                           prefetch=prefetch, meter=meter)
+        assert res.n_steps == state.t == meter.chunks
+        assert len(meter.copy_ms()) == meter.chunks
+        assert torch.equal(res.centroids, c_sync)
+        assert torch.equal(res.energy, e_sync)
+        assert torch.equal(res.n_accepted, state.n_acc)
+
+
+@pytest.mark.gpu
+def test_prefetch_yields_the_input_sequence_on_the_card(cuda):
+    """Chunks of two shapes and a shorter tail through the pinned ring:
+    every yielded tensor is on the card and equals its input, also while
+    earlier chunks are still held."""
+    from repro_torch.runtime import prefetch_to_device
+    rng = np.random.default_rng(0)
+    chunks = [rng.normal(size=(n, 7)).astype(np.float32)
+              for n in (512, 512, 300, 512, 512, 100, 700)]
+    got = list(prefetch_to_device(iter(chunks), size=2))
+    torch.cuda.synchronize()
+    assert len(got) == len(chunks)
+    for a, b in zip(got, chunks):
+        assert a.device.type == "cuda" and a.is_contiguous()
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.gpu
+def test_streaming_fit_runs_on_the_kernels(cuda):
+    """MiniBatchAAKMeans(backend="fused"): two fused launches a chunk step
+    (the R = 2 guard and the weighted chunk step) plus the final pick,
+    predict's assignment chunks, no plain version; partial_fit_stream
+    equals partial_fit per chunk bit for bit."""
+    from repro_torch.core import MiniBatchAAKMeans
+    from repro_torch.core.api import PREDICT_CHUNK
+    x = make_blobs(40000, 16, 40, seed=4, spread=3.0)
+    F.launches = A.launches = F.plain_calls = A.plain_calls = 0
+    U.plain_calls = 0
+    m = MiniBatchAAKMeans(n_clusters=40, chunk_size=4096, epochs=3,
+                          val_size=2048, backend="fused").fit(x)
+    assert m.n_steps_ == 3 * -(-(40000 - 2048) // 4096)
+    assert F.launches == 2 * m.n_steps_ + 1
+    assert A.launches == -(-40000 // PREDICT_CHUNK)
+    assert F.plain_calls == A.plain_calls == U.plain_calls == 0
+    chunks = [x[i:i + 5000] for i in range(0, 40000, 5000)]
+    a = MiniBatchAAKMeans(n_clusters=40, backend="fused")
+    for ch in chunks:
+        a.partial_fit(ch)
+    b = MiniBatchAAKMeans(n_clusters=40,
+                          backend="fused").partial_fit_stream(iter(chunks))
+    assert torch.equal(a.centroids_, b.centroids_)
+    assert torch.equal(a.energy_, b.energy_)
+    assert torch.equal(a.n_accepted_, b.n_accepted_)
+    assert F.plain_calls == 0
