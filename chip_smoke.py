@@ -105,9 +105,20 @@ Phases, each fatal on failure:
      at prefetch 2, 1, 1 and 2 in turns: equal bit for bit, every chunk metered, peak
      device memory under a quarter of X, per-chunk gather, staging, copy
      and step times; the fused kernel at R = 2 on the validation rows at
-     the final (c, c_au) against its plain version.
-Phases 9, 10 and 11 run between phases 7 and 8, so that phase 8's kernel
-line counts their launches.
+     the final (c, c_au) against its plain version;
+  12. persistence at full size: phase 5's fitted model saved to an
+     artifact in a temporary directory and loaded with device=None,
+     through AAKMeans.load and through checkpoint.load_estimator, each
+     predicting all rows with labels equal to phase 5's predict and
+     centroids_, labels_, energy_, n_iter_ and n_accepted_ equal; then
+     phase 11's MiniBatchAAKMeans configuration fed 24 host chunks of
+     65,536 rows by partial_fit, saved after chunk 10 and loaded into a
+     fresh estimator, both fed the remaining chunks and finalized:
+     centroids_, energy_, n_steps_ and n_accepted_ equal bit for bit;
+     assignment and fused launches, no plain version; save and load wall
+     times, artifact bytes and the peak device memory of each load.
+Phases 9, 10, 11 and 12 run between phases 7 and 8, so that phase 8's
+kernel line counts their launches.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -163,6 +174,9 @@ TABLE3_CASES = (("kmeans++", 10), ("afk-mc2", 10), ("bf", 10),
 PHASE10_MAX_ITER = 1000
 # phase 11: MiniBatchAAKMeans(chunk_size, epochs, val_size) at full size
 STREAM_CHUNK, STREAM_EPOCHS, STREAM_VAL = 65536, 5, 16384
+# phase 12: host chunks fed to partial_fit, and the chunk after which the
+# stream is saved
+RESUME_CHUNKS, RESUME_AT = 24, 10
 
 
 class PhaseError(RuntimeError):
@@ -833,6 +847,117 @@ def phase11(torch, x, inertia, zero_counts, read_counts, path_launches):
     accept(res_g, "fused at the guard's shape")
     sys.stdout.flush()
     return max(abs_err, res_g["mind_abs"])
+
+
+def timed_load(torch, load):
+    """-> (loaded model, wall s, peak device bytes above the start)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = load()
+    torch.cuda.synchronize()
+    return (model, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - before)
+
+
+def timed_save(torch, model, path):
+    """-> (artifact path, wall s, artifact bytes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.save(path)
+    return out, time.perf_counter() - t0, out.stat().st_size
+
+
+def phase12(torch, x, x_np, model, labels, zero_counts, read_counts,
+            path_launches):
+    """Persistence at full size: phase 5's fitted AAKMeans through an
+    artifact and back (predict's labels and the fitted state equal), and
+    a partial_fit stream saved mid-way, loaded and continued, equal bit
+    for bit to the stream that was not interrupted."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch.checkpoint import load_estimator
+    from repro_torch.core import AAKMeans, MiniBatchAAKMeans
+    from repro_torch.core.api import PREDICT_CHUNK
+    n = x.shape[0]
+    print(f"phase 12: persistence at full size (phase 5's fused AAKMeans; "
+          f"MiniBatchAAKMeans, fused, K={MAIN_K}, {RESUME_CHUNKS} host "
+          f"chunks of {STREAM_CHUNK}, saved after {RESUME_AT})")
+    with tempfile.TemporaryDirectory() as tmp:
+        p, save_s, nbytes = timed_save(torch, model, Path(tmp) / "aakmeans")
+        print(f"  AAKMeans.save {save_s!r} s, {nbytes} bytes")
+        zero_counts()
+        for how, load in (
+                ("AAKMeans.load", lambda: AAKMeans.load(p)),
+                ("load_estimator", lambda: load_estimator(p))):
+            loaded, load_s, peak = timed_load(torch, load)
+            lab = loaded.predict(x)
+            same = {
+                "class": type(loaded) is AAKMeans,
+                "on the card": loaded.centroids_.device.type == "cuda",
+                "predict": bool(np.array_equal(lab, labels)),
+                "centroids_": torch.equal(loaded.centroids_,
+                                          model.centroids_),
+                "labels_": torch.equal(loaded.labels_, model.labels_),
+                "scalars": (loaded.energy_, loaded.n_iter_,
+                            loaded.n_accepted_) == (
+                                model.energy_, model.n_iter_,
+                                model.n_accepted_)}
+            print(f"  {how}: {load_s!r} s, peak device memory "
+                  f"{peak / 1e6!r} MB; predict on all {n} rows and the "
+                  f"fitted state equal: {same}", flush=True)
+            check(all(same.values()), f"{how} differs: {same}")
+        counts, plain = read_counts()
+        path_launches["loaded AAKMeans predict"] = counts
+        chunks = -(-n // PREDICT_CHUNK)
+        print(f"  assignment launches {counts['assignment']} vs 2 x predict "
+              f"chunks {2 * chunks}; plain-version calls {plain}")
+        check(counts["assignment"] == 2 * chunks and plain == 0,
+              "the loaded models did not predict on the assignment kernel")
+
+        def make():
+            return MiniBatchAAKMeans(
+                n_clusters=MAIN_K, chunk_size=STREAM_CHUNK,
+                epochs=STREAM_EPOCHS, val_size=STREAM_VAL, backend="fused",
+                seed=0)
+
+        host = [x_np[i * STREAM_CHUNK:(i + 1) * STREAM_CHUNK]
+                for i in range(RESUME_CHUNKS)]
+        zero_counts()
+        a = make()
+        for chunk in host[:RESUME_AT]:
+            a.partial_fit(chunk)
+        p, save_s, nbytes = timed_save(torch, a, Path(tmp) / "stream")
+        b, load_s, peak = timed_load(
+            torch, lambda: MiniBatchAAKMeans.load(p))
+        print(f"  mid-stream MiniBatchAAKMeans.save after {RESUME_AT} "
+              f"chunks {save_s!r} s, {nbytes} bytes; load {load_s!r} s, "
+              f"peak device memory {peak / 1e6!r} MB", flush=True)
+        check(b._state.t == RESUME_AT and b._x_val.device.type == "cuda",
+              "the loaded stream is not at its step on the card")
+        for m in (a, b):
+            for chunk in host[RESUME_AT:]:
+                m.partial_fit(chunk)
+            m.finalize()
+        torch.cuda.synchronize()
+        counts, plain = read_counts()
+        path_launches["MiniBatchAAKMeans partial_fit, save, load"] = counts
+    steps = 2 * RESUME_CHUNKS - RESUME_AT
+    same = {"centroids_": torch.equal(a.centroids_, b.centroids_),
+            "energy_": a.energy_ == b.energy_,
+            "n_steps_": a.n_steps_ == b.n_steps_ == RESUME_CHUNKS,
+            "n_accepted_": torch.equal(a.n_accepted_, b.n_accepted_)}
+    print(f"  resumed against uninterrupted, equal bit for bit: {same}; "
+          f"validation energy {a.energy_!r}, n_accepted_ "
+          f"{int(a.n_accepted_)}; fused launches {counts['fused_lloyd']} vs "
+          f"2 x {steps} steps + 2 picks = {2 * steps + 2}; plain-version "
+          f"calls {plain}", flush=True)
+    check(all(same.values()), f"the resumed stream differs: {same}")
+    check(np.isfinite(a.energy_), "the stream's energy")
+    check(counts["fused_lloyd"] == 2 * steps + 2 and plain == 0,
+          "the stream did not run on the fused kernel")
 
 
 def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
@@ -1748,6 +1873,8 @@ def run():
     main_abs_err = max(main_abs_err, errs10["fused_lloyd"])
     main_abs_err = max(main_abs_err, phase11(
         torch, x, model.inertia_, zero_counts, read_counts, path_launches))
+    phase12(torch, x, x_np, model, labels, zero_counts, read_counts,
+            path_launches)
     assign_abs_err = max(assign_abs_err, errs10["assignment"])
     update_abs_err = max(update_abs_err, errs10["update"])
     bounds_abs_err = max(bounds_abs_err, errs10["fused_bounds"])

@@ -10,4 +10,8 @@ PyTorch version.
     from repro_torch.core import AAKMeans
     model = AAKMeans(n_clusters=1000, backend="fused").fit(x)
     labels = model.predict(x)
+    model.save("model")          # model.npz, which the reference loads too
+
+``repro_torch.checkpoint.load_estimator`` loads an estimator artifact
+written by either package, the class picked by the artifact's kind.
 """

@@ -1,9 +1,13 @@
 """Anderson-accelerated K-Means (Algorithm 1), PyTorch port.
 
 Public surface (this slice):
-    AAKMeans           — estimator: fit / predict / transform / inertia_
+    AAKMeans           — estimator: fit / predict / transform / inertia_ /
+                         save / load
     MiniBatchAAKMeans  — streaming estimator: fit / partial_fit /
                          partial_fit_stream / finalize / predict / transform
+                         / save / load (a mid-stream state included)
+    serialize          — the artifact format both packages read and write
+                         (``repro_torch.core.serialize``)
     aa_kmeans          — Algorithm 1 on one problem
     aa_kmeans_batched  — R restarts/problems driven together
     aa_kmeans_traced   — one problem, with per-iteration statistics

@@ -18,28 +18,36 @@ settle, e.g. ``get_backend("fused_bounds_reorder", group_size=64)``).
 driver and keeps the best; ``predict`` / ``transform`` run in fixed-shape
 chunks into host (numpy) arrays.  ``MiniBatchAAKMeans`` is the streaming
 estimator: ``fit`` over device-resident chunks, ``partial_fit`` /
-``partial_fit_stream`` over host chunks.  Still to be ported: the mesh,
-metrics sinks, the hierarchical fit, the serving index and save/load —
-the constructors have no fields for them.
+``partial_fit_stream`` over host chunks.  ``save`` / ``load`` write and
+read the reference's artifact format (``core/serialize.py``), a
+mid-stream ``partial_fit`` state included, so the two packages load each
+other's models.  Still to be ported: the mesh, metrics sinks, the
+hierarchical fit and the serving index — the constructors have no fields
+for them, and ``load`` refuses an artifact that holds their arrays.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import re
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import serialize
 from repro_torch.core.anderson import AAConfig
+from repro_torch.core.backends import Precision, backend_names, get_backend
 from repro_torch.core.init_schemes import batched_init, make_init
 from repro_torch.core.kmeans import (KMeansConfig, KMeansResult,
                                      aa_kmeans_batched, aa_kmeans_minibatch,
                                      resolve_backend, select_best)
 from repro_torch.core.lloyd import pairwise_sqdist
-from repro_torch.core.minibatch import (MiniBatchConfig, guard_pick,
-                                        minibatch_init, minibatch_iteration)
+from repro_torch.core.minibatch import (MiniBatchConfig,
+                                        from_reference_layout, guard_pick,
+                                        minibatch_init, minibatch_iteration,
+                                        reference_layout)
 from repro_torch.data.streaming import (DeviceChunks, chunk_dataset,
                                         split_validation, stream_chunks)
 from repro_torch.device import resolve_device
@@ -99,6 +107,115 @@ def _transform_rows(model, x, chunk_size) -> np.ndarray:
     return _chunked_rows_apply(
         model, x, lambda xc, c: torch.sqrt(pairwise_sqdist(xc, c)),
         np.float32, out_cols=model.n_clusters, chunk_size=chunk_size)
+
+
+# -- estimator persistence ---------------------------------------------------
+
+# fitted arrays of the reference that the port cannot serve yet: loading
+# them would drop them in silence
+_UNPORTED_ARRAYS = {
+    "closure_routers_": "the serving index (ROADMAP queue A item 5)",
+    "closure_candidates_": "the serving index (ROADMAP queue A item 5)",
+    "hier_routers_": "the hierarchical fit (ROADMAP queue A item 6)",
+    "hier_offsets_": "the hierarchical fit (ROADMAP queue A item 6)"}
+
+
+def _dtype_name(dt) -> str:
+    return str(dt).removeprefix("torch.")
+
+
+def _encode_backend(bk):
+    """A registry name passes through; a Backend instance is recorded as
+    its name plus its precision policy, as the reference records one
+    (``repro/core/api.py::_encode_backend``)."""
+    if isinstance(bk, str):
+        return bk
+    enc = {"name": bk.name}
+    if bk.precision.compute is not None:
+        enc["compute"] = _dtype_name(bk.precision.compute)
+    if bk.precision.accum is not None:
+        enc["accum"] = _dtype_name(bk.precision.accum)
+    return enc
+
+
+def _decode_backend(enc, path):
+    """The backend a persisted ``enc`` names: a registry name as it is, a
+    recorded instance rebuilt from the registry (``blocked<N>`` as
+    ``blocked`` with ``block_n=N``).  A precision other than float32
+    raises NotImplementedError; a name the registry cannot rebuild (an
+    instrumented or wrapped instance's, "fused+count", "elkan+reorder")
+    raises ValueError."""
+    if isinstance(enc, str):
+        name, opts = enc, None
+    else:
+        name, opts = enc["name"].split("@")[0], {}
+        m = re.fullmatch(r"blocked(\d+)", name)
+        if m:
+            name, opts["block_n"] = "blocked", int(m.group(1))
+        dts = {key: enc[key] for key in ("compute", "accum") if key in enc}
+        if any(dt != "float32" for dt in dts.values()):
+            raise NotImplementedError(
+                f"{path}: model was fitted with the precision policy {dts} "
+                f"of backend {enc['name']!r}; only float32 is ported")
+        if dts:
+            opts["precision"] = Precision(
+                **{key: torch.float32 for key in dts})
+    if name not in backend_names():
+        raise ValueError(
+            f"{path}: model was fitted with backend {enc!r}, which "
+            f"cannot be rebuilt from the registry "
+            f"({sorted(backend_names())}); construct the engine yourself "
+            f"and set model.backend on the loaded model before serving")
+    return name if opts is None else get_backend(name, **opts)
+
+
+def _save_estimator(model, path, kind, arrays: dict, stream: dict,
+                    scalars: dict):
+    """One ``core/serialize.py`` artifact in the reference's layout:
+    fitted arrays (and a streaming state) as the tree, the constructor
+    params and the fitted scalars (Python numbers) in the meta block.
+    ``device`` is a property of the process, as the reference's mesh and
+    metrics sink are, and is not persisted."""
+    params = {}
+    for f in dataclasses.fields(model):
+        if f.name.endswith("_") or f.name.startswith("_") \
+                or f.name == "device":
+            continue
+        v = getattr(model, f.name)
+        params[f.name] = _encode_backend(v) if f.name == "backend" else v
+    tree = {"arrays": arrays}
+    if stream:
+        tree["stream"] = stream
+    return serialize.save(
+        path, tree, kind=kind,
+        extra={"params": params, "scalars": scalars,
+               "has": sorted(arrays), "has_stream": sorted(stream)})
+
+
+def _load_estimator(cls, path, kind, device):
+    """-> (model with its params, centroids_ and scalars set, meta,
+    {leaf path: host tensor}, device).  Refuses an artifact holding
+    arrays the port cannot use yet."""
+    # interop imports this module; it holds the params' mapping
+    from repro_torch.interop import estimator_kwargs
+    meta, by_path = serialize.load(path, expect_kind=kind)
+    unported = sorted(set(meta["has"]) & set(_UNPORTED_ARRAYS))
+    if unported:
+        raise ValueError(
+            f"{path}: the artifact holds {unported}, arrays of "
+            f"{sorted({_UNPORTED_ARRAYS[a] for a in unported})}, which the "
+            f"port does not have yet; loading it would drop them")
+    dev = resolve_device(device)
+    model = cls(**estimator_kwargs(cls, meta["params"], device, path))
+    model.centroids_ = by_path["arrays/centroids_"].to(dev)
+    for name, val in meta["scalars"].items():
+        setattr(model, name, val)
+    return model, meta, by_path, dev
+
+
+def _host_number(v, cast):
+    """A fitted scalar as a Python number (one read of a device scalar)."""
+    return None if v is None else cast(v)
 
 
 @dataclasses.dataclass
@@ -186,6 +303,31 @@ class AAKMeans:
     @property
     def inertia_(self) -> float:
         return self.energy_
+
+    # -- persistence ------------------------------------------------------
+
+    def save(self, path):
+        """Write params and fitted state to one npz artifact in the
+        reference's format (``core/serialize.py``); the reference's
+        ``AAKMeans.load`` reads it.  -> the artifact's path."""
+        self._assert_fitted()
+        arrays = {"centroids_": self.centroids_}
+        if self.labels_ is not None:
+            arrays["labels_"] = self.labels_
+        scalars = {"energy_": self.energy_, "n_iter_": self.n_iter_,
+                   "n_accepted_": self.n_accepted_}
+        return _save_estimator(self, path, serialize.KIND_ESTIMATOR_AA,
+                               arrays, {}, scalars)
+
+    @classmethod
+    def load(cls, path, device=None) -> "AAKMeans":
+        """A fitted estimator from ``save``'s artifact, or the
+        reference's, with its tensors on ``device`` (None: CUDA)."""
+        model, meta, by_path, dev = _load_estimator(
+            cls, path, serialize.KIND_ESTIMATOR_AA, device)
+        if "labels_" in meta["has"]:
+            model.labels_ = by_path["arrays/labels_"].to(dev)
+        return model
 
 
 class FitInputs(NamedTuple):
@@ -397,3 +539,51 @@ class MiniBatchAAKMeans:
     @property
     def inertia_(self):
         return self.energy_
+
+    # -- persistence ------------------------------------------------------
+
+    def save(self, path):
+        """Write params and fitted state — an in-progress ``partial_fit``
+        stream included (running stats, Anderson window, guard energies,
+        the carved validation chunk) — to one npz artifact in the
+        reference's layout.  A loaded mid-stream model continues the
+        stream where this one stopped: fed the same remaining chunks it
+        ends bit for bit where this one would.  -> the artifact's path."""
+        self._assert_fitted()
+        arrays = {"centroids_": self.centroids_}
+        if self.labels_ is not None:
+            arrays["labels_"] = self.labels_
+        stream = {}
+        if self._state is not None:
+            stream = {"state": reference_layout(self._state),
+                      "x_val": self._x_val}
+        # mid-stream, energy_ and n_accepted_ are device scalars
+        scalars = {"energy_": _host_number(self.energy_, float),
+                   "n_steps_": _host_number(self.n_steps_, int),
+                   "n_accepted_": _host_number(self.n_accepted_, int)}
+        return _save_estimator(self, path, serialize.KIND_ESTIMATOR_MB,
+                               arrays, stream, scalars)
+
+    @classmethod
+    def load(cls, path, device=None) -> "MiniBatchAAKMeans":
+        """An estimator from ``save``'s artifact, or the reference's, with
+        its tensors on ``device`` (None: CUDA); a saved mid-stream state
+        is restored, so the next ``partial_fit`` / ``finalize`` continues
+        the stream."""
+        model, meta, by_path, dev = _load_estimator(
+            cls, path, serialize.KIND_ESTIMATOR_MB, device)
+        if "labels_" in meta["has"]:
+            model.labels_ = by_path["arrays/labels_"].numpy()
+        if meta["has_stream"]:
+            # the state's structure, dtypes and shapes from the port's own
+            # init, on the meta device
+            c = torch.empty(by_path["stream/state/c"].shape, device="meta")
+            like = {"state": reference_layout(minibatch_init(
+                        c, model._config(), resolve_backend(model.backend))),
+                    "x_val": torch.empty(by_path["stream/x_val"].shape,
+                                         device="meta")}
+            tree = serialize.fill(by_path, like, prefix="stream/",
+                                  device=dev, path=path)
+            model._state = from_reference_layout(tree["state"])
+            model._x_val = tree["x_val"]
+        return model

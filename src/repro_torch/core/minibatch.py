@@ -90,6 +90,23 @@ def minibatch_init(c0: torch.Tensor, cfg: MiniBatchConfig,
         t=0, n_acc=torch.zeros((), dtype=torch.int32, device=c0.device))
 
 
+def reference_layout(state: MiniBatchState) -> MiniBatchState:
+    """The state as the reference lays it out (and persists it): one
+    Anderson window with no leading axis, and the step count ``t`` as a
+    () int32 tensor."""
+    return state._replace(
+        aa=AAState(*(leaf[0] for leaf in state.aa)),
+        t=torch.tensor(state.t, dtype=torch.int32, device=state.c.device))
+
+
+def from_reference_layout(state: MiniBatchState) -> MiniBatchState:
+    """The inverse of ``reference_layout``: the window gains the port's
+    leading axis of 1 and ``t`` becomes a host int (one read of the
+    device)."""
+    return state._replace(aa=AAState(*(leaf[None] for leaf in state.aa)),
+                          t=int(state.t))
+
+
 def _centroids_from_running(sums, counts, c_prev, eps: float = 1e-6):
     """G(C) from the decayed running stats.  Unlike
     ``lloyd.update_from_sums`` (whose max(counts, 1) divide assumes

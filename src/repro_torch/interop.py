@@ -1,9 +1,10 @@
 """Carry state of the reference package across into the port.
 
-Both functions take numpy arrays (or objects whose leaves are numpy
+The functions take numpy arrays (or objects whose leaves are numpy
 arrays) — what the reference's ``AAKMeans.save`` artifact and
 ``jax.device_get`` give — so this module needs nothing of the reference.
 
+    estimator_kwargs(cls, params)          -> port constructor keywords
     estimator_from_arrays(params, arrays)  -> fitted port AAKMeans
     batched_state_from_numpy(tree)         -> port _BatchedState
     minibatch_state_from_numpy(tree)       -> port MiniBatchState
@@ -18,10 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.anderson import AAState
-from repro_torch.core.api import AAKMeans
+from repro_torch.core.api import AAKMeans, _decode_backend
 from repro_torch.core.backends.bounds import BoundStats
 from repro_torch.core.kmeans import _BatchedState, _LoopState
-from repro_torch.core.minibatch import MiniBatchState
+from repro_torch.core.minibatch import MiniBatchState, from_reference_layout
 from repro_torch.device import resolve_device
 
 # Reference constructor fields the port has no counterpart for; they do
@@ -30,15 +31,24 @@ from repro_torch.device import resolve_device
 _DROPPED = ("mesh", "data_axes", "metrics", "serving_index", "hierarchical")
 
 
-def _backend_name(enc):
-    """The reference records a backend as its registry name, or as a dict
-    with the name and a precision policy (repro/core/api.py:227)."""
-    if isinstance(enc, str):
-        return enc
-    if set(enc) != {"name"}:
-        raise NotImplementedError(
-            f"backend {enc!r}: only the float32 precision is ported")
-    return enc["name"].split("@")[0]
+def estimator_kwargs(cls, params: Mapping, device=None,
+                     where="params") -> dict:
+    """Constructor keywords of the port's estimator ``cls`` from the
+    reference's (or the port's) persisted ``params``: fields in
+    ``_DROPPED`` are dropped, any other unknown field raises ValueError,
+    and the backend is rebuilt by ``api._decode_backend``.  ``device`` is
+    the process's, never persisted."""
+    fields = {f.name for f in dataclasses.fields(cls)
+              if not f.name.endswith("_") and not f.name.startswith("_")}
+    unknown = set(params) - fields - set(_DROPPED)
+    if unknown:
+        raise ValueError(f"{where}: parameters with no counterpart in the "
+                         f"port: {sorted(unknown)}")
+    kwargs = {key: val for key, val in params.items() if key in fields}
+    if "backend" in kwargs:
+        kwargs["backend"] = _decode_backend(kwargs["backend"], where)
+    kwargs["device"] = device
+    return kwargs
 
 
 def estimator_from_arrays(params: Mapping, arrays: Mapping,
@@ -49,17 +59,7 @@ def estimator_from_arrays(params: Mapping, arrays: Mapping,
     ``AAKMeans.save`` (its ``meta["params"]``); ``arrays`` hold
     ``centroids_`` and optionally ``labels_``, ``energy_``, ``n_iter_``
     and ``n_accepted_`` as numpy arrays or scalars."""
-    fields = {f.name for f in dataclasses.fields(AAKMeans)
-              if not f.name.endswith("_")}
-    unknown = set(params) - fields - set(_DROPPED)
-    if unknown:
-        raise ValueError(f"parameters with no counterpart in the port: "
-                         f"{sorted(unknown)}")
-    kwargs = {key: val for key, val in params.items() if key in fields}
-    if "backend" in kwargs:
-        kwargs["backend"] = _backend_name(kwargs["backend"])
-    kwargs["device"] = device
-    model = AAKMeans(**kwargs)
+    model = AAKMeans(**estimator_kwargs(AAKMeans, params, device))
     dev = resolve_device(device)
     model.centroids_ = torch.as_tensor(
         np.asarray(arrays["centroids_"], np.float32), device=dev)
@@ -114,8 +114,7 @@ def minibatch_state_from_numpy(tree, device=None) -> MiniBatchState:
     Anderson window gains the port's leading window axis of 1, and its
     step count ``t`` becomes the host int the port keeps."""
     dev = resolve_device(device)
-    aa = AAState(*(_t(getattr(tree.aa, f), dev)[None]
-                   for f in AAState._fields))
+    aa = AAState(*(_t(getattr(tree.aa, f), dev) for f in AAState._fields))
     leaves = {f: _t(getattr(tree, f), dev) for f in MiniBatchState._fields
-              if f not in ("aa", "t")}
-    return MiniBatchState(aa=aa, t=int(np.asarray(tree.t)), **leaves)
+              if f != "aa"}
+    return from_reference_layout(MiniBatchState(aa=aa, **leaves))

@@ -765,3 +765,56 @@ def test_streaming_fit_runs_on_the_kernels(cuda):
     assert torch.equal(a.energy_, b.energy_)
     assert torch.equal(a.n_accepted_, b.n_accepted_)
     assert F.plain_calls == 0
+
+
+# -- persistence ---------------------------------------------------------------
+
+@pytest.mark.gpu
+def test_loaded_model_predicts_as_saved_on_the_card(cuda, tmp_path):
+    """AAKMeans(backend="fused") saved and loaded with device=None, through
+    AAKMeans.load and checkpoint.load_estimator: on the card, with the
+    fitted state equal and predict's labels equal to the saved model's,
+    on the assignment kernel."""
+    from repro_torch.checkpoint import load_estimator
+    from repro_torch.core.api import PREDICT_CHUNK
+    x = make_blobs(20000, 16, 40, seed=5, spread=3.0)
+    m = AAKMeans(n_clusters=40, backend="fused").fit(x)
+    want = m.predict(x)
+    p = m.save(tmp_path / "model")
+    A.launches = A.plain_calls = 0
+    for loaded in (AAKMeans.load(p), load_estimator(p)):
+        assert type(loaded) is AAKMeans
+        assert loaded.centroids_.device.type == "cuda"
+        assert torch.equal(loaded.centroids_, m.centroids_)
+        assert torch.equal(loaded.labels_, m.labels_)
+        assert (loaded.energy_, loaded.n_iter_, loaded.n_accepted_) == \
+            (m.energy_, m.n_iter_, m.n_accepted_)
+        np.testing.assert_array_equal(loaded.predict(x), want)
+    assert A.launches == 2 * -(-20000 // PREDICT_CHUNK)
+    assert A.plain_calls == 0
+
+
+@pytest.mark.gpu
+def test_midstream_resume_is_bit_identical_on_the_card(cuda, tmp_path):
+    """A partial_fit stream saved after 4 of 9 chunks and loaded in a
+    fresh estimator ends, fed the same remaining chunks, bit for bit where
+    the stream that was not interrupted ends."""
+    from repro_torch.core import MiniBatchAAKMeans
+    x = make_blobs(40000, 16, 40, seed=6, spread=3.0)
+    chunks = [x[i:i + 4096] for i in range(0, 9 * 4096, 4096)]
+    a = MiniBatchAAKMeans(n_clusters=40, chunk_size=4096, val_size=1024,
+                          backend="fused")
+    for ch in chunks[:4]:
+        a.partial_fit(ch)
+    b = MiniBatchAAKMeans.load(a.save(tmp_path / "mid"))
+    assert b._state.t == 4 and b._x_val.device.type == "cuda"
+    F.launches = F.plain_calls = 0
+    for m in (a, b):
+        for ch in chunks[4:]:
+            m.partial_fit(ch)
+        m.finalize()
+    assert torch.equal(a.centroids_, b.centroids_)
+    assert a.energy_ == b.energy_
+    assert a.n_steps_ == b.n_steps_ == len(chunks)
+    assert torch.equal(a.n_accepted_, b.n_accepted_)
+    assert F.launches == 2 * 2 * 5 + 2 and F.plain_calls == 0
