@@ -117,8 +117,27 @@ Phases, each fatal on failure:
      centroids_, energy_, n_steps_ and n_accepted_ equal bit for bit;
      assignment and fused launches, no plain version; save and load wall
      times, artifact bytes and the peak device memory of each load.
-Phases 9, 10, 11 and 12 run between phases 7 and 8, so that phase 8's
-kernel line counts their launches.
+  13. segmented and resumed solves at full size: (a) aa_kmeans(backend=
+     "fused") from phase 5's seeds with checkpoint_every=100, a
+     checkpoint_dir (keep_last_n=2) and a TeeMetrics(CollectMetrics(),
+     JsonlMetrics) sink, preempted by its checkpoint_cb at t = 300; the
+     run directory's resume point is it_00000300.npz with two snapshots
+     listed, and the run resumed from it equals phase 9 bit for bit; the
+     whole segmented run too, timed beside phase 9; each boundary's
+     snapshot copy, the writer's write latency and the artifacts' bytes;
+     (b) aa_kmeans_batched at R = 2 (phase 5's seeds and a kmeans++ draw
+     at seed 1), max_iter 60, cut every 25 trips: segmented and resumed
+     from the first snapshot equal to the plain run; (c)
+     fused_bounds_reorder (64-centroid groups) on the unordered rows,
+     max_iter 120, snapshots every 40 iterations through checkpoint_cb:
+     resumed from the first one holding a sort and a permutation that is
+     not the identity, from the tree and from its artifact, equal to the
+     plain run, and that artifact refused by raw fused_bounds; (d) phase
+     11's streaming configuration through aa_kmeans_minibatch, cut at
+     every epoch and resumed from epoch 2, equal to the plain run.  Each
+     case runs on its kernels alone, with no plain version.
+Phases 9, 10, 11, 12 and 13 run between phases 7 and 8, so that phase
+8's kernel line counts their launches.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -177,6 +196,13 @@ STREAM_CHUNK, STREAM_EPOCHS, STREAM_VAL = 65536, 5, 16384
 # phase 12: host chunks fed to partial_fit, and the chunk after which the
 # stream is saved
 RESUME_CHUNKS, RESUME_AT = 24, 10
+# phase 13: (a) aa_kmeans cut every SEG_EVERY iterations and preempted at
+# SEG_KILL_AT; (b) the batched driver (R = 2) at a smaller depth, cut
+# every SEG_B_EVERY trips; (c) fused_bounds_reorder at a smaller depth,
+# cut every SEG_C_EVERY iterations
+SEG_EVERY, SEG_KILL_AT = 100, 300
+SEG_B_MAX_ITER, SEG_B_EVERY = 60, 25
+SEG_C_MAX_ITER, SEG_C_EVERY = 120, 40
 
 
 class PhaseError(RuntimeError):
@@ -551,7 +577,8 @@ def phase9(torch, x, c0, model, zero_counts, read_counts, path_launches):
     from phase 5's seeds is phase 5's fit (the batched driver at R = 1)
     bit for bit; the traced driver on an instrumented engine counts one
     pass for the init, one per accepted iteration, two per rejected one
-    and one that detects convergence, and takes aa_kmeans's iterations."""
+    and one that detects convergence, and takes aa_kmeans's iterations;
+    -> (aa_kmeans's result, its wall seconds)."""
     import numpy as np
     from repro_torch.core.backends import get_backend, instrument
     from repro_torch.core.kmeans import (KMeansConfig, aa_kmeans,
@@ -606,6 +633,7 @@ def phase9(torch, x, c0, model, zero_counts, read_counts, path_launches):
           and int(tr.result.n_accepted) == n_acc,
           "aa_kmeans_traced takes other iterations than aa_kmeans")
     sys.stdout.flush()
+    return res, wall
 
 
 class StepEvents:
@@ -958,6 +986,302 @@ def phase12(torch, x, x_np, model, labels, zero_counts, read_counts,
     check(np.isfinite(a.energy_), "the stream's energy")
     check(counts["fused_lloyd"] == 2 * steps + 2 and plain == 0,
           "the stream did not run on the fused kernel")
+
+
+class Preempted(RuntimeError):
+    """Raised by phase 13's callback to stand in for a preemption."""
+
+
+def phase13(torch, dev, x, c0, res9, wall9, max_iter, zero_counts,
+            read_counts, path_launches):
+    """Segmented and resumed solves at full width: (a) aa_kmeans cut
+    every SEG_EVERY iterations and preempted at SEG_KILL_AT, resumed from
+    its run directory's newest snapshot; (b) the batched driver at R = 2
+    resumed from its first snapshot; (c) fused_bounds_reorder resumed
+    mid-sort, and refused on the raw engine; (d) the streaming driver cut
+    at every epoch and resumed from epoch 2.  Every resumed or segmented
+    run equals its uninterrupted run bit for bit, on the kernels."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import resume_point
+    from repro_torch.core import MiniBatchAAKMeans, get_backend
+    from repro_torch.core import serialize
+    from repro_torch.core.init_schemes import batched_init
+    from repro_torch.core.kmeans import (KMeansConfig, aa_kmeans,
+                                         aa_kmeans_batched,
+                                         aa_kmeans_minibatch,
+                                         loop_state_like)
+    from repro_torch.core.locality import permutation, sort_count
+    from repro_torch.runtime import (CollectMetrics, JsonlMetrics,
+                                     TeeMetrics, read_manifest,
+                                     snapshot_name, tree_nbytes,
+                                     write_snapshot)
+    print(f"phase 13: segmented and resumed solves at full size "
+          f"(K={MAIN_K}, fused; checkpoint every {SEG_EVERY}, preempted at "
+          f"t = {SEG_KILL_AT})")
+
+    def same_result(a, b):
+        return {f: torch.equal(u, v)
+                for f, u, v in zip(a._fields, a, b)}
+
+    def only(counts, plain, *names):
+        return plain == 0 and all(v > 0 if k in names else v == 0
+                                  for k, v in counts.items())
+
+    cfg = KMeansConfig(k=MAIN_K, max_iter=max_iter)
+    n_iter, n_acc = int(res9.n_iter), int(res9.n_accepted)
+    trips9 = 2 * n_iter - 2 + int(bool(res9.converged)) - n_acc
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (a) the main path, preempted and resumed
+        collect = CollectMetrics()
+        sink = TeeMetrics(collect, JsonlMetrics(tmp / "metrics.jsonl"))
+
+        def preempt(state, t):
+            if t == SEG_KILL_AT:
+                raise Preempted(f"preempted at t = {t}")
+
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            aa_kmeans(x, c0, cfg, backend="fused", checkpoint_every=SEG_EVERY,
+                      checkpoint_dir=tmp / "a", keep_last_n=2, metrics=sink,
+                      checkpoint_cb=preempt)
+            raise PhaseError("the preempting callback did not stop the run")
+        except Preempted:
+            pass
+        torch.cuda.synchronize()
+        cut_s = time.perf_counter() - t0
+        sink.close()
+        path, meta = resume_point(tmp / "a")
+        manifest = read_manifest(tmp / "a")
+        files = sorted(p.name for p in (tmp / "a").glob("it_*.npz"))
+        print(f"  (a) cut run to t = {SEG_KILL_AT}: {cut_s!r} s; resume "
+              f"point {path.name if path else None}, meta t "
+              f"{meta and meta['t']}, backend {meta and meta['backend']}; "
+              f"manifest lists {[e['file'] for e in manifest['snapshots']]}"
+              f", on disk {files}", flush=True)
+        check(path is not None and path.name == snapshot_name(SEG_KILL_AT)
+              and meta["t"] == SEG_KILL_AT, "resume_point after the cut")
+        check(len(manifest["snapshots"]) == 2 and files == [
+            e["file"] for e in manifest["snapshots"]],
+            "keep_last_n=2 did not keep two snapshots")
+        nbytes = {name: (tmp / "a" / name).stat().st_size for name in files}
+        # the restore alone: the snapshot's layout on the meta device,
+        # then the artifact read into it on the card
+        t0 = time.perf_counter()
+        like = loop_state_like(x, c0, cfg, "fused")
+        like_s = time.perf_counter() - t0
+        tree, _ = serialize.restore(path, like, device=dev)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0 - like_s
+        del like, tree
+        t0 = time.perf_counter()
+        resumed = aa_kmeans(x, c0, cfg, backend="fused", resume_from=path)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        counts, plain = read_counts()
+        path_launches["13a aa_kmeans cut + resumed (fused)"] = counts
+        same = same_result(resumed, res9)
+        snaps = [r["snapshot_s"] for _, r in collect.records
+                 if "snapshot_s" in r]
+        segs = [r["segment_s"] for _, r in collect.records
+                if "segment_s" in r]
+        writes = [r["checkpoint_write_s"] for _, r in collect.records
+                  if "checkpoint_write_s" in r]
+        lines = (tmp / "metrics.jsonl").read_text().splitlines()
+        recs = [json.loads(ln) for ln in lines]
+        print(f"  (a) restore alone: layout {like_s!r} s, read and copy to "
+              f"the card {restore_s!r} s; resumed run {resume_s!r} s "
+              f"(restore included) beside phase 9's {wall9!r} s for the "
+              f"whole solve; equal to phase 9 bit for bit: {same}")
+        print(f"  (a) boundaries: snapshot copies {snaps} s (host clock, "
+              f"ending in the copy's sync), segments {segs} s, writer's "
+              f"write latency {writes} s; artifact bytes {nbytes}; "
+              f"{len(recs)} JSONL records", flush=True)
+        print(f"  (a) fused launches {counts['fused_lloyd']} vs 1 + trips "
+              f"{1 + trips9}; plain-version calls {plain}")
+        check(all(same.values()), f"the resumed run differs: {same}")
+        # the boundary whose callback raised logs no scalars, but its
+        # snapshot was written
+        check(len(snaps) == SEG_KILL_AT // SEG_EVERY - 1
+              and len(writes) == len(snaps) + 1 and len(recs) == len(
+                  collect.records)
+              and recs[0]["step"] == collect.records[0][0],
+              "the sinks missed a boundary")
+        check(counts["fused_lloyd"] == 1 + trips9
+              and only(counts, plain, "fused_lloyd"),
+              "the cut and resumed runs did not run on the fused kernel "
+              "once per trip")
+        # the whole segmented run against phase 9's plain one
+        zero_counts()
+        t0 = time.perf_counter()
+        seg = aa_kmeans(x, c0, cfg, backend="fused",
+                        checkpoint_every=SEG_EVERY,
+                        checkpoint_dir=tmp / "a2", keep_last_n=2)
+        torch.cuda.synchronize()
+        seg_s = time.perf_counter() - t0
+        counts, plain = read_counts()
+        path_launches["13a aa_kmeans segmented (fused)"] = counts
+        same = same_result(seg, res9)
+        print(f"  (a) the whole segmented run (checkpoint every "
+              f"{SEG_EVERY}, written on the thread): {seg_s!r} s beside "
+              f"phase 9's {wall9!r} s ({seg_s / wall9 - 1:+.2%}); equal "
+              f"bit for bit: {same}; fused launches {counts['fused_lloyd']}",
+              flush=True)
+        check(all(same.values()) and counts["fused_lloyd"] == 1 + trips9
+              and only(counts, plain, "fused_lloyd"),
+              f"the segmented run differs: {same}")
+        del seg, resumed
+        shutil.rmtree(tmp / "a")
+        shutil.rmtree(tmp / "a2")
+
+        # (b) batched, R = 2
+        c0b = batched_init("kmeans++",
+                           torch.Generator(device=dev).manual_seed(1), x,
+                           MAIN_K, 1)[0]
+        c0s = torch.stack([c0, c0b])
+        cfg_b = KMeansConfig(k=MAIN_K, max_iter=SEG_B_MAX_ITER)
+        zero_counts()
+        t0 = time.perf_counter()
+        plain_b = aa_kmeans_batched(x, c0s, cfg_b, backend="fused")
+        torch.cuda.synchronize()
+        plain_b_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        seg_b = aa_kmeans_batched(x, c0s, cfg_b, backend="fused",
+                                  checkpoint_every=SEG_B_EVERY,
+                                  checkpoint_dir=tmp / "b")
+        torch.cuda.synchronize()
+        seg_b_s = time.perf_counter() - t0
+        first = tmp / "b" / snapshot_name(SEG_B_EVERY)
+        t0 = time.perf_counter()
+        res_b = aa_kmeans_batched(x, c0s, cfg_b, backend="fused",
+                                  resume_from=first)
+        torch.cuda.synchronize()
+        res_b_s = time.perf_counter() - t0
+        counts, plain = read_counts()
+        path_launches["13b aa_kmeans_batched R=2 (fused)"] = counts
+        same_seg, same_res = same_result(seg_b, plain_b), \
+            same_result(res_b, plain_b)
+        files = sorted(p.name for p in (tmp / "b").glob("it_*.npz"))
+        print(f"  (b) R = 2, max_iter {SEG_B_MAX_ITER}, n_iter "
+              f"{plain_b.n_iter.tolist()}, n_accepted "
+              f"{plain_b.n_accepted.tolist()}: plain {plain_b_s!r} s, "
+              f"segmented every {SEG_B_EVERY} trips {seg_b_s!r} s "
+              f"({files}, {first.stat().st_size} bytes each), resumed from "
+              f"{first.name} {res_b_s!r} s; segmented equal {same_seg}, "
+              f"resumed equal {same_res}; fused launches "
+              f"{counts['fused_lloyd']}, plain-version calls {plain}",
+              flush=True)
+        check(all(same_seg.values()) and all(same_res.values()),
+              "the batched segmented or resumed run differs")
+        check(only(counts, plain, "fused_lloyd"),
+              "the batched runs did not run on the fused kernel alone")
+        del plain_b, seg_b, res_b
+        shutil.rmtree(tmp / "b")
+
+        # (c) mid-sort resume of the locality engine
+        bk = get_backend("fused_bounds_reorder", group_size=ORDERED_GS)
+        raw = get_backend("fused_bounds", group_size=ORDERED_GS)
+        cfg_c = KMeansConfig(k=MAIN_K, max_iter=SEG_C_MAX_ITER)
+        trees = {}
+        zero_counts()
+        full_c = aa_kmeans(x, c0, cfg_c, backend=bk)
+        cut_c = aa_kmeans(x, c0, cfg_c, backend=bk,
+                          checkpoint_every=SEG_C_EVERY,
+                          checkpoint_cb=lambda st, t: trees.setdefault(t, st))
+        ar = torch.arange(x.shape[0], dtype=torch.int32, device=dev)
+        live = [t for t in sorted(trees)
+                if int(sort_count(trees[t].carry)) > 0
+                and not torch.equal(permutation(trees[t].carry), ar)]
+        print(f"  (c) fused_bounds_reorder (gs {ORDERED_GS}), max_iter "
+              f"{SEG_C_MAX_ITER}, n_iter {int(full_c.n_iter)}: boundaries "
+              f"{sorted(trees)}, sorts there "
+              f"{[int(sort_count(trees[t].carry)) for t in sorted(trees)]};"
+              f" with a live permutation: {live}", flush=True)
+        check(all(same_result(cut_c, full_c).values()),
+              "the segmented reorder run differs from the plain one")
+        check(bool(live) and live[0] < int(full_c.n_iter),
+              "no snapshot holds a live permutation before the end")
+        t_live = live[0]
+        state = trees[t_live]
+        del trees
+        res_c = aa_kmeans(x, c0, cfg_c, backend=bk, resume_from=state)
+        art = write_snapshot(tmp / "c", state, kind=serialize.KIND_LOOP,
+                             step=t_live, extra={"t": t_live, "k": MAIN_K,
+                                                 "backend": bk.name})
+        res_c2 = aa_kmeans(x, c0, cfg_c, backend=bk, resume_from=art)
+        torch.cuda.synchronize()
+        counts, plain = read_counts()
+        path_launches["13c fused_bounds_reorder resumed mid-sort"] = counts
+        refused = None
+        try:
+            aa_kmeans(x, c0, cfg_c, backend=raw, resume_from=art)
+        except ValueError as e:
+            refused = str(e)
+        same, same2 = same_result(res_c, full_c), same_result(res_c2, full_c)
+        print(f"  (c) resumed at t = {t_live} from the callback's tree: "
+              f"equal {same}; from its artifact ({art.stat().st_size} "
+              f"bytes, payload {tree_nbytes(state)}): equal {same2}; on raw "
+              f"fused_bounds: refused {refused is not None} "
+              f"({(refused or '')[-80:]!r}); launches {counts}, "
+              f"plain-version calls {plain}", flush=True)
+        check(all(same.values()) and all(same2.values()),
+              "the mid-sort resume differs")
+        check(refused is not None, "the raw engine took a reorder snapshot")
+        check(only(counts, plain, "fused_bounds", "update"),
+              "the reorder runs did not run on the bounded and update "
+              "kernels alone")
+        del state, full_c, cut_c, res_c, res_c2
+        shutil.rmtree(tmp / "c")
+
+        # (d) the streaming driver, phase 11's configuration
+        model = MiniBatchAAKMeans(n_clusters=MAIN_K, chunk_size=STREAM_CHUNK,
+                                  epochs=STREAM_EPOCHS, val_size=STREAM_VAL,
+                                  backend="fused", seed=0)
+        inp = model.fit_inputs(x)
+        cfg_d = model._config()
+        args = (inp.chunks.chunks, inp.chunks.weights, inp.x_val, inp.c0,
+                cfg_d)
+        zero_counts()
+        runs = {}
+        for label, kw in (
+                ("plain", {}),
+                ("segmented", dict(checkpoint_every=1,
+                                   checkpoint_dir=tmp / "d")),
+                ("resumed from epoch 2", dict(
+                    resume_from=tmp / "d" / snapshot_name(2)))):
+            gen = torch.Generator().manual_seed(0)
+            t0 = time.perf_counter()
+            runs[label] = aa_kmeans_minibatch(*args, backend="fused",
+                                              generator=gen, **kw)
+            torch.cuda.synchronize()
+            runs[label] = (runs[label], time.perf_counter() - t0)
+        counts, plain = read_counts()
+        path_launches["13d aa_kmeans_minibatch segmented + resumed"] = counts
+        ref_d = runs["plain"][0]
+        steps = ref_d.n_steps
+        for label, (r, s) in runs.items():
+            eq = {"centroids": torch.equal(r.centroids, ref_d.centroids),
+                  "energy": torch.equal(r.energy, ref_d.energy),
+                  "n_steps": r.n_steps == steps,
+                  "n_accepted": torch.equal(r.n_accepted, ref_d.n_accepted)}
+            print(f"  (d) {label}: {s!r} s, equal to plain {eq}")
+            check(all(eq.values()), f"the {label} stream differs: {eq}")
+        files = sorted(p.name for p in (tmp / "d").glob("it_*.npz"))
+        left = steps * (STREAM_EPOCHS - 2) // STREAM_EPOCHS
+        want = 2 * (2 * steps + 1) + 2 * left + 1
+        print(f"  (d) {files}, {(tmp / 'd' / files[0]).stat().st_size} "
+              f"bytes each; fused launches {counts['fused_lloyd']} vs "
+              f"2 x (2 x {steps} + 1) + 2 x {left} + 1 = {want}; "
+              f"plain-version calls {plain}", flush=True)
+        check(len(files) == STREAM_EPOCHS, "a snapshot per epoch")
+        check(counts["fused_lloyd"] == want
+              and only(counts, plain, "fused_lloyd"),
+              "the streams did not run on the fused kernel")
+    sys.stdout.flush()
+
 
 
 def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
@@ -1866,8 +2190,8 @@ def run():
     del xm, runs
     sys.stdout.flush()
 
-    phase9(torch, x, c0_main, model, zero_counts, read_counts,
-           path_launches)
+    res9, wall9 = phase9(torch, x, c0_main, model, zero_counts, read_counts,
+                         path_launches)
     errs10 = phase10(torch, dev, x, zero_counts, read_counts, path_launches,
                      tile_rows)
     main_abs_err = max(main_abs_err, errs10["fused_lloyd"])
@@ -1875,6 +2199,9 @@ def run():
         torch, x, model.inertia_, zero_counts, read_counts, path_launches))
     phase12(torch, x, x_np, model, labels, zero_counts, read_counts,
             path_launches)
+    phase13(torch, dev, x, c0_main, res9, wall9, model.max_iter, zero_counts,
+            read_counts, path_launches)
+    del res9
     assign_abs_err = max(assign_abs_err, errs10["assignment"])
     update_abs_err = max(update_abs_err, errs10["update"])
     bounds_abs_err = max(bounds_abs_err, errs10["fused_bounds"])

@@ -8,7 +8,8 @@ Public surface (this slice):
                          / save / load (a mid-stream state included)
     serialize          — the artifact format both packages read and write
                          (``repro_torch.core.serialize``)
-    aa_kmeans          — Algorithm 1 on one problem
+    aa_kmeans          — Algorithm 1 on one problem (checkpoint_every=,
+                         resume_from=, metrics=: core/segmented.py)
     aa_kmeans_batched  — R restarts/problems driven together
     aa_kmeans_traced   — one problem, with per-iteration statistics
     aa_kmeans_minibatch / aa_kmeans_minibatch_streamed — streaming

@@ -21,9 +21,12 @@ estimator: ``fit`` over device-resident chunks, ``partial_fit`` /
 ``partial_fit_stream`` over host chunks.  ``save`` / ``load`` write and
 read the reference's artifact format (``core/serialize.py``), a
 mid-stream ``partial_fit`` state included, so the two packages load each
-other's models.  Still to be ported: the mesh, metrics sinks, the
-hierarchical fit and the serving index — the constructors have no fields
-for them, and ``load`` refuses an artifact that holds their arrays.
+other's models.  ``metrics`` (a ``runtime.metrics`` sink) gets the
+solve's scalars at each segment boundary of ``fit``, and those of each
+``partial_fit`` chunk.  Still to be ported:
+the mesh, the hierarchical fit and the serving index — the constructors
+have no fields for them, and ``load`` refuses an artifact that holds
+their arrays.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ from repro_torch.data.streaming import (DeviceChunks, chunk_dataset,
                                         split_validation, stream_chunks)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.tiles import pad_rows
+from repro_torch.runtime.metrics import as_metrics
+from repro_torch.runtime.prefetch import IngestMeter
 
 PREDICT_CHUNK = 16384
 
@@ -174,12 +179,12 @@ def _save_estimator(model, path, kind, arrays: dict, stream: dict,
     """One ``core/serialize.py`` artifact in the reference's layout:
     fitted arrays (and a streaming state) as the tree, the constructor
     params and the fitted scalars (Python numbers) in the meta block.
-    ``device`` is a property of the process, as the reference's mesh and
-    metrics sink are, and is not persisted."""
+    ``device`` and ``metrics`` are properties of the process, as the
+    reference's mesh and metrics sink are, and are not persisted."""
     params = {}
     for f in dataclasses.fields(model):
         if f.name.endswith("_") or f.name.startswith("_") \
-                or f.name == "device":
+                or f.name in ("device", "metrics"):
             continue
         v = getattr(model, f.name)
         params[f.name] = _encode_backend(v) if f.name == "backend" else v
@@ -240,6 +245,10 @@ class AAKMeans:
     # None means CUDA (RuntimeError without a card); "cpu" runs the
     # kernels' plain versions
     device: object = None
+    # a runtime.metrics sink (None | "stdout" | anything with
+    # log_scalars): the batched driver's segment boundaries emit the
+    # solve's scalars to it.  Not persisted.
+    metrics: object = None
 
     # fitted state
     centroids_: Optional[torch.Tensor] = None
@@ -270,7 +279,8 @@ class AAKMeans:
         else:
             c0s = _as_input(c0s, dev)
         best: KMeansResult = select_best(
-            aa_kmeans_batched(x, c0s, cfg, backend=self.backend))
+            aa_kmeans_batched(x, c0s, cfg, backend=self.backend,
+                              metrics=self.metrics))
         energy = float(best.energy)
         if not math.isfinite(energy):
             # select_best skips non-finite restarts, so EVERY restart
@@ -385,6 +395,11 @@ class MiniBatchAAKMeans:
     # None means CUDA (RuntimeError without a card); "cpu" runs the
     # kernels' plain versions
     device: object = None
+    # a runtime.metrics sink: fit emits per epoch, partial_fit per
+    # chunk.  Reading a chunk's
+    # scalars waits for its step, a sync the stream otherwise avoids, so
+    # attach one only when the diagnostics are worth it.  Not persisted.
+    metrics: object = None
 
     # fitted state
     centroids_: Optional[torch.Tensor] = None
@@ -447,7 +462,7 @@ class MiniBatchAAKMeans:
         res = aa_kmeans_minibatch(
             inputs.chunks.chunks, inputs.chunks.weights, inputs.x_val,
             inputs.c0, cfg, backend=self.backend,
-            generator=inputs.generator, device=dev)
+            generator=inputs.generator, device=dev, metrics=self.metrics)
         del inputs
         self.centroids_ = res.centroids
         self.energy_ = float(res.energy)
@@ -492,6 +507,15 @@ class MiniBatchAAKMeans:
         self.energy_ = trace.e_val
         self.n_steps_ = self._state.t
         self.n_accepted_ = self._state.n_acc
+        if self.metrics is not None:
+            # a sink opts into a sync per chunk
+            e_val, accepted, n_acc = torch.stack([
+                trace.e_val.to(torch.float64),
+                trace.accepted.to(torch.float64),
+                self._state.n_acc.to(torch.float64)]).tolist()
+            as_metrics(self.metrics).log_scalars(self._state.t, {
+                "e_val": e_val, "accepted": accepted, "n_accepted": n_acc,
+                "chunk_rows": float(x.shape[0])})
         return self
 
     def partial_fit_stream(self, chunks, prefetch: int = 2
@@ -499,11 +523,17 @@ class MiniBatchAAKMeans:
         """Consume an iterator of host chunks with their host-to-device
         copies prefetched (``data.streaming.stream_chunks``): chunk t+1's
         copy is issued while chunk t's step runs.  Equal bit for bit to
-        calling ``partial_fit`` per chunk."""
+        calling ``partial_fit`` per chunk.  With a ``metrics`` sink, the
+        stream's ingest totals (``IngestMeter.scalars``) are emitted at
+        its end."""
         dev = resolve_device(self.device)
+        meter = None if self.metrics is None else IngestMeter()
         for chunk in stream_chunks(iter(chunks), prefetch=prefetch,
-                                   device=dev):
+                                   device=dev, meter=meter):
             self.partial_fit(chunk)
+        if meter is not None and meter.chunks:
+            as_metrics(self.metrics).log_scalars(self._state.t,
+                                                 meter.scalars())
         return self
 
     def finalize(self) -> "MiniBatchAAKMeans":

@@ -1,9 +1,12 @@
 """Algorithm 1 of the paper (counterpart of ``repro.core.kmeans``:
-``_init_state`` :131, ``aa_kmeans`` :415, ``_complete_batched_iteration``
-:519, ``_batched_body`` :579, the non-segmented ``aa_kmeans_batched``
-:666-756, ``select_best`` :831, the non-segmented ``aa_kmeans_minibatch`` :976
-and ``aa_kmeans_minibatch_streamed`` :1049, ``KMeansTrace`` /
-``split_bound_phases`` / ``aa_kmeans_traced`` :1126-1245).
+``_init_state`` :131, ``loop_state_like`` / ``_check_resume_meta`` /
+``_snapshot_meta`` :271-315, ``aa_kmeans`` :415,
+``_complete_batched_iteration`` :519, ``_batched_body`` :579,
+``batched_state_like`` :650, ``aa_kmeans_batched`` :666-756,
+``select_best`` :831, ``minibatch_stream_like`` :882,
+``aa_kmeans_minibatch`` :976 and ``aa_kmeans_minibatch_streamed`` :1049,
+``KMeansTrace`` / ``split_bound_phases`` / ``aa_kmeans_traced``
+:1126-1245).
 
 Three drivers over one loop body:
 
@@ -29,30 +32,41 @@ the reference vmaps per restart is written out over that axis.
 Two streaming drivers run the chunk-step state machine of
 ``core/minibatch.py``: ``aa_kmeans_minibatch`` over device-resident
 chunks and ``aa_kmeans_minibatch_streamed`` over host chunks with the
-copies prefetched.  Neither syncs with the device inside its loop.
+copies prefetched.  Neither syncs with the device inside its loop
+unless a metrics sink asks for per-chunk scalars.
+
+The loops of ``aa_kmeans``, ``aa_kmeans_batched`` and
+``aa_kmeans_minibatch`` live in ``core/segmented.py``: given a
+checkpoint keyword or a metrics sink they stop at boundaries that
+snapshot, write and emit, and with none they run one segment.  The
+snapshot layouts they restore into (``loop_state_like``,
+``batched_state_like``, ``minibatch_stream_like``) and the resume checks
+live here.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, NamedTuple, Optional, Union
+from typing import Any, Callable, NamedTuple, Optional, Union
 
 import torch
 
 from repro_torch.core import anderson
 from repro_torch.core.anderson import AAConfig, AAState
 from repro_torch.core.backends import Backend, get_backend
-from repro_torch.core.backends.base import from_lloyd_ops
+from repro_torch.core.backends.base import _tree_index, from_lloyd_ops
 from repro_torch.core.backends.bounds import extract_stats
 from repro_torch.core.lloyd import DENSE_OPS, LloydOps
 from repro_torch.core.locality import maybe_reorder
 from repro_torch.core.minibatch import (MiniBatchConfig, MiniBatchResult,
                                         guard_pick, minibatch_init,
-                                        minibatch_iteration, run_epoch,
+                                        minibatch_iteration,
+                                        reference_layout,
                                         stack_traces)
 from repro_torch.data.streaming import stream_chunks
 from repro_torch.device import resolve_device
+from repro_torch.runtime.metrics import as_metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,20 +149,28 @@ def _init_state(x, c0s, cfg: KMeansConfig, backend: Backend,
                 w=None) -> _BatchedState:
     """Line 1 for every restart: C^1 = C_AU^1 = G(C^0), F^0 = C^1 - C^0,
     E^0 = +inf — one batched step."""
-    k, r = cfg.k, c0s.shape[0]
-    carry = backend.batched_init_carry(x, c0s, k)
-    res0, carry = backend.batched_step(x, c0s, k, carry, w=w)
-    c1 = backend.centroids_from_step(x, res0, k, c0s)
-    aa = anderson.aa_init(r, k * x.shape[-1], cfg.aa, x.dtype, x.device)
-    aa = anderson.aa_seed(aa, (c1 - c0s).reshape(r, -1), c1.reshape(r, -1))
-    inf = torch.full((r,), float("inf"), dtype=res0.energy.dtype,
-                     device=x.device)
-    zeros = torch.zeros((r,), dtype=torch.int32, device=x.device)
-    false = torch.zeros((r,), dtype=torch.bool, device=x.device)
+    carry = backend.batched_init_carry(x, c0s, cfg.k)
+    res0, carry = backend.batched_step(x, c0s, cfg.k, carry, w=w)
+    c1 = backend.centroids_from_step(x, res0, cfg.k, c0s)
+    return _assemble_state(x, c1, c1 - c0s, res0.labels, res0.energy, carry,
+                           cfg)
+
+
+def _assemble_state(x, c1, f0, labels0, e0, carry,
+                    cfg: KMeansConfig) -> _BatchedState:
+    """The state before the first trip from the init step's outputs,
+    ``f0`` = C^1 - C^0 (also on the meta device, where
+    ``batched_state_like`` builds the snapshot layout from it)."""
+    r, dev = c1.shape[0], x.device
+    aa = anderson.aa_init(r, cfg.k * x.shape[-1], cfg.aa, x.dtype, dev)
+    aa = anderson.aa_seed(aa, f0.reshape(r, -1), c1.reshape(r, -1))
+    inf = torch.full((r,), float("inf"), dtype=e0.dtype, device=dev)
+    zeros = torch.zeros((r,), dtype=torch.int32, device=dev)
+    false = torch.zeros((r,), dtype=torch.bool, device=dev)
     inner = _LoopState(
-        c=c1, c_au=c1, p_prev=res0.labels, e_prev=inf, e_prev2=inf, aa=aa,
-        t=zeros, n_acc=zeros, converged=false, labels=res0.labels,
-        e_last=res0.energy, carry=carry)
+        c=c1, c_au=c1, p_prev=labels0, e_prev=inf, e_prev2=inf, aa=aa,
+        t=zeros, n_acc=zeros, converged=false, labels=labels0,
+        e_last=e0, carry=carry)
     return _BatchedState(inner, false)
 
 
@@ -256,7 +278,12 @@ def _check_inputs(x, c0s, weights):
 def aa_kmeans_batched(x: torch.Tensor, c0s: torch.Tensor,
                       cfg: KMeansConfig, backend: BackendLike = None, *,
                       weights: Optional[torch.Tensor] = None,
-                      reorder=False) -> KMeansResult:
+                      reorder=False, checkpoint_every: int = 0,
+                      checkpoint_dir=None, resume_from=None,
+                      checkpoint_cb: Optional[Callable] = None,
+                      keep_last_n: int = 0, keep_every_m: int = 0,
+                      metrics=None,
+                      sync_writes: bool = False) -> KMeansResult:
     """Batched Algorithm 1: R independent solves driven together.
 
     ``c0s`` (R, K, d) — one seed set per restart; ``x`` (N, d) shared by
@@ -272,13 +299,23 @@ def aa_kmeans_batched(x: torch.Tensor, c0s: torch.Tensor,
     backend in the locality engine, with one permutation per restart:
     the engine sees each restart's rows sorted by its labels, the result
     is in original row order.
+
+    ``checkpoint_every=s`` cuts the solve every s TRIPS (one batched
+    step each; a rejected iteration spans two) and snapshots the whole
+    ``_BatchedState``; ``resume_from`` takes such a snapshot's path or
+    tree.  The other checkpoint and runtime keywords are those of
+    ``aa_kmeans``; ``metrics`` gets ``energy_best``, ``n_active``,
+    ``n_accepted_total``, ``segment_s`` and ``snapshot_s`` per segment.
+    The loop is ``segmented.aa_kmeans_batched_segmented``: boundaries
+    only cut its sequence of trips, so any of these keywords leaves the
+    result as it is without them, bit for bit.
     """
+    from repro_torch.core.segmented import aa_kmeans_batched_segmented
     _check_inputs(x, c0s, weights)
-    bk = maybe_reorder(resolve_backend(backend), reorder)
-    bst = _init_state(x, c0s, cfg, bk, w=weights)
-    while bool(torch.any(_is_active(bst.inner, cfg.max_iter))):
-        bst = batched_trip(x, bst, cfg, bk, w=weights)
-    return _result_from_state(bst.inner)
+    return aa_kmeans_batched_segmented(
+        x, c0s, cfg, maybe_reorder(resolve_backend(backend), reorder),
+        weights, checkpoint_every, checkpoint_dir, resume_from,
+        checkpoint_cb, keep_last_n, keep_every_m, metrics, sync_writes)
 
 
 def select_best(results: KMeansResult) -> KMeansResult:
@@ -296,7 +333,12 @@ def aa_kmeans_minibatch(chunks: torch.Tensor, weights: torch.Tensor,
                         x_val: torch.Tensor, c0: torch.Tensor,
                         cfg: MiniBatchConfig, backend: BackendLike = None,
                         generator: Optional[torch.Generator] = None,
-                        return_trace: bool = False, *, device=None):
+                        return_trace: bool = False, *, device=None,
+                        checkpoint_every: int = 0, checkpoint_dir=None,
+                        resume_from=None,
+                        checkpoint_cb: Optional[Callable] = None,
+                        keep_last_n: int = 0, keep_every_m: int = 0,
+                        metrics=None, sync_writes: bool = False):
     """Streaming Algorithm 1 over device-resident chunks.
 
     ``chunks`` (n_chunks, B, d) with the row-weight mask ``weights``
@@ -311,9 +353,17 @@ def aa_kmeans_minibatch(chunks: torch.Tensor, weights: torch.Tensor,
 
     Returns a ``MiniBatchResult`` whose centroids are the final
     guard-picked iterate; with ``return_trace=True`` also a
-    ``MiniBatchTrace`` with leaves of shape (epochs, n_chunks).  The
-    reference's checkpoint, metrics and mesh keywords are not ported
-    yet."""
+    ``MiniBatchTrace`` with leaves of shape (epochs, n_chunks).
+
+    ``checkpoint_every=e`` (and the other checkpoint and runtime
+    keywords of ``aa_kmeans``) snapshots the state and the chunk order's
+    seed every e epochs; ``metrics`` gets scalars once per epoch.  The
+    loop is ``segmented.aa_kmeans_minibatch_segmented``, which leaves
+    the result as it is without these keywords, bit for bit.  With a
+    checkpoint keyword it refuses a generator that has been drawn from,
+    whose orders a resume could not replay.  The reference's mesh
+    keywords are not ported yet."""
+    from repro_torch.core.segmented import aa_kmeans_minibatch_segmented
     if chunks.dim() != 3:
         raise ValueError(f"chunks must be (n_chunks, B, d); got "
                          f"{tuple(chunks.shape)}")
@@ -328,19 +378,11 @@ def aa_kmeans_minibatch(chunks: torch.Tensor, weights: torch.Tensor,
     dev = resolve_device(device)
     chunks, weights, x_val, c0 = (t.to(dev) for t in (chunks, weights,
                                                       x_val, c0))
-    bk = resolve_backend(backend)
-    state = minibatch_init(c0, cfg, bk)
-    traces = []
-    for _ in range(cfg.epochs):
-        perm = torch.randperm(chunks.shape[0], generator=generator)
-        state, trace = run_epoch(chunks, weights, x_val, state, cfg, bk,
-                                 perm.tolist())
-        traces.append(trace)
-    c_fin, e_fin, _, _ = guard_pick(x_val, state, cfg, bk)
-    result = MiniBatchResult(c_fin, e_fin, state.t, state.n_acc)
-    if not return_trace:
-        return result
-    return result, stack_traces(traces) if traces else None
+    return aa_kmeans_minibatch_segmented(
+        chunks, weights, x_val, c0, cfg, resolve_backend(backend),
+        generator, return_trace, checkpoint_every, checkpoint_dir,
+        resume_from, checkpoint_cb, keep_last_n, keep_every_m, metrics,
+        sync_writes)
 
 
 def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
@@ -350,7 +392,8 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
                                  seed: int = 0, prefetch: int = 2,
                                  drop_remainder: bool = False,
                                  sort_chunks: bool = False, meter=None,
-                                 return_trace: bool = False, device=None):
+                                 metrics=None, return_trace: bool = False,
+                                 device=None):
     """Streaming Algorithm 1 over a host-resident source, with the
     host-to-device copies prefetched (``data.streaming.stream_chunks``
     over ``runtime.prefetch``): chunk t+1's copy runs while chunk t's
@@ -370,6 +413,9 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
     centroids before the copy (stale by the prefetch depth, which shapes
     locality only, never the numbers); reading them costs a sync per
     chunk.  ``meter`` (an ``IngestMeter``) records the ingest.
+    ``metrics`` gets each chunk's ``e_val`` and ``accepted``: reading them
+    waits for the step, so a sink serialises the overlap this driver is
+    for; without one the loop never syncs.
 
     Returns a ``MiniBatchResult`` (with ``return_trace=True`` also a
     ``MiniBatchTrace`` stacked over all chunk steps)."""
@@ -380,6 +426,7 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
                  for t in map(torch.as_tensor, (x_val, c0)))
     bk = resolve_backend(backend)
     state = minibatch_init(c0, cfg, bk)
+    mx = None if metrics is None else as_metrics(metrics)
 
     def sort_by():
         return state.c.cpu().numpy()
@@ -395,6 +442,10 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
         state, trace = minibatch_iteration(xc, w, x_val, state, cfg, bk)
         if return_trace:
             traces.append(trace)
+        if mx is not None:
+            e_val, accepted = torch.stack(
+                [trace.e_val, trace.accepted.to(trace.e_val.dtype)]).tolist()
+            mx.log_scalars(state.t, {"e_val": e_val, "accepted": accepted})
     c_fin, e_fin, _, _ = guard_pick(x_val, state, cfg, bk)
     result = MiniBatchResult(c_fin, e_fin, state.t, state.n_acc)
     if not return_trace:
@@ -415,7 +466,10 @@ def _unbatch(res: KMeansResult) -> KMeansResult:
 def aa_kmeans(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
               ops: Optional[LloydOps] = None,
               backend: BackendLike = None, *,
-              reorder=False) -> KMeansResult:
+              checkpoint_every: int = 0, checkpoint_dir=None,
+              resume_from=None, checkpoint_cb: Optional[Callable] = None,
+              keep_last_n: int = 0, keep_every_m: int = 0, metrics=None,
+              sync_writes: bool = False, reorder=False) -> KMeansResult:
     """Algorithm 1 on one problem: x (N, d), c0 (K, d).
 
     ``backend`` selects the engine ("dense" | "blocked" | "fused" |
@@ -429,13 +483,102 @@ def aa_kmeans(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
     The reference decides accept or revert inside ``lax.cond``; here the
     solve is the batched driver at R = 1, which carries that decision to
     the next trip (``pending``), so it costs one sync per trip and gives
-    the same bits as ``aa_kmeans_batched(x, c0[None], ...)``.  The
-    checkpoint and metrics keywords of the reference are not ported
-    yet."""
+    the same bits as ``aa_kmeans_batched(x, c0[None], ...)``.  The loop
+    is ``segmented.aa_kmeans_segmented``.
+
+    Persistence: ``checkpoint_every=s`` cuts the solve every s
+    iterations and snapshots the loop state at each boundary, into
+    ``checkpoint_dir`` (one ``it_<t>.npz`` artifact per boundary in the
+    reference's format, a ``manifest.json``, ``keep_last_n`` /
+    ``keep_every_m`` retention) and to ``checkpoint_cb(state, t)``.
+    ``resume_from`` (an artifact's path, e.g.
+    ``checkpoint.latest_snapshot(dir)``, or a tree the callback got)
+    continues a solve; the resumed run equals the uninterrupted one bit
+    for bit, because boundaries only cut the same sequence of trips.  The
+    snapshot is a copy of the state to the host taken at the boundary;
+    a background ``runtime.writer.CheckpointWriter`` writes the file
+    (``sync_writes=True`` writes it in line).  ``metrics`` (a
+    ``runtime.metrics`` sink) gets ``energy``, ``n_accepted``,
+    ``converged``, ``segment_s``, the bound engines' fractions and, when
+    a snapshot was written, ``snapshot_s`` per boundary, and the writer's
+    ``checkpoint_write_s``."""
+    from repro_torch.core.segmented import aa_kmeans_segmented
     _check_single(x, c0)
-    return _unbatch(aa_kmeans_batched(x, c0[None], cfg,
-                                      resolve_backend(backend, ops),
-                                      reorder=reorder))
+    return aa_kmeans_segmented(
+        x, c0, cfg, maybe_reorder(resolve_backend(backend, ops), reorder),
+        checkpoint_every, checkpoint_dir, resume_from, checkpoint_cb,
+        keep_last_n, keep_every_m, metrics, sync_writes)
+
+
+# -- the snapshot trees of the segmented drivers (core/segmented.py) ---------
+
+def _meta_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def batched_state_like(x, c0s, cfg: KMeansConfig,
+                       backend: BackendLike = None) -> _BatchedState:
+    """``_BatchedState``'s structure, shapes and dtypes for this problem
+    and engine, on the meta device: the restore target of a batched
+    snapshot.  It is the init's own assembly over the engine's initial
+    carry, so the snapshot's layout cannot drift from the code."""
+    bk = resolve_backend(backend)
+    xm, cm = _meta_like(x), _meta_like(c0s)
+    r, n = c0s.shape[0], x.shape[-2]
+    labels = torch.empty((r, n), dtype=torch.int32, device="meta")
+    energy = torch.empty((r,), dtype=x.dtype, device="meta")
+    return _assemble_state(xm, cm, cm, labels, energy,
+                           bk.batched_init_carry(xm, cm, cfg.k), cfg)
+
+
+def loop_state_like(x, c0, cfg: KMeansConfig,
+                    backend: BackendLike = None) -> _LoopState:
+    """The single-problem snapshot's layout (the reference's unbatched
+    ``_LoopState``): ``batched_state_like`` at R = 1 with the R axis
+    dropped from every leaf."""
+    return _tree_index(batched_state_like(x, c0[None], cfg, backend).inner,
+                       0)
+
+
+def minibatch_stream_like(c0, cfg: MiniBatchConfig,
+                          backend: BackendLike = None) -> dict:
+    """The streaming snapshot's layout: ``{"state"}``, the
+    ``MiniBatchState`` in the reference's layout
+    (``minibatch.reference_layout``), and ``{"key"}``, two uint32 words
+    (the reference's jax key; the port keeps its chunk order's seed
+    there)."""
+    state = minibatch_init(_meta_like(c0), cfg, resolve_backend(backend))
+    return {"state": reference_layout(state),
+            "key": torch.empty((2,), dtype=torch.uint32, device="meta")}
+
+
+def _backend_base(name: str) -> str:
+    """The engine's name without a mesh layout's "@axes" suffix, which
+    must not block a restore onto another layout."""
+    return name.split("@")[0]
+
+
+def _check_resume_meta(meta: dict, cfg, backend: Backend, what: str):
+    """Refuse a snapshot taken at another ``k`` or on another engine (a
+    "+reorder" snapshot on the raw engine included): its carry, and on
+    some engines the reduction order, differ, so the resumed trajectory
+    would not be the one the snapshot came from."""
+    if meta.get("k") is not None and meta["k"] != cfg.k:
+        raise ValueError(f"{what}: snapshot was taken at k={meta['k']}, "
+                         f"resuming with k={cfg.k}")
+    snap_bk = meta.get("backend")
+    if snap_bk and _backend_base(snap_bk) != _backend_base(backend.name):
+        raise ValueError(
+            f"{what}: snapshot was taken on backend {snap_bk!r} but the "
+            f"resume uses {backend.name!r}; the per-backend carry (and on "
+            f"some backends the reduction order) differs, so the resumed "
+            f"trajectory would not match -- resume on the same engine")
+
+
+def _snapshot_meta(step: int, cfg, backend: Backend,
+                   extra: Optional[dict] = None) -> dict:
+    return {"t": step, "k": cfg.k, "backend": backend.name,
+            **(extra or {})}
 
 
 def _bound_scalars(carry) -> dict:
@@ -507,7 +650,7 @@ def _trip_scalars(st: _LoopState) -> list:
 def aa_kmeans_traced(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
                      ops: Optional[LloydOps] = None,
                      backend: BackendLike = None,
-                     warmup: bool = False,
+                     warmup: bool = False, metrics=None,
                      reorder=False) -> KMeansTrace:
     """Algorithm 1 on one problem, recording the statistics of Tables 2
     and 3: per completed iteration its energy, window size and accept
@@ -519,9 +662,12 @@ def aa_kmeans_traced(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
     launch's kernel build is not timed.  ``wall_time_s`` ends in
     ``torch.cuda.synchronize()`` on CUDA.  The headline times of the
     tables come from untraced runs; these reads are stats.  ``reorder=``
-    enables the locality engine as in ``aa_kmeans``."""
+    enables the locality engine as in ``aa_kmeans``.  ``metrics`` (a
+    ``runtime.metrics`` sink) gets each iteration's ``energy``, ``m``,
+    ``accepted`` and bound fractions, the values the trace collects."""
     _check_single(x, c0)
     bk = maybe_reorder(resolve_backend(backend, ops), reorder)
+    mx = as_metrics(metrics)
     c0s = c0[None]
     if warmup:
         batched_trip(x, _init_state(x, c0s, cfg, bk), cfg, bk)
@@ -541,6 +687,9 @@ def aa_kmeans_traced(x: torch.Tensor, c0: torch.Tensor, cfg: KMeansConfig,
             scalars = _bound_scalars(bst.inner.carry)
             if scalars:
                 bstats.append(scalars)
+            mx.log_scalars(len(energies), {
+                "energy": energies[-1], "m": float(m_vals[-1]),
+                "accepted": float(acc[-1]), **scalars})
         t_done, n_acc = t, int(vals[2])
         if converged or t >= cfg.max_iter:
             break

@@ -28,7 +28,7 @@ from repro_torch.device import resolve_device
 # Reference constructor fields the port has no counterpart for; they do
 # not change what a fitted model predicts, so they are dropped.  Any
 # other unknown field raises.
-_DROPPED = ("mesh", "data_axes", "metrics", "serving_index", "hierarchical")
+_DROPPED = ("mesh", "data_axes", "serving_index", "hierarchical")
 
 
 def estimator_kwargs(cls, params: Mapping, device=None,

@@ -25,7 +25,8 @@ tensors (the CPU build of torch cannot pin memory).
 ``IngestMeter`` counts the bytes and chunks and, per chunk, the host
 seconds spent pulling it from the source (the gather), the host seconds
 spent staging it into its pinned slot, and the copy's device time (CUDA
-events on the side stream).
+events on the side stream); ``scalars()`` gives its totals in the form
+a metrics sink takes.
 """
 
 from __future__ import annotations
@@ -38,6 +39,20 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+
+def tree_nbytes(tree) -> int:
+    """Payload bytes of a tree (dicts, tuples, lists, NamedTuples) of
+    tensors or numpy arrays, on any device."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tree_nbytes(v) for v in tree)
+    if tree is None:
+        return 0
+    if isinstance(tree, torch.Tensor):
+        return int(tree.nbytes)
+    return int(np.asarray(tree).nbytes)
 
 
 class IngestMeter:
@@ -75,6 +90,13 @@ class IngestMeter:
     @property
     def gbps(self) -> float:
         return self.bytes / self.seconds / 1e9
+
+    def scalars(self) -> dict:
+        """The totals as metrics scalars (``ingest_bytes``,
+        ``ingest_chunks``, ``ingest_gbps``)."""
+        return {"ingest_bytes": float(self.bytes),
+                "ingest_chunks": float(self.chunks),
+                "ingest_gbps": self.gbps}
 
     def copy_ms(self) -> List[float]:
         """Device milliseconds of each chunk's host-to-device copy (waits

@@ -818,3 +818,68 @@ def test_midstream_resume_is_bit_identical_on_the_card(cuda, tmp_path):
     assert a.n_steps_ == b.n_steps_ == len(chunks)
     assert torch.equal(a.n_accepted_, b.n_accepted_)
     assert F.launches == 2 * 2 * 5 + 2 and F.plain_calls == 0
+
+
+def _blob_problem(device, n=30000, d=16, k=40, seed=7):
+    x = torch.from_numpy(make_blobs(n, d, k, seed=seed, spread=2.0))
+    c0 = x[torch.from_numpy(np.random.default_rng(seed).permutation(n)[:k])]
+    return x.to(device), c0.clone().to(device)
+
+
+@pytest.mark.gpu
+def test_fused_resume_is_bit_identical_on_the_card(cuda, tmp_path):
+    """aa_kmeans on the fused kernel, cut every 5 iterations: the
+    segmented run and runs resumed from each artifact equal the
+    uninterrupted run bit for bit, all on the kernel."""
+    from repro_torch.core.kmeans import KMeansConfig, aa_kmeans
+    x, c0 = _blob_problem(cuda)
+    cfg = KMeansConfig(k=40, max_iter=60)
+    ref = aa_kmeans(x, c0, cfg, backend="fused")
+    F.launches = F.plain_calls = 0
+    seg = aa_kmeans(x, c0, cfg, backend="fused", checkpoint_every=5,
+                    checkpoint_dir=tmp_path)
+    assert all(torch.equal(a, b) for a, b in zip(seg, ref))
+    snaps = sorted(tmp_path.glob("it_*.npz"))
+    assert len(snaps) >= 2
+    for p in snaps[:3]:
+        res = aa_kmeans(x, c0, cfg, backend="fused", resume_from=p)
+        assert res.centroids.device.type == "cuda"
+        assert all(torch.equal(a, b) for a, b in zip(res, ref)), p.name
+    assert F.launches > 0 and F.plain_calls == 0
+
+
+@pytest.mark.gpu
+def test_async_artifacts_equal_sync_artifacts_on_the_card(cuda, tmp_path):
+    import zipfile
+
+    from repro_torch.core.kmeans import KMeansConfig, aa_kmeans_batched
+    x, c0 = _blob_problem(cuda)
+    c0s = torch.stack([c0, x[:40]])
+    cfg = KMeansConfig(k=40, max_iter=30)
+    for sync in (True, False):
+        aa_kmeans_batched(x, c0s, cfg, backend="fused", checkpoint_every=7,
+                          checkpoint_dir=tmp_path / str(sync),
+                          sync_writes=sync)
+    names = sorted(p.name for p in (tmp_path / "True").glob("it_*.npz"))
+    assert names == sorted(p.name for p in
+                           (tmp_path / "False").glob("it_*.npz")) and names
+    for name in names:
+        members = []
+        for sync in ("True", "False"):
+            with zipfile.ZipFile(tmp_path / sync / name) as z:
+                members.append({m: z.read(m) for m in z.namelist()})
+        assert members[0] == members[1], name
+
+
+@pytest.mark.gpu
+def test_metrics_fit_equals_the_sink_free_fit_on_the_card(cuda):
+    from repro_torch.runtime.metrics import CollectMetrics
+    x = make_blobs(20000, 16, 40, seed=8, spread=2.0)
+    mx = CollectMetrics()
+    a = AAKMeans(n_clusters=40, n_init=2, backend="fused").fit(x)
+    b = AAKMeans(n_clusters=40, n_init=2, backend="fused", metrics=mx).fit(x)
+    assert torch.equal(a.centroids_, b.centroids_)
+    assert torch.equal(a.labels_, b.labels_)
+    assert (a.energy_, a.n_iter_, a.n_accepted_) == \
+        (b.energy_, b.n_iter_, b.n_accepted_)
+    assert mx.records and mx.records[-1][1]["n_active"] == 0.0
