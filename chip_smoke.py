@@ -136,8 +136,31 @@ Phases, each fatal on failure:
      11's streaming configuration through aa_kmeans_minibatch, cut at
      every epoch and resumed from epoch 2, equal to the plain run.  Each
      case runs on its kernels alone, with no plain version.
-Phases 9, 10, 11, 12 and 13 run between phases 7 and 8, so that phase
-8's kernel line counts their launches.
+  14. serving at full size on phase 5's fitted model: (a)
+     build_serving_index() with the defaults (G = 124, C = 512), timed;
+     predict(approx=True) on all rows beside the exact predict (rows/s of
+     both, the approximate one's peak device memory, recall); every row
+     whose label differs has its exact label outside its router's
+     closure, or ties it; (b) shrink(C) for C = 16 ... 512 on a seeded
+     65,536-row sample: recall monotone in C, ServingModel.labels'
+     median latency per 256-row batch (host clock ending in the
+     result's copy) beside the exact path's; (c) bucketed closure_assign
+     and closure_sqdist equal to plain ones bit for bit at 256 and 16,384
+     rows, and a 256-row batch's distances equal to the same rows' in
+     the chunk; (d) KMeansServer(batch_size=256) with a CollectMetrics
+     sink under 4 producers of 2,000 seeded requests of 1-512 rows, one
+     in ten a transform: every answer checked against
+     predict(approx=True) (near ties allowed), serve_latency_s p50/p99,
+     mean batch_rows, requests/s and rows/s; then approx=False: labels
+     equal to argmin(pairwise_sqdist) at the server's block shape, and
+     to phase 5's labels but for near ties; (e) a server polling an
+     artifact of phase 5's model (with its index) every 0.05 s, the
+     file overwritten under traffic with phase 11's MiniBatchAAKMeans
+     and its index: no request fails, each is one model's answer, the
+     new model answers after the swap, reload_s.  The exact predict's
+     assignment launches are the only kernel launches; no plain version.
+Phases 9, 10, 11, 12, 13 and 14 run between phases 7 and 8, so that
+phase 8's kernel line counts their launches.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -203,6 +226,12 @@ RESUME_CHUNKS, RESUME_AT = 24, 10
 SEG_EVERY, SEG_KILL_AT = 100, 300
 SEG_B_MAX_ITER, SEG_B_EVERY = 60, 25
 SEG_C_MAX_ITER, SEG_C_EVERY = 120, 40
+# phase 14: the server's batch, the candidate-count sweep's sample and
+# counts, the latency batches per count, and the server's requests
+SERVE_BATCH, SERVE_SAMPLE = 256, 65536
+SERVE_SWEEP = (16, 32, 64, 128, 256, 512)
+SERVE_LAT_ITERS = 50
+SERVE_REQUESTS, SERVE_EXACT_REQUESTS = 2000, 200
 
 
 class PhaseError(RuntimeError):
@@ -874,7 +903,7 @@ def phase11(torch, x, inertia, zero_counts, read_counts, path_launches):
           f"at the final (c, c_au) vs plain: {fmt(res_g)}")
     accept(res_g, "fused at the guard's shape")
     sys.stdout.flush()
-    return max(abs_err, res_g["mind_abs"])
+    return max(abs_err, res_g["mind_abs"]), model
 
 
 def timed_load(torch, load):
@@ -1282,6 +1311,327 @@ def phase13(torch, dev, x, c0, res9, wall9, max_iter, zero_counts,
               "the streams did not run on the fused kernel")
     sys.stdout.flush()
 
+
+
+def phase14(torch, x, x_np, model, labels, model_mb, zero_counts,
+            read_counts, path_launches):
+    """Serving at full size on phase 5's fitted fused model: (a) the
+    default index, approximate predict on all rows beside the exact one;
+    (b) the candidate-count sweep on a sample, with the serving model's
+    per-batch latency; (c) bucketed scans equal to plain ones bit for
+    bit; (d) the micro-batching server under four producers, with the
+    closure and the exact path; (e) a hot reload under traffic to phase
+    11's model.  -> the assignment kernel's launches in this phase."""
+    import statistics
+    import tempfile
+    import threading
+
+    import numpy as np
+    from repro_torch.core.api import PREDICT_CHUNK
+    from repro_torch.core.lloyd import pairwise_sqdist
+    from repro_torch.kernels.tiles import pad_rows
+    from repro_torch.runtime.metrics import CollectMetrics
+    from repro_torch.serving import (KMeansServer, ServingModel,
+                                     candidate_table, closure_assign,
+                                     closure_sqdist, default_n_candidates,
+                                     default_n_groups)
+    t_phase = time.perf_counter()
+    n = x.shape[0]
+    dev = x.device
+    c = model.centroids_
+    print(f"phase 14: serving at full size (phase 5's fused AAKMeans, "
+          f"K={MAIN_K}; the default closure index; KMeansServer at batch "
+          f"{SERVE_BATCH})")
+
+    def agrees(got, want, rows, cents):
+        """Host labels ``got`` against ``want`` for the rows ``rows``
+        (device indices): (equal, the largest near-tie gap where they
+        differ, rows that differ)."""
+        if np.array_equal(got, want):
+            return True, 0.0, 0
+        g = torch.from_numpy(np.asarray(got, np.int32)).to(dev)[None]
+        w = torch.from_numpy(np.asarray(want, np.int32)).to(dev)[None]
+        _, gap = tie_gap(torch, g, w, x[rows], cents[None])
+        return False, gap, int((g != w).sum())
+
+    zero_counts()
+    # (a) the index and approximate predict on all rows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.build_serving_index()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    idx = model.closure_index_
+    print(f"  (a) build_serving_index() {build_s!r} s: G={idx.n_groups}, "
+          f"C={idx.n_candidates}")
+    check((idx.n_groups, idx.n_candidates) == (
+        default_n_groups(MAIN_K), default_n_candidates(MAIN_K)) == (124, 512),
+          "the default index is not G = 124, C = 512")
+    t0 = time.perf_counter()
+    lab_exact = model.predict(x)
+    exact_s = time.perf_counter() - t0
+    check(np.array_equal(lab_exact, labels),
+          "exact predict differs from phase 5's")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lab_apx = model.predict(x, approx=True)
+    approx_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    recall = float(np.mean(lab_apx == lab_exact))
+    # every difference: the exact label is absent from the row's router's
+    # closure (routed as predict routes, chunk by chunk), or a near tie
+    diff = np.nonzero(lab_apx != lab_exact)[0]
+    routers, cands = idx.routers, idx.candidates
+    g_all = torch.empty(n, dtype=torch.int64, device=dev)
+    for i in range(0, n, PREDICT_CHUNK):
+        xc = pad_rows(x[i:i + PREDICT_CHUNK], PREDICT_CHUNK)
+        m = min(PREDICT_CHUNK, n - i)
+        g_all[i:i + m] = torch.argmin(pairwise_sqdist(xc, routers),
+                                      dim=1)[:m]
+    rows_d = torch.from_numpy(diff).to(dev)
+    exact_d = torch.from_numpy(lab_exact[diff]).to(dev).long()
+    in_closure = (cands[g_all[rows_d]].long() == exact_d[:, None]).any(1)
+    n_in = int(in_closure.sum())
+    gap_in = 0.0
+    if n_in:
+        sel = rows_d[in_closure]
+        _, gap_in = tie_gap(
+            torch, torch.from_numpy(lab_apx[diff]).to(dev)[in_closure][None],
+            exact_d[in_closure].to(torch.int32)[None], x[sel], c[None])
+    print(f"  (a) exact predict {exact_s!r} s ({n / exact_s!r} rows/s); "
+          f"approx predict {approx_s!r} s ({n / approx_s!r} rows/s), peak "
+          f"device memory {peak / 1e6!r} MB above the start; recall "
+          f"{recall!r} ({len(diff)} rows differ: {len(diff) - n_in} with "
+          f"the exact label outside their router's closure, {n_in} inside "
+          f"it at a near-tie gap of at most {gap_in:.2e})", flush=True)
+    check(n_in == 0 or gap_in <= 1e-5,
+          "an approximate label differs where the exact one was a "
+          "candidate, beyond a near tie")
+
+    # (b) the candidate-count sweep on a seeded sample
+    gen = torch.Generator(device=dev).manual_seed(14)
+    sel = torch.randperm(n, generator=gen, device=dev)[:SERVE_SAMPLE]
+    sel_np = sel.cpu().numpy()
+    xs, xs_np, es = x[sel], x_np[sel_np], lab_exact[sel_np]
+    batches = [xs_np[i * SERVE_BATCH:(i + 1) * SERVE_BATCH]
+               for i in range(SERVE_LAT_ITERS)]
+
+    def latency_ms(sm):
+        sm.warmup(SERVE_BATCH)
+        ts = []
+        for xb in batches:
+            t0 = time.perf_counter()
+            sm.labels(xb)          # ends in the result's copy to the host
+            ts.append(time.perf_counter() - t0)
+        return statistics.median(ts) * 1e3
+
+    exact_ms = latency_ms(ServingModel(c, None))
+    recalls = {}
+    for cc in SERVE_SWEEP:
+        small = idx.shrink(cc)
+        tab = candidate_table(c, small.candidates)
+        got = torch.cat([closure_assign(xs[i:i + PREDICT_CHUNK], c,
+                                        small.routers, small.candidates,
+                                        tab)[0]
+                         for i in range(0, SERVE_SAMPLE, PREDICT_CHUNK)])
+        recalls[cc] = float(np.mean(got.cpu().numpy() == es))
+        ms = latency_ms(ServingModel(c, small))
+        print(f"  (b) C={cc}: recall {recalls[cc]!r} on {SERVE_SAMPLE} "
+              f"sampled rows; ServingModel.labels median {ms!r} ms per "
+              f"{SERVE_BATCH}-row batch ({SERVE_LAT_ITERS} batches; the "
+              f"exact path {exact_ms!r} ms)", flush=True)
+    rs = [recalls[cc] for cc in SERVE_SWEEP]
+    check(rs == sorted(rs), f"recall is not monotone in C: {recalls}")
+
+    # (c) bucketed scans equal plain ones, bit for bit
+    tab = candidate_table(c, cands)
+    full = closure_sqdist(x[:PREDICT_CHUNK], c, routers, cands, tab)
+    same = {}
+    for rows in (SERVE_BATCH, PREDICT_CHUNK):
+        xr = x[:rows]
+        l0, d0 = closure_assign(xr, c, routers, cands, tab)
+        l1, d1 = closure_assign(xr, c, routers, cands, tab, bucketed=True)
+        s0 = closure_sqdist(xr, c, routers, cands, tab)
+        s1 = closure_sqdist(xr, c, routers, cands, tab, bucketed=True)
+        same[rows] = (torch.equal(l0, l1) and torch.equal(d0, d1)
+                      and torch.equal(s0, s1))
+    in_chunk = torch.equal(closure_sqdist(x[:SERVE_BATCH], c, routers, cands,
+                                          tab, bucketed=True),
+                           full[:SERVE_BATCH])
+    del full, s0, s1
+    print(f"  (c) bucketed equal to plain bit for bit (closure_assign, "
+          f"closure_sqdist) at {SERVE_BATCH} and {PREDICT_CHUNK} rows: "
+          f"{same}; a {SERVE_BATCH}-row batch's distances equal to the same "
+          f"rows' in the {PREDICT_CHUNK}-row chunk: {in_chunk}")
+    check(all(same.values()) and in_chunk, "bucketed and plain scans differ")
+
+    # (d) the server under four producers
+    rng = np.random.default_rng(14)
+    reqs = [(int(s), int(m), bool(t)) for s, m, t in zip(
+        rng.integers(0, n - 512, SERVE_REQUESTS),
+        rng.integers(1, 513, SERVE_REQUESTS),
+        rng.random(SERVE_REQUESTS) < 0.1)]
+
+    def drive(srv, jobs, producers):
+        """-> ({request: answer}, errors, wall s)."""
+        answers, errors = {}, []
+
+        def produce(part):
+            for j in part:
+                s, m, t = jobs[j]
+                try:
+                    f = srv.submit(x_np[s:s + m],
+                                   op="transform" if t else "labels")
+                    answers[j] = f.result(timeout=60)
+                except Exception as e:   # noqa: BLE001 — counted
+                    errors.append(e)
+        threads = [threading.Thread(target=produce,
+                                    args=(range(p, len(jobs), producers),))
+                   for p in range(producers)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads), "a producer hung")
+        return answers, errors, wall
+
+    sink = CollectMetrics()
+    with KMeansServer(model, batch_size=SERVE_BATCH, metrics=sink) as srv:
+        check(srv._model.approx and srv._model.device.type == "cuda",
+              "the server does not serve the index on the card")
+        answers, errors, wall = drive(srv, reqs, 4)
+    check(not errors and len(answers) == SERVE_REQUESTS,
+          f"{len(errors)} requests failed, {len(answers)} answered")
+    worst, n_diff = 0.0, 0
+    for j, (s, m, t) in enumerate(reqs):
+        got = answers[j]
+        if t:
+            check(got.shape == (m, MAIN_K), "a transform's shape")
+            got = np.argmin(got, axis=1).astype(np.int32)
+        else:
+            check(got.shape == (m,) and got.dtype == np.int32,
+                  "a label request's shape")
+        eq, gap, nd = agrees(got, lab_apx[s:s + m],
+                             torch.arange(s, s + m, device=dev), c)
+        worst, n_diff = max(worst, gap), n_diff + nd
+    recs = [r for _, r in sink.records if "serve_latency_s" in r]
+    lat = sorted(r["serve_latency_s"] for r in recs)
+    rows_total = sum(m for _, m, _ in reqs)
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+    mean_rows = sum(r["batch_rows"] for r in recs) / len(recs)
+    print(f"  (d) {SERVE_REQUESTS} requests ({sum(t for *_, t in reqs)} "
+          f"transforms, {rows_total} rows) from 4 producers in {wall!r} s: "
+          f"{SERVE_REQUESTS / wall!r} requests/s, {rows_total / wall!r} "
+          f"rows/s; {len(recs)} micro-batches, mean batch_rows "
+          f"{mean_rows!r}; serve_latency_s p50 {p50!r}, p99 {p99!r}; answers "
+          f"against predict(approx=True): {n_diff} labels differ, near-tie "
+          f"gap at most {worst:.2e}", flush=True)
+    check(worst <= 1e-5, "served labels differ beyond a near tie")
+    short = reqs[:SERVE_EXACT_REQUESTS]
+    with KMeansServer(model, batch_size=SERVE_BATCH, approx=False) as srv:
+        check(not srv._model.approx, "approx=False serves the index")
+        answers, errors, wall = drive(srv, short, 4)
+    check(not errors and len(answers) == len(short), "exact requests failed")
+    worst, n_diff = 0.0, 0
+    for j, (s, m, t) in enumerate(short):
+        # the server's blocks are SERVE_BATCH rows: price the request the
+        # same way, so each row meets the same product
+        xb = pad_rows(x[s:s + m], -(-m // SERVE_BATCH) * SERVE_BATCH)
+        want = torch.cat([torch.argmin(pairwise_sqdist(
+            xb[i:i + SERVE_BATCH], c), dim=1)
+            for i in range(0, xb.shape[0], SERVE_BATCH)])[:m]
+        got = answers[j]
+        if t:
+            got = np.argmin(got, axis=1).astype(np.int32)
+        check(np.array_equal(got, want.cpu().numpy()),
+              "the exact server's labels are not argmin(pairwise_sqdist)")
+        _, gap, nd = agrees(got, labels[s:s + m],
+                            torch.arange(s, s + m, device=dev), c)
+        worst, n_diff = max(worst, gap), n_diff + nd
+    print(f"  (d) approx=False: {len(short)} requests in {wall!r} s, labels "
+          f"equal to argmin(pairwise_sqdist) exactly; against phase 5's "
+          f"assignment-kernel labels {n_diff} differ, near-tie gap at most "
+          f"{worst:.2e}", flush=True)
+    check(worst <= 1e-5, "the exact server differs from phase 5's labels")
+
+    # (e) hot reload under traffic to phase 11's model
+    model_mb.build_serving_index()
+    lab_mb = model_mb.predict(x, approx=True)
+    wants = ((lab_apx, c), (lab_mb, model_mb.centroids_))
+    sink = CollectMetrics()
+    with tempfile.TemporaryDirectory() as tmp:
+        p = model.save(Path(tmp) / "serve")
+        stop = threading.Event()
+        got_reqs, errors = [], []
+        with KMeansServer(p, batch_size=SERVE_BATCH, poll_s=0.05,
+                          metrics=sink) as srv:
+            def traffic(seed):
+                r = np.random.default_rng(seed)
+                while not stop.is_set():
+                    s, m = int(r.integers(0, n - 512)), int(r.integers(1, 513))
+                    try:
+                        got_reqs.append((s, m, srv.predict(x_np[s:s + m],
+                                                           timeout=60)))
+                    except Exception as e:   # noqa: BLE001 — counted
+                        errors.append(e)
+            threads = [threading.Thread(target=traffic, args=(i,))
+                       for i in range(2)]
+            for t in threads:
+                t.start()
+            try:
+                time.sleep(0.5)
+                model_mb.save(p)
+                deadline = time.time() + 30
+                while srv.reload_count == 0 and time.time() < deadline:
+                    time.sleep(0.02)
+                time.sleep(0.5)
+            finally:
+                stop.set()
+                for t in threads:
+                    t.join(timeout=120)
+            check(not any(t.is_alive() for t in threads), "traffic hung")
+            check(srv.reload_count == 1 and srv.last_reload_error is None,
+                  f"reload_count {srv.reload_count}, error "
+                  f"{srv.last_reload_error!r}")
+            after = srv.predict(x_np[:SERVE_BATCH * 4], timeout=60)
+    check(not errors, f"{len(errors)} requests failed across the reload")
+    which = []
+    for s, m, got in got_reqs:
+        rows = torch.arange(s, s + m, device=dev)
+        hit = [i for i, (w, cw) in enumerate(wants)
+               if agrees(got, w[s:s + m], rows, cw)[1] <= 1e-5]
+        check(len(hit) >= 1, "a request was answered by neither model")
+        which.append(hit[0])
+    first_new = which.index(1) if 1 in which else len(which)
+    n_old_after = sum(1 for w in which[first_new:] if w == 0)
+    eq, gap, _ = agrees(after, lab_mb[:SERVE_BATCH * 4],
+                        torch.arange(SERVE_BATCH * 4, device=dev),
+                        model_mb.centroids_)
+    reload_s = [r["reload_s"] for _, r in sink.records if "reload_s" in r]
+    print(f"  (e) hot reload under traffic: {len(got_reqs)} requests, none "
+          f"failed, {which.count(0)} answered by phase 5's model and "
+          f"{which.count(1)} by phase 11's ({n_old_after} old answers after "
+          f"the first new one, from batches already running); reload_s "
+          f"{reload_s!r}; after the swap equal to phase 11's model: {eq} "
+          f"(near-tie gap {gap:.2e})", flush=True)
+    check(1 in which and gap <= 1e-5, "the new model does not answer")
+    counts, plain = read_counts()
+    path_launches["serving: exact predict beside approx"] = counts
+    chunks = -(-n // PREDICT_CHUNK)
+    print(f"  assignment launches {counts['assignment']} vs exact predict "
+          f"chunks {chunks}; other kernels "
+          f"{ {k: v for k, v in counts.items() if k != 'assignment'} }; "
+          f"plain-version calls {plain}", flush=True)
+    check(counts["assignment"] == chunks and plain == 0
+          and sum(counts.values()) == chunks,
+          "phase 14 ran another kernel or a plain version")
+    print(f"  phase 14 took {time.perf_counter() - t_phase!r} s")
+    return counts["assignment"]
 
 
 def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
@@ -2195,13 +2545,17 @@ def run():
     errs10 = phase10(torch, dev, x, zero_counts, read_counts, path_launches,
                      tile_rows)
     main_abs_err = max(main_abs_err, errs10["fused_lloyd"])
-    main_abs_err = max(main_abs_err, phase11(
-        torch, x, model.inertia_, zero_counts, read_counts, path_launches))
+    err11, model_mb = phase11(torch, x, model.inertia_, zero_counts,
+                              read_counts, path_launches)
+    main_abs_err = max(main_abs_err, err11)
     phase12(torch, x, x_np, model, labels, zero_counts, read_counts,
             path_launches)
     phase13(torch, dev, x, c0_main, res9, wall9, model.max_iter, zero_counts,
             read_counts, path_launches)
     del res9
+    serve_launches = phase14(torch, x, x_np, model, labels, model_mb,
+                             zero_counts, read_counts, path_launches)
+    del model_mb
     assign_abs_err = max(assign_abs_err, errs10["assignment"])
     update_abs_err = max(update_abs_err, errs10["update"])
     bounds_abs_err = max(bounds_abs_err, errs10["fused_bounds"])
@@ -2428,6 +2782,7 @@ def run():
          "ms": assign_ms, "plain_ms": assign_plain_ms,
          "bound_ms": assign_bound, "bound_by": assign_by,
          "fp32_bound_ms": assign_fp32, "library_ms": library_ms,
+         "serving_launches": serve_launches,
          "all_rows": {"ms": assign_full_ms, "bound_ms": full_bound,
                       "bound_by": full_by, "fp32_bound_ms": full_fp32,
                       "library_ms": library_full_ms}},

@@ -23,10 +23,16 @@ read the reference's artifact format (``core/serialize.py``), a
 mid-stream ``partial_fit`` state included, so the two packages load each
 other's models.  ``metrics`` (a ``runtime.metrics`` sink) gets the
 solve's scalars at each segment boundary of ``fit``, and those of each
-``partial_fit`` chunk.  Still to be ported:
-the mesh, the hierarchical fit and the serving index — the constructors
-have no fields for them, and ``load`` refuses an artifact that holds
-their arrays.
+``partial_fit`` chunk.
+
+``build_serving_index`` attaches a cluster-closure candidate index
+(``repro_torch.serving.closure``) to a fitted model; ``AAKMeans(
+serving_index=)`` builds one at each fit.  ``predict`` / ``transform``
+with ``approx=True`` then scan only each row's candidate centroids (the
+exact scan when the model has no index); ``save`` / ``load`` carry the
+index.  Still to be ported: the mesh and the hierarchical fit — the
+constructors have no fields for them, and ``load`` refuses an artifact
+that holds the hierarchy's arrays.
 """
 
 from __future__ import annotations
@@ -97,21 +103,79 @@ def _chunked_rows_apply(model, x, fn, out_dtype, out_cols=None,
     return out
 
 
-def _predict_rows(model, x, chunk_size) -> np.ndarray:
-    """Either estimator's predict: labels through its backend's assign."""
+def _closure_extras(model):
+    """(routers, candidates, candidate table) when the model carries a
+    serving index, else None.  The (G, C, d) table is built once per
+    inference call, so every chunk reads contiguous block rows."""
+    if model.closure_routers_ is None:
+        return None
+    from repro_torch.serving.closure import candidate_table
+    return (model.closure_routers_, model.closure_candidates_,
+            candidate_table(model.centroids_, model.closure_candidates_))
+
+
+def _predict_rows(model, x, chunk_size, approx=False) -> np.ndarray:
+    """Either estimator's predict: labels through its backend's assign;
+    ``approx=True`` through the closure index when the model carries one
+    (the exact argmin over each row's candidate list), else the exact
+    path."""
     model._assert_fitted()
+    extras = _closure_extras(model) if approx else None
+    if extras is not None:
+        from repro_torch.serving.closure import closure_assign
+        return _chunked_rows_apply(
+            model, x, lambda xc, c: closure_assign(xc, c, *extras)[0],
+            np.int32, chunk_size=chunk_size)
     bk = resolve_backend(model.backend)
     return _chunked_rows_apply(
         model, x, lambda xc, c: bk.assign(xc, c).labels, np.int32,
         chunk_size=chunk_size)
 
 
-def _transform_rows(model, x, chunk_size) -> np.ndarray:
-    """Either estimator's transform: distances to every centroid."""
+def _transform_rows(model, x, chunk_size, approx=False) -> np.ndarray:
+    """Either estimator's transform: distances to every centroid;
+    ``approx=True`` with an index prices only each row's candidates and
+    gives +inf elsewhere."""
     model._assert_fitted()
+    extras = _closure_extras(model) if approx else None
+    if extras is not None:
+        from repro_torch.serving.closure import closure_sqdist
+        return _chunked_rows_apply(
+            model, x,
+            lambda xc, c: torch.sqrt(closure_sqdist(xc, c, *extras)),
+            np.float32, out_cols=model.n_clusters, chunk_size=chunk_size)
     return _chunked_rows_apply(
         model, x, lambda xc, c: torch.sqrt(pairwise_sqdist(xc, c)),
         np.float32, out_cols=model.n_clusters, chunk_size=chunk_size)
+
+
+def _build_serving_index(model, n_candidates=None, n_groups=None, seed=0):
+    """Build the cluster-closure index of a fitted model's centroids and
+    attach it (``closure_routers_``, ``closure_candidates_``); ``save``
+    persists it and ``load`` restores it."""
+    model._assert_fitted()
+    from repro_torch.serving.closure import build_closure_index
+    idx = build_closure_index(model.centroids_, n_candidates=n_candidates,
+                              n_groups=n_groups, seed=seed)
+    model.closure_routers_ = idx.routers
+    model.closure_candidates_ = idx.candidates
+    return model
+
+
+def _closure_index(model):
+    """The model's ``ClosureIndex``, or None when none was built."""
+    if model.closure_routers_ is None:
+        return None
+    from repro_torch.serving.closure import ClosureIndex
+    return ClosureIndex(model.closure_routers_, model.closure_candidates_)
+
+
+def _index_arrays(model) -> dict:
+    """The serving index's arrays for ``save`` (none without an index)."""
+    if model.closure_routers_ is None:
+        return {}
+    return {"closure_routers_": model.closure_routers_,
+            "closure_candidates_": model.closure_candidates_}
 
 
 # -- estimator persistence ---------------------------------------------------
@@ -119,8 +183,6 @@ def _transform_rows(model, x, chunk_size) -> np.ndarray:
 # fitted arrays of the reference that the port cannot serve yet: loading
 # them would drop them in silence
 _UNPORTED_ARRAYS = {
-    "closure_routers_": "the serving index (ROADMAP queue A item 5)",
-    "closure_candidates_": "the serving index (ROADMAP queue A item 5)",
     "hier_routers_": "the hierarchical fit (ROADMAP queue A item 6)",
     "hier_offsets_": "the hierarchical fit (ROADMAP queue A item 6)"}
 
@@ -213,6 +275,10 @@ def _load_estimator(cls, path, kind, device):
     dev = resolve_device(device)
     model = cls(**estimator_kwargs(cls, meta["params"], device, path))
     model.centroids_ = by_path["arrays/centroids_"].to(dev)
+    if "closure_routers_" in meta["has"]:
+        model.closure_routers_ = by_path["arrays/closure_routers_"].to(dev)
+        model.closure_candidates_ = \
+            by_path["arrays/closure_candidates_"].to(dev)
     for name, val in meta["scalars"].items():
         setattr(model, name, val)
     return model, meta, by_path, dev
@@ -249,6 +315,11 @@ class AAKMeans:
     # log_scalars): the batched driver's segment boundaries emit the
     # solve's scalars to it.  Not persisted.
     metrics: object = None
+    # the cluster-closure serving index: None builds none at fit time,
+    # True builds one with the default sizes, an int one with that many
+    # candidates; build_serving_index() attaches one to a fitted model
+    # either way
+    serving_index: object = None
 
     # fitted state
     centroids_: Optional[torch.Tensor] = None
@@ -256,6 +327,8 @@ class AAKMeans:
     energy_: Optional[float] = None
     n_iter_: Optional[int] = None
     n_accepted_: Optional[int] = None
+    closure_routers_: Optional[torch.Tensor] = None
+    closure_candidates_: Optional[torch.Tensor] = None
 
     def _config(self) -> KMeansConfig:
         return KMeansConfig(
@@ -293,6 +366,14 @@ class AAKMeans:
         self.energy_ = energy
         self.n_iter_ = int(best.n_iter)
         self.n_accepted_ = int(best.n_accepted)
+        # new centroids make any earlier index stale: rebuild it when
+        # asked to, never serve the old one
+        self.closure_routers_ = self.closure_candidates_ = None
+        if self.serving_index:
+            self.build_serving_index(
+                n_candidates=self.serving_index
+                if isinstance(self.serving_index, int)
+                and not isinstance(self.serving_index, bool) else None)
         return self
 
     def _assert_fitted(self):
@@ -301,14 +382,33 @@ class AAKMeans:
                 "this AAKMeans instance has no fitted centroids; call "
                 "fit() first")
 
-    def predict(self, x, chunk_size: Optional[int] = None) -> np.ndarray:
-        """Nearest-centroid labels (N,) int32 through the backend's
-        assignment (the assignment kernel for every kernel backend)."""
-        return _predict_rows(self, x, chunk_size)
+    def build_serving_index(self, n_candidates: Optional[int] = None,
+                            n_groups: Optional[int] = None,
+                            seed: int = 0) -> "AAKMeans":
+        """Attach a cluster-closure candidate index to the fitted
+        centroids (``repro_torch.serving.closure``); ``save`` persists it
+        and ``load`` restores it."""
+        return _build_serving_index(self, n_candidates=n_candidates,
+                                    n_groups=n_groups, seed=seed)
 
-    def transform(self, x, chunk_size: Optional[int] = None) -> np.ndarray:
-        """Distances (N, K) to every centroid."""
-        return _transform_rows(self, x, chunk_size)
+    @property
+    def closure_index_(self):
+        """The fitted ``ClosureIndex``, or None when none was built."""
+        return _closure_index(self)
+
+    def predict(self, x, chunk_size: Optional[int] = None,
+                approx: bool = False) -> np.ndarray:
+        """Nearest-centroid labels (N,) int32 through the backend's
+        assignment (the assignment kernel for every kernel backend).
+        ``approx=True`` scans only the closure index's candidate
+        centroids of each row; without an index it is the exact scan."""
+        return _predict_rows(self, x, chunk_size, approx=approx)
+
+    def transform(self, x, chunk_size: Optional[int] = None,
+                  approx: bool = False) -> np.ndarray:
+        """Distances (N, K) to every centroid; ``approx=True`` prices
+        only the candidate centroids (+inf elsewhere)."""
+        return _transform_rows(self, x, chunk_size, approx=approx)
 
     @property
     def inertia_(self) -> float:
@@ -324,6 +424,7 @@ class AAKMeans:
         arrays = {"centroids_": self.centroids_}
         if self.labels_ is not None:
             arrays["labels_"] = self.labels_
+        arrays.update(_index_arrays(self))
         scalars = {"energy_": self.energy_, "n_iter_": self.n_iter_,
                    "n_accepted_": self.n_accepted_}
         return _save_estimator(self, path, serialize.KIND_ESTIMATOR_AA,
@@ -407,6 +508,8 @@ class MiniBatchAAKMeans:
     energy_: object = None
     n_steps_: Optional[int] = None
     n_accepted_: object = None
+    closure_routers_: Optional[torch.Tensor] = None
+    closure_candidates_: Optional[torch.Tensor] = None
 
     # streaming state (partial_fit)
     _state: object = dataclasses.field(default=None, repr=False)
@@ -468,6 +571,8 @@ class MiniBatchAAKMeans:
         self.energy_ = float(res.energy)
         self.n_steps_ = int(res.n_steps)
         self.n_accepted_ = int(res.n_accepted)
+        # new centroids: an earlier closure index is stale
+        self.closure_routers_ = self.closure_candidates_ = None
         self.labels_ = self.predict(x) if self.compute_labels else None
         return self
 
@@ -507,6 +612,8 @@ class MiniBatchAAKMeans:
         self.energy_ = trace.e_val
         self.n_steps_ = self._state.t
         self.n_accepted_ = self._state.n_acc
+        # the centroids moved: an earlier closure index is stale
+        self.closure_routers_ = self.closure_candidates_ = None
         if self.metrics is not None:
             # a sink opts into a sync per chunk
             e_val, accepted, n_acc = torch.stack([
@@ -547,6 +654,7 @@ class MiniBatchAAKMeans:
                                         resolve_backend(self.backend))
         self.centroids_ = c_fin
         self.energy_ = float(e_fin)
+        self.closure_routers_ = self.closure_candidates_ = None
         return self
 
     # -- inference ---------------------------------------------------------
@@ -557,14 +665,32 @@ class MiniBatchAAKMeans:
                 "this MiniBatchAAKMeans instance has no fitted centroids; "
                 "call fit() or partial_fit() first")
 
-    def predict(self, x, chunk_size: Optional[int] = None) -> np.ndarray:
-        """Nearest-centroid labels (N,) int32, chunk by chunk into a host
-        array through the backend's assignment."""
-        return _predict_rows(self, x, chunk_size)
+    def build_serving_index(self, n_candidates: Optional[int] = None,
+                            n_groups: Optional[int] = None,
+                            seed: int = 0) -> "MiniBatchAAKMeans":
+        """Attach a cluster-closure candidate index to the fitted
+        centroids; ``save`` persists it and ``load`` restores it.  A
+        later fit, partial_fit or finalize drops it."""
+        return _build_serving_index(self, n_candidates=n_candidates,
+                                    n_groups=n_groups, seed=seed)
 
-    def transform(self, x, chunk_size: Optional[int] = None) -> np.ndarray:
-        """Distances (N, K) to every centroid."""
-        return _transform_rows(self, x, chunk_size)
+    @property
+    def closure_index_(self):
+        """The fitted ``ClosureIndex``, or None when none was built."""
+        return _closure_index(self)
+
+    def predict(self, x, chunk_size: Optional[int] = None,
+                approx: bool = False) -> np.ndarray:
+        """Nearest-centroid labels (N,) int32, chunk by chunk into a host
+        array through the backend's assignment; ``approx=True`` through
+        the closure index, as on ``AAKMeans``."""
+        return _predict_rows(self, x, chunk_size, approx=approx)
+
+    def transform(self, x, chunk_size: Optional[int] = None,
+                  approx: bool = False) -> np.ndarray:
+        """Distances (N, K) to every centroid; ``approx=True`` as on
+        ``AAKMeans``."""
+        return _transform_rows(self, x, chunk_size, approx=approx)
 
     @property
     def inertia_(self):
@@ -583,6 +709,7 @@ class MiniBatchAAKMeans:
         arrays = {"centroids_": self.centroids_}
         if self.labels_ is not None:
             arrays["labels_"] = self.labels_
+        arrays.update(_index_arrays(self))
         stream = {}
         if self._state is not None:
             stream = {"state": reference_layout(self._state),

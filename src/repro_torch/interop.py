@@ -28,7 +28,7 @@ from repro_torch.device import resolve_device
 # Reference constructor fields the port has no counterpart for; they do
 # not change what a fitted model predicts, so they are dropped.  Any
 # other unknown field raises.
-_DROPPED = ("mesh", "data_axes", "serving_index", "hierarchical")
+_DROPPED = ("mesh", "data_axes", "hierarchical")
 
 
 def estimator_kwargs(cls, params: Mapping, device=None,
@@ -57,15 +57,19 @@ def estimator_from_arrays(params: Mapping, arrays: Mapping,
 
     ``params`` are the constructor parameters of the reference's
     ``AAKMeans.save`` (its ``meta["params"]``); ``arrays`` hold
-    ``centroids_`` and optionally ``labels_``, ``energy_``, ``n_iter_``
-    and ``n_accepted_`` as numpy arrays or scalars."""
+    ``centroids_`` and optionally ``labels_``, the serving index's
+    ``closure_routers_`` and ``closure_candidates_``, ``energy_``,
+    ``n_iter_`` and ``n_accepted_`` as numpy arrays or scalars."""
     model = AAKMeans(**estimator_kwargs(AAKMeans, params, device))
     dev = resolve_device(device)
     model.centroids_ = torch.as_tensor(
         np.asarray(arrays["centroids_"], np.float32), device=dev)
-    if arrays.get("labels_") is not None:
-        model.labels_ = torch.as_tensor(
-            np.asarray(arrays["labels_"], np.int32), device=dev)
+    for name, dt in (("labels_", np.int32),
+                     ("closure_routers_", np.float32),
+                     ("closure_candidates_", np.int32)):
+        if arrays.get(name) is not None:
+            setattr(model, name, torch.as_tensor(
+                np.asarray(arrays[name], dt), device=dev))
     for name, cast in (("energy_", float), ("n_iter_", int),
                        ("n_accepted_", int)):
         if arrays.get(name) is not None:

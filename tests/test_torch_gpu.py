@@ -883,3 +883,138 @@ def test_metrics_fit_equals_the_sink_free_fit_on_the_card(cuda):
     assert (a.energy_, a.n_iter_, a.n_accepted_) == \
         (b.energy_, b.n_iter_, b.n_accepted_)
     assert mx.records and mx.records[-1][1]["n_active"] == 0.0
+
+
+# -- serving -------------------------------------------------------------------
+
+def _closure_problem(n=16384, d=16, k=40, seed=9):
+    """Blobs, their fitted-like centroids (one row of each blob) and the
+    index (16 of 40 candidates) built on the CPU."""
+    from repro_torch.serving import build_closure_index
+    x = make_blobs(n, d, k, seed=seed, spread=3.0)
+    c = torch.from_numpy(x[np.random.default_rng(seed).permutation(n)[:k]])
+    return x, c, build_closure_index(c, n_candidates=16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_closure_functions_on_the_card_match_the_cpu(cuda, adaptive):
+    """closure_assign and closure_sqdist on CUDA tensors against the same
+    functions on CPU tensors: labels exact, squared distances within 1e-6
+    of |x|^2 + |c|^2, +inf at the same columns."""
+    from repro_torch.serving import (build_closure_index, closure_assign,
+                                     closure_sqdist)
+    x, c, _ = _closure_problem(n=4000)
+    idx = build_closure_index(c, n_candidates=16, adaptive=adaptive)
+    xt = torch.from_numpy(x)
+    args = (c, idx.routers, idx.candidates)
+    nv = idx.n_valid
+    on = [a.to(cuda) for a in (xt, *args)]
+    nv_on = None if nv is None else nv.to(cuda)
+    lab, mind = closure_assign(xt, *args, n_valid=nv)
+    lab_g, mind_g = closure_assign(*on, n_valid=nv_on)
+    np.testing.assert_array_equal(lab_g.cpu().numpy(), lab.numpy())
+    xsq = (xt.double() ** 2).sum(1)
+    csq = (c.double() ** 2).sum(1)
+    scale = xsq[:, None] + csq[None, :]
+    assert bool(((mind_g.cpu().double() - mind.double()).abs()
+                 <= 1e-6 * scale[torch.arange(4000), lab.long()]).all())
+    s = closure_sqdist(xt, *args, n_valid=nv)
+    s_g = closure_sqdist(*on, n_valid=nv_on).cpu()
+    assert torch.equal(torch.isinf(s_g), torch.isinf(s))
+    fin = torch.isfinite(s)
+    assert bool(((s_g[fin].double() - s[fin].double()).abs()
+                 <= 1e-6 * scale[fin]).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 16384])
+def test_bucketed_scan_equals_plain_on_the_card(cuda, n):
+    """The router-bucketed scan equals the plain one bit for bit on the
+    card, at a serving batch and at a predict chunk; a row's distances
+    are the same bits in the 256-row batch and in the chunk."""
+    from repro_torch.serving import (candidate_table, closure_assign,
+                                     closure_sqdist)
+    x, c, idx = _closure_problem()
+    xt = torch.from_numpy(x[:n]).to(cuda)
+    cg, rg, cdg = (a.to(cuda) for a in (c, idx.routers, idx.candidates))
+    tab = candidate_table(cg, cdg)
+    l0, d0 = closure_assign(xt, cg, rg, cdg, tab)
+    l1, d1 = closure_assign(xt, cg, rg, cdg, tab, bucketed=True)
+    assert torch.equal(l0, l1) and torch.equal(d0, d1)
+    s0 = closure_sqdist(xt, cg, rg, cdg, tab)
+    s1 = closure_sqdist(xt, cg, rg, cdg, tab, bucketed=True)
+    assert torch.equal(s0, s1)
+    full = closure_sqdist(torch.from_numpy(x).to(cuda), cg, rg, cdg, tab)
+    assert torch.equal(s0, full[:n])
+
+
+@pytest.mark.gpu
+def test_server_round_trip_on_the_card(cuda, tmp_path):
+    """KMeansServer(path) with device=None serves on the card: labels equal
+    predict(approx=True), transforms argmin-consistent, the exact path
+    equal to predict's labels."""
+    from repro_torch.serving import KMeansServer, serve_manifest
+    x = make_blobs(20000, 16, 40, seed=10, spread=3.0)
+    m = AAKMeans(n_clusters=40, backend="fused").fit(x)
+    m.build_serving_index(n_candidates=16)
+    p = m.save(tmp_path / "model")
+    with KMeansServer(p, batch_size=256) as srv:
+        assert srv._model.device.type == "cuda" and srv._model.approx
+        futs = [srv.submit(x[i:i + 700]) for i in range(0, 7000, 700)]
+        got = np.concatenate([f.result(timeout=30) for f in futs])
+        np.testing.assert_array_equal(got, m.predict(x[:7000], approx=True))
+        dist = srv.transform(x[:300], timeout=30)
+        np.testing.assert_array_equal(np.argmin(dist, axis=1), got[:300])
+        assert '"approx": true' in serve_manifest(srv)
+    with KMeansServer(m, batch_size=256, approx=False) as srv:
+        np.testing.assert_array_equal(srv.predict(x[:5000], timeout=30),
+                                      m.predict(x[:5000]))
+
+
+@pytest.mark.gpu
+def test_server_hot_reload_on_the_card(cuda, tmp_path):
+    """Overwrite the watched artifact under traffic: no request fails,
+    each is answered by one model, and after the swap the new model
+    answers."""
+    import threading
+    import time
+
+    from repro_torch.serving import KMeansServer
+    x = make_blobs(20000, 16, 40, seed=11, spread=3.0)
+    m1 = AAKMeans(n_clusters=40, backend="fused", serving_index=16).fit(x)
+    m2 = AAKMeans(n_clusters=40, backend="fused", serving_index=16,
+                  seed=5).fit(x * -1.0 + 2.0)
+    want = [m.predict(x, approx=True) for m in (m1, m2)]
+    p = tmp_path / "model.npz"
+    m1.save(p)
+    errors, seen = [], []
+    stop = threading.Event()
+    with KMeansServer(p, batch_size=256, poll_s=0.02, flush_ms=0.5) as srv:
+        def traffic():
+            i = 0
+            while not stop.is_set():
+                s = (i * 37) % 19000
+                try:
+                    seen.append((s, srv.predict(x[s:s + 300], timeout=30)))
+                except Exception as e:   # noqa: BLE001 — recorded
+                    errors.append(e)
+                i += 1
+        t = threading.Thread(target=traffic)
+        t.start()
+        try:
+            time.sleep(0.2)
+            m2.save(p)
+            deadline = time.time() + 10
+            while srv.reload_count == 0 and time.time() < deadline:
+                time.sleep(0.02)
+            time.sleep(0.2)
+        finally:
+            stop.set()
+            t.join(timeout=30)
+        assert not t.is_alive() and not errors and seen
+        assert srv.reload_count == 1 and srv.last_reload_error is None
+        assert all(any(np.array_equal(got, w[s:s + 300]) for w in want)
+                   for s, got in seen)
+        np.testing.assert_array_equal(srv.predict(x[:1000], timeout=30),
+                                      want[1][:1000])
