@@ -159,8 +159,40 @@ Phases, each fatal on failure:
      and its index: no request fails, each is one model's answer, the
      new model answers after the swap, reload_s.  The exact predict's
      assignment launches are the only kernel launches; no plain version.
-Phases 9, 10, 11, 12, 13 and 14 run between phases 7 and 8, so that
-phase 8's kernel line counts their launches.
+  15. the two-level solve at full size: (a) AAKMeans(n_clusters=65536,
+     backend="fused", hierarchical=True, max_iter=500, seed=0).fit(x)
+     (G = 256 groups of 256, the defaults), with its seeding, super-solve,
+     partition (N_max, padding share, bytes) and sub-problem seeding
+     replayed apart and timed; per round: fused launches, energy,
+     moved_frac, round_s; fused, assignment and update launches, no
+     plain version, the energy finite, no higher than round 0's and the
+     best round's, every label in its super-group's block; the fused
+     step at the sub-solve's (256, N_max, 69) weighted shape, the
+     assignment of all rows to the routers and the routers' segment sum
+     against their plain versions; (b) exact predict at K = 65,536 (its
+     energy no higher than the fit's), the assignment kernel against its
+     plain version on one 16,384-row chunk at that K,
+     build_serving_index() taking the hierarchy's own routing with no
+     kernel launch, predict(approx=True) with its recall and peak memory;
+     (c) K = 1000 two-level beside phase 5's flat fit; (d) G = 1 from
+     phase 5's seeds equal to select_best(aa_kmeans_batched) on every
+     leaf (max_iter 60, cut); (e) (a)'s configuration at max_iter 60
+     (cut) with a checkpoint_dir, resumed from round 0's snapshot equal
+     bit for bit, the sub-energies summing to the energy within 1e-6,
+     snapshot bytes and write times; (f) the smallest super-group solved
+     padded beside the largest (G = 2) and alone from the same seeds:
+     one fused step's labels equal and its stats within 1e-6; a plain
+     Lloyd solve and an AA solve (max_iter 100, cut) each with equal
+     labels and iterations and energies within 1e-6, the Lloyd
+     centroids within 1e-6 of their scale (the AA ones printed, with a
+     1e-3 sanity bound: Anderson extrapolation spreads the sums' last
+     bits); (g)
+     compress_kv_cache, kv_codebooks_batched (fused) and
+     kv_codebook_hierarchical (fused, k = 4096) on a (1, 4096, 8, 128)
+     K/V cache and embedding_codebook on a (128256, 4096) table
+     (Meta-Llama-3-8B's widths, random values).
+Phases 9 to 15 run between phases 7 and 8, so that phase 8's kernel
+line counts their launches.
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -232,6 +264,16 @@ SERVE_BATCH, SERVE_SAMPLE = 256, 65536
 SERVE_SWEEP = (16, 32, 64, 128, 256, 512)
 SERVE_LAT_ITERS = 50
 SERVE_REQUESTS, SERVE_EXACT_REQUESTS = 2000, 200
+# phase 15: the two-level fit's K (G = 256 groups of 256), the cut depth
+# of its G = 1 and resume checks, and of its padding check; the
+# applications at Meta-Llama-3-8B's published widths (num_key_value_heads
+# 8, head dim 128, hidden 4096, vocab 128,256): one layer's K/V cache
+# (batch, T, KV heads, head dim), the codebook sizes
+HIER_K = 65536
+HIER_CUT_ITER, HIER_PAD_ITER = 60, 100
+LLAMA_KV = (1, 4096, 8, 128)
+LLAMA_VOCAB, LLAMA_HIDDEN = 128256, 4096
+LLAMA_CODES, LLAMA_HIER_K = 256, 4096
 
 
 class PhaseError(RuntimeError):
@@ -311,9 +353,29 @@ def accept(res, what):
               f"{res['energy_rel']:.2e} relative")
 
 
+def rescale_to_norms(torch, res, got, want, x, c):
+    """``compare``'s result with the distances held relative to
+    max(distance, |x|^2 + |c|^2 of the assigned centroid, 1), the scale
+    of the f32 expansion |x|^2 - 2 x.c + |c|^2's rounding, as
+    ``compare_bounds`` holds them: where the centroids are many and
+    close to the rows, a distance is far smaller than the norms it
+    cancels from, and its error is a few ulps of those norms.  The error
+    relative to max(distance, 1) stays in ``mind_rel_raw``."""
+    xs = x if x.dim() == 3 else x.expand(c.shape[0], *x.shape)
+    xsq = torch.sum(xs * xs, dim=-1)                          # (R, N)
+    csq = torch.gather(torch.sum(c * c, dim=-1), 1, want[0].long())
+    scale = torch.maximum(want[1].abs(), xsq + csq).clamp_min(1.0)
+    res = dict(res, mind_rel_raw=res["mind_rel"])
+    res["mind_rel"] = float(((got[1] - want[1]).abs() / scale).max())
+    return res
+
+
 def fmt(res):
     s = (f"labels agree {res['agree']:.7f} (near-tie gap {res['gap']:.2e}),"
          f" min_sqdist rel {res['mind_rel']:.2e} (abs {res['mind_abs']:.2e})")
+    if "mind_rel_raw" in res:
+        s += (f" relative to |x|^2 + |c|^2 ({res['mind_rel_raw']:.2e} "
+              f"relative to the distance)")
     if "sums_rel" in res:
         s += (f", sums {res['sums_rel']:.2e}, counts "
               f"{res['counts_rel']:.2e}, energy rel {res['energy_rel']:.2e}")
@@ -1634,6 +1696,526 @@ def phase14(torch, x, x_np, model, labels, model_mb, zero_counts,
     return counts["assignment"]
 
 
+class RoundProbe:
+    """A metrics sink for the hierarchy's round loop: each round's
+    scalars beside the kernels' launch counts when it was logged."""
+
+    def __init__(self, read_counts):
+        self.read_counts = read_counts
+        self.rounds = []
+
+    def log_scalars(self, step, scalars):
+        counts, plain = self.read_counts()
+        self.rounds.append((int(step),
+                            {k: float(v) for k, v in scalars.items()},
+                            counts, plain))
+
+
+def phase15(torch, dev, x, c0_main, model5, fit5_s, zero_counts,
+            read_counts, path_launches):
+    """The two-level solve at full size: (a) AAKMeans(K=65536,
+    backend="fused", hierarchical=True) with its seeding, super-solve and
+    partition replayed apart and timed; (b) exact predict at K = 65,536,
+    the free serving index, approximate predict; (c) K = 1000 against
+    phase 5's flat fit; (d) G = 1 against the flat batched solve, bit for
+    bit; (e) round-granular resume, bit for bit; (f) a padded group
+    against the same rows alone; (g) the KV-cache and embedding
+    codebooks at Llama 3 8B's widths.  Each path's kernels against their
+    plain versions at its shapes.  -> (the phase's launches per kernel,
+    {kernel: largest max-abs error of its checks})."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import (AAKMeans, KMeansConfig, aa_kmeans,
+                                  aa_kmeans_batched, aa_kmeans_hierarchical,
+                                  select_best)
+    from repro_torch.core import applications as app
+    from repro_torch.core.api import PREDICT_CHUNK
+    from repro_torch.core.hierarchy import _partition, default_n_groups
+    from repro_torch.core.init_schemes import batched_init, kmeanspp_init
+    from repro_torch.kernels import assignment as A
+    from repro_torch.kernels import fused_lloyd as F
+    from repro_torch.kernels import update as U
+    from repro_torch.serving import hierarchy_closure_index
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize
+    n, d = x.shape
+    k = HIER_K
+    g = default_n_groups(k)
+    k_sub = k // g
+    errs = {"fused_lloyd": 0.0, "assignment": 0.0, "update": 0.0}
+    launches = {}
+
+    def record(path, counts):
+        path_launches[path] = counts
+        for kn, v in counts.items():
+            launches[kn] = launches.get(kn, 0) + v
+
+    print(f"phase 15: {nvidia_smi_line()}")
+    print(f"  the two-level solve at full size (AAKMeans("
+          f"n_clusters={k}, backend='fused', hierarchical=True, max_iter "
+          f"500, seed 0): G={g}, K/G={k_sub}, n_reassign 2, super_max_iter "
+          f"50, n_init 1) on {MAIN_N_NAME} {tuple(x.shape)}")
+    check(g == 256 and k_sub == 256, "default_n_groups(65536) is not 256")
+
+    # the fit's first steps replayed apart, drawing from a generator as
+    # the fit does: the super seeds, the super-solve, the partition and
+    # the sub-problems' seeds
+    cfg = KMeansConfig(k=k)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    sync()
+    t0 = time.perf_counter()
+    c0_super = kmeanspp_init(gen, x, g)
+    sync()
+    super_seed_s = time.perf_counter() - t0
+    zero_counts()
+    t0 = time.perf_counter()
+    sup = aa_kmeans(x, c0_super, dataclasses.replace(cfg, k=g, max_iter=50),
+                    backend="fused")
+    sync()
+    super_s = time.perf_counter() - t0
+    super_counts, _ = read_counts()
+    super_fused = super_counts["fused_lloyd"]
+    t0 = time.perf_counter()
+    ls0 = sup.labels.to(torch.int32)
+    xg, wg, _, n_max = _partition(x, ls0, g, k_sub, 256)
+    sync()
+    part_s = time.perf_counter() - t0
+    sizes = torch.bincount(ls0.long(), minlength=g)
+    part_bytes = xg.numel() * xg.element_size() \
+        + wg.numel() * wg.element_size()
+    t0 = time.perf_counter()
+    c0s = batched_init("kmeans++", gen, xg, k_sub, g, weights=wg)
+    sync()
+    sub_seed_s = time.perf_counter() - t0
+    del c0s
+    print(f"  super-solve: kmeans++ of {g} routers {super_seed_s!r} s; "
+          f"aa_kmeans at K={g} {super_s!r} s, n_iter {int(sup.n_iter)}, "
+          f"n_accepted {int(sup.n_accepted)}, {super_fused} fused launches "
+          f"({super_fused - 1} trips, {super_s / super_fused * 1e3!r} ms a "
+          f"launch)")
+    print(f"  partition {part_s!r} s: groups of {int(sizes.min())} to "
+          f"{int(sizes.max())} rows (median {int(sizes.median())}); N_max "
+          f"{n_max}, G*N_max = {g * n_max} rows, padding share "
+          f"{g * n_max / n!r} of N, (xg, wg) {part_bytes / 1e9!r} GB; "
+          f"sub-problem seeding ({g} weighted kmeans++ of {k_sub}) "
+          f"{sub_seed_s!r} s", flush=True)
+
+    # (a) the estimator's fit
+    probe = RoundProbe(read_counts)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    zero_counts()
+    t0 = time.perf_counter()
+    model = AAKMeans(n_clusters=k, backend="fused", hierarchical=True,
+                     max_iter=500, seed=0, metrics=probe).fit(x)
+    sync()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    counts, plain = read_counts()
+    record("hierarchical fit (15a)", counts)
+    prev = {"fused_lloyd": super_fused}
+    print(f"  (a) fit {fit_s!r} s (seeding included), peak device memory "
+          f"{peak / 1e9!r} GB above the start; n_iter_ (rounds) "
+          f"{model.n_iter_}, n_accepted_ {model.n_accepted_}, inertia_ "
+          f"{model.inertia_!r}")
+    for r, sc, cnt, _ in probe.rounds:
+        fused_r = cnt["fused_lloyd"] - prev["fused_lloyd"]
+        print(f"    round {r}: {fused_r} fused launches ({fused_r - 1} "
+              f"trips of the batched sub-solve), assignment "
+              f"{cnt['assignment']}, update {cnt['update']} so far; energy "
+              f"{sc['energy']!r}, energy_best {sc['energy_best']!r}, "
+              f"moved_frac {sc['moved_frac']!r}, n_max {int(sc['n_max'])}, "
+              f"round_s {sc['round_s']!r}")
+        prev = cnt
+    print(f"  (a) launches {counts}; plain-version calls {plain}",
+          flush=True)
+    check(counts["fused_lloyd"] > super_fused and counts["assignment"] > 0
+          and counts["update"] > 0 and counts["fused_bounds"] == 0,
+          "the hierarchical fit did not launch the fused, assignment and "
+          "update kernels")
+    check(plain == 0, "the hierarchical fit called a plain version")
+    check(np.isfinite(model.inertia_), "the hierarchical energy")
+    check(int(probe.rounds[0][1]["n_max"]) == n_max,
+          "the replayed partition is not the fit's")
+    check(model.inertia_ <= probe.rounds[0][1]["energy"],
+          "the returned energy is above round 0's")
+    check(model.inertia_ == probe.rounds[-1][1]["energy_best"],
+          "the returned energy is not the best round's")
+    # every row's label in its super-group's block: the best round's
+    # super-labels are the super-solve's (round 0) or the nearest
+    # router's (a reassignment round)
+    grp = (model.labels_ // k_sub).to(torch.int32)
+    near = A.assignment(x, model.hier_routers_)[0]
+    in_block = torch.equal(grp, near) or torch.equal(grp, ls0)
+    print(f"  (a) labels_ // K/G equal to the routers' assignment "
+          f"{torch.equal(grp, near)}, to the super-solve's labels "
+          f"{torch.equal(grp, ls0)}")
+    check(in_block, "a row's label is outside its super-group's block")
+    # the path's kernels against their plain versions at its shapes (after
+    # the counts were read): the fused step on the round-0 partition at
+    # the fitted sub-codebooks, the assignment of all rows to the routers,
+    # the routers' segment sum
+    cg = model.centroids_.reshape(g, k_sub, d)
+    got, want = F.fused_lloyd(xg, cg, wg), F.fused_lloyd_plain(xg, cg, wg)
+    res = rescale_to_norms(torch, compare(torch, got, want, xg, cg, wg),
+                           got, want, xg, cg)
+    del got, want
+    print(f"  fused vs plain at the sub-solve's shape ({g} x {n_max} x {d}, "
+          f"K/G={k_sub}, weighted): {fmt(res)}")
+    accept(res, "fused at the sub-solve's shape")
+    errs["fused_lloyd"] = res["mind_abs"]
+    # the kernel's share of a reassignment round's trip (after the counts
+    # were read): its time at this shape beside the round's wall per
+    # launch, and its bound on all G*N_max rows, padding included
+    sub_ms = event_ms(torch, lambda i: F.fused_lloyd(xg, cg, wg), 3,
+                      warmup=1)
+    rows_p = g * n_max
+    sub_bound = distance_bound_ms(
+        4 * (rows_p * (d + 1) + g * k_sub * d)
+        + 4 * (2 * rows_p + g * k_sub * (d + 1) + g),
+        2 * rows_p * k_sub * d, 3 * rows_p * k_sub + 2 * rows_p * d)
+    r1 = [(sc["round_s"], cnt["fused_lloyd"] - prv["fused_lloyd"])
+          for (_, sc, cnt, _), (_, _, prv, _) in zip(probe.rounds[1:],
+                                                     probe.rounds)]
+    trip_ms = [1e3 * t / nl for t, nl in r1]
+    print(f"  the fused kernel at the sub-solve's shape: {sub_ms!r} ms "
+          f"(CUDA events), bound {sub_bound[0]!r} ms ({sub_bound[1]}; "
+          f"FP32-core bound {sub_bound[2]!r} ms) on the {rows_p} padded "
+          f"rows, {sub_bound[0] * n / rows_p!r} ms on the live ones; "
+          f"reassignment rounds' wall per fused launch {trip_ms!r} ms, "
+          f"so the kernel is {[sub_ms / t for t in trip_ms]!r} of a trip",
+          flush=True)
+    del xg, wg
+    r_p = model.hier_routers_[None]
+    got, want = A.assignment(x, r_p), A.assignment_plain(x, r_p)
+    res = rescale_to_norms(torch, compare(torch, got, want, x, r_p, None),
+                           got, want, x, r_p)
+    print(f"  assignment vs plain at the reassignment's shape (all rows, "
+          f"K={g}): {fmt(res)}")
+    accept(res, "assignment at the reassignment's shape")
+    errs["assignment"] = res["mind_abs"]
+    res_u = compare_stats(U.update(x, near, g), U.update_plain(x, near, g))
+    print(f"  update vs plain at the routers' shape (all rows into {g}): "
+          f"sums {res_u['sums_rel']:.2e} (abs {res_u['sums_abs']:.2e}), "
+          f"counts {res_u['counts_rel']:.2e}")
+    accept_stats(res_u, "update at the routers' shape")
+    errs["update"] = res_u["sums_abs"]
+    sys.stdout.flush()
+
+    # (b) exact predict at K = 65,536, the free index, approximate predict
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    labels = model.predict(x)
+    exact_s = time.perf_counter() - t0
+    counts, plain = read_counts()
+    record("hierarchical predict (15b)", counts)
+    chunks = -(-n // PREDICT_CHUNK)
+    lab_t = torch.from_numpy(labels).to(dev).long()
+
+    def energy_of(lab):
+        return float(sum(torch.sum((x[i:i + PREDICT_CHUNK] - model.centroids_[
+            lab[i:i + PREDICT_CHUNK]]) ** 2, dtype=torch.float64)
+            for i in range(0, n, PREDICT_CHUNK)))
+
+    e_pred, e_fit = energy_of(lab_t), energy_of(model.labels_.long())
+    print(f"  (b) exact predict {exact_s!r} s ({n / exact_s!r} rows/s), "
+          f"{counts['assignment']} assignment launches vs {chunks} chunks, "
+          f"plain-version calls {plain}; energy of its labels {e_pred!r} "
+          f"against the fit's labels' {e_fit!r} (f64 sums of f32 rows), "
+          f"{int((lab_t != model.labels_).sum())} rows relabelled")
+    check(counts["assignment"] == chunks and plain == 0
+          and sum(counts.values()) == chunks, "exact predict's launches")
+    check(e_pred <= e_fit * (1 + 1e-6), "predict's energy is above the fit's")
+    xc, c_p = x[:PREDICT_CHUNK], model.centroids_[None]
+    got = tuple(o[None] for o in A.assignment(xc, model.centroids_))
+    want = tuple(o[None] for o in A.assignment_plain(xc, model.centroids_))
+    res = rescale_to_norms(torch, compare(torch, got, want, xc, c_p, None),
+                           got, want, xc, c_p)
+    del got, want
+    print(f"  (b) assignment vs plain on one {PREDICT_CHUNK}-row chunk at "
+          f"K={k}: {fmt(res)}")
+    accept(res, f"assignment at K={k}")
+    errs["assignment"] = max(errs["assignment"], res["mind_abs"])
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    model.build_serving_index()
+    sync()
+    build_s = time.perf_counter() - t0
+    counts, _ = read_counts()
+    idx = model.closure_index_
+    free = hierarchy_closure_index(model.centroids_, model.hier_routers_,
+                                   model.hier_offsets_)
+    free_ok = torch.equal(idx.routers, model.hier_routers_) and \
+        torch.equal(idx.candidates, free.candidates)
+    print(f"  (b) build_serving_index() {build_s!r} s: G={idx.n_groups}, "
+          f"C={idx.n_candidates}; the hierarchy's own routing "
+          f"(routers are hier_routers_, candidates each group's rows "
+          f"nearest-first) {free_ok}; kernel launches {sum(counts.values())}")
+    check(free_ok and sum(counts.values()) == 0 and idx.n_groups == g,
+          "build_serving_index did not take the hierarchical branch")
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    lab_apx = model.predict(x, approx=True)
+    approx_s = time.perf_counter() - t0
+    peak_apx = torch.cuda.max_memory_allocated() - mem0
+    recall = float(np.mean(lab_apx == labels))
+    print(f"  (b) predict(approx=True) {approx_s!r} s ({n / approx_s!r} "
+          f"rows/s), recall {recall!r} against exact predict, peak device "
+          f"memory {peak_apx / 1e6!r} MB above the start; exact/approx "
+          f"time {exact_s / approx_s!r}", flush=True)
+    print(f"  (b) approximate labels equal to the fit's labels_ on "
+          f"{float(np.mean(lab_apx == model.labels_.cpu().numpy()))!r} of "
+          f"rows")
+    check(recall > 0.5, "approximate predict's recall")
+    del lab_t
+
+    # (c) K = 1000 two-level against phase 5's flat fit
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    m1000 = AAKMeans(n_clusters=MAIN_K, backend="fused",
+                     hierarchical=True).fit(x)
+    sync()
+    fit1000_s = time.perf_counter() - t0
+    counts, plain = read_counts()
+    record("hierarchical fit at K=1000 (15c)", counts)
+    print(f"  (c) K={MAIN_K} two-level (G={default_n_groups(MAIN_K)}, "
+          f"K/G={MAIN_K // default_n_groups(MAIN_K)}): fit {fit1000_s!r} s, "
+          f"rounds {m1000.n_iter_}, inertia_ {m1000.inertia_!r}; phase 5's "
+          f"flat fit {fit5_s!r} s, inertia_ {model5.inertia_!r}: time "
+          f"ratio {fit1000_s / fit5_s!r}, energy ratio "
+          f"{m1000.inertia_ / model5.inertia_!r}; launches {counts}, plain "
+          f"{plain}", flush=True)
+    check(plain == 0 and np.isfinite(m1000.inertia_), "(c) K = 1000")
+    del m1000
+
+    # (d) G = 1 is the flat batched solve, bit for bit
+    cfg_cut = KMeansConfig(k=MAIN_K, max_iter=HIER_CUT_ITER)
+    zero_counts()
+    t0 = time.perf_counter()
+    r1 = aa_kmeans_hierarchical(x, MAIN_K, cfg_cut, "fused", n_groups=1,
+                                c0s=c0_main[None])
+    flat = select_best(aa_kmeans_batched(x, c0_main[None], cfg_cut,
+                                         backend="fused"))
+    sync()
+    counts, plain = read_counts()
+    record("G=1 against the flat solve (15d)", counts)
+    same = {"centroids": torch.equal(r1.centroids, flat.centroids),
+            "labels": torch.equal(r1.labels, flat.labels),
+            "energy": torch.equal(r1.energy, flat.energy),
+            "sub_energies": torch.equal(r1.sub_energies, flat.energy[None]),
+            "labels_super": not bool(r1.labels_super.any()),
+            "group_offsets": r1.group_offsets.tolist() == [0, MAIN_K],
+            "n_rounds": r1.n_rounds == 0}
+    print(f"  (d) G=1 from phase 5's seeds (max_iter {HIER_CUT_ITER}, cut) "
+          f"against select_best(aa_kmeans_batched): {same}; "
+          f"{time.perf_counter() - t0!r} s for both; launches {counts}, "
+          f"plain {plain}", flush=True)
+    check(all(same.values()) and plain == 0, "G = 1 is not the flat solve")
+    del r1, flat
+
+    # (e) round-granular resume of (a)'s configuration at a cut depth
+    cfg_e = KMeansConfig(k=k, max_iter=HIER_CUT_ITER)
+    probe_e = RoundProbe(read_counts)
+    zero_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        full = aa_kmeans_hierarchical(x, k, cfg_e, "fused", seed=0,
+                                      checkpoint_dir=tmp, metrics=probe_e)
+        sync()
+        full_s = time.perf_counter() - t0
+        snaps = sorted(p for p in os.listdir(tmp) if p.endswith(".npz"))
+        sizes_b = [os.path.getsize(os.path.join(tmp, p)) for p in snaps]
+        t0 = time.perf_counter()
+        resumed = aa_kmeans_hierarchical(x, k, cfg_e, "fused", seed=0,
+                                         resume_from=os.path.join(
+                                             tmp, snaps[0]))
+        sync()
+        resume_s = time.perf_counter() - t0
+    counts, plain = read_counts()
+    record("hierarchical checkpointed and resumed (15e)", counts)
+    same = {f: (torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b)
+            for f, a, b in zip(full._fields, full, resumed)}
+    sub_rel = abs(float(full.sub_energies.sum()) - float(full.energy)) \
+        / float(full.energy)
+    print(f"  (e) max_iter {HIER_CUT_ITER} (cut): {full.n_rounds} rounds, "
+          f"energy {float(full.energy)!r} in {full_s!r} s; snapshots "
+          f"{snaps}, bytes {sizes_b}, each write "
+          f"{[r[1].get('snapshot_s') for r in probe_e.rounds]!r} s; resumed "
+          f"from round 0's in {resume_s!r} s, equal bit for bit {same}; "
+          f"sub-energies sum to the energy within {sub_rel:.2e}; launches "
+          f"{counts}, plain {plain}", flush=True)
+    check(all(same.values()), "the resumed run differs")
+    check(plain == 0, "(e) called a plain version")
+    check(sub_rel <= 1e-6, "the sub-energies do not sum to the energy")
+    check(torch.equal(full.labels // k_sub, full.labels_super),
+          "a row's label is outside its super-group's block")
+    check(float(full.energy) <= probe_e.rounds[0][1]["energy"],
+          "(e): the returned energy is above round 0's")
+    del full, resumed
+
+    # (f) a padded group against its rows alone, from the same seeds
+    order = torch.argsort(sizes)
+    small, large = int(order[0]), int(order[-1])
+    rows = torch.nonzero(ls0 == small)[:, 0]
+    pair = torch.cat([rows, torch.nonzero(ls0 == large)[:, 0]])
+    lab2 = torch.cat([torch.zeros(rows.shape[0], dtype=torch.int32,
+                                  device=dev),
+                      torch.ones(pair.shape[0] - rows.shape[0],
+                                 dtype=torch.int32, device=dev)])
+    xg2, wg2, _, n_max2 = _partition(x[pair], lab2, 2, k_sub, 256)
+    c02 = batched_init("kmeans++", torch.Generator(device=dev).manual_seed(1),
+                       xg2, k_sub, 2, weights=wg2)
+    cfg_f = KMeansConfig(k=k_sub, max_iter=HIER_PAD_ITER)
+    m = rows.shape[0]
+
+    def apart(a, b):
+        """(bit for bit, largest difference relative to b's scale)."""
+        return torch.equal(a, b), float((a - b).abs().max()
+                                        / b.abs().max().clamp_min(1e-30))
+
+    zero_counts()
+    # one step from the seeds: the kernel's part, before any Anderson
+    # extrapolation; then the solve with plain Lloyd steps through the
+    # same driver, and with Anderson's
+    step_p = F.fused_lloyd(xg2, c02, wg2)
+    step_a = F.fused_lloyd(x[rows], c02[0])
+    solves = {}
+    for label, acc in (("Lloyd", False), ("AA", True)):
+        cfg_s = dataclasses.replace(cfg_f, accelerated=acc)
+        solves[label] = (
+            aa_kmeans_batched(xg2, c02, cfg_s, backend="fused", weights=wg2),
+            aa_kmeans_batched(x[rows], c02[:1], cfg_s, backend="fused"))
+    counts, plain = read_counts()
+    record("padded against unpadded (15f)", counts)
+    step_lab = torch.equal(step_p[0][0, :m], step_a[0])
+    step_s, step_c, step_e = (apart(step_p[i][0], step_a[i])
+                              for i in (2, 3, 4))
+    print(f"  (f) group {small} ({m} rows, padded to {n_max2} beside group "
+          f"{large}'s {pair.shape[0] - m}), from the same seeds: one fused "
+          f"step: labels equal {step_lab}, sums bit for bit {step_s[0]} "
+          f"({step_s[1]:.2e} of their scale), counts {step_c[0]} "
+          f"({step_c[1]:.2e}), energy {step_e[0]} ({step_e[1]:.2e}); "
+          f"plain {plain}")
+    check(step_lab and plain == 0, "a padded step's labels differ")
+    check(max(step_s[1], step_c[1], step_e[1]) <= 1e-6,
+          "a padded step's stats differ beyond 1e-6")
+    for label, (both, alone) in solves.items():
+        lab_eq = torch.equal(both.labels[0, :m], alone.labels[0])
+        it_eq = torch.equal(both.n_iter[:1], alone.n_iter)
+        c_eq, c_rel = apart(both.centroids[0], alone.centroids[0])
+        e_eq, e_rel = apart(both.energy[0], alone.energy[0])
+        print(f"  (f) the {label} solve (max_iter {HIER_PAD_ITER}, cut): "
+              f"labels equal {lab_eq}, n_iter {both.n_iter[0].item()} / "
+              f"{alone.n_iter[0].item()}, centroids bit for bit {c_eq} "
+              f"({c_rel:.2e} of their scale), energy bit for bit {e_eq} "
+              f"({e_rel:.2e})", flush=True)
+        check(lab_eq and it_eq, f"padded and unpadded {label} solves' "
+              f"labels or iterations differ")
+        check(e_rel <= 1e-6, f"padded and unpadded {label} energies "
+              f"differ beyond 1e-6")
+        # the segment sum's slabs follow N and R, so the padded sums
+        # round otherwise; Lloyd steps keep that at the sums' rounding,
+        # Anderson's extrapolation spreads it, so its centroids get only
+        # a sanity bound
+        check(c_rel <= (1e-6 if label == "Lloyd" else 1e-3),
+              f"padded and unpadded {label} centroids differ")
+    del xg2, wg2, solves, step_p, step_a
+
+    # (g) the applications at Meta-Llama-3-8B's widths (random values)
+    b, t, hkv, hd = LLAMA_KV
+    gen_g = torch.Generator(device=dev).manual_seed(0)
+    cache = {nm: torch.randn(LLAMA_KV, generator=gen_g, device=dev)
+             for nm in ("k", "v")}
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    new, err = app.compress_kv_cache(cache, LLAMA_CODES, t)
+    sync()
+    kv_s = time.perf_counter() - t0
+    stacked = torch.stack([cache[nm].reshape(-1, hd) for nm in ("k", "v")])
+    cbs, codes, res = app.kv_codebooks_batched(stacked, LLAMA_CODES)
+    rec = torch.stack([cbs[i][codes[i].long()] for i in range(2)])
+    same_cb = torch.equal(rec[0].reshape(LLAMA_KV), new["k"])
+    counts, plain = read_counts()
+    check(sum(counts.values()) == 0 and plain == 0,
+          "the dense applications launched a kernel or a plain version")
+    print(f"  (g) compress_kv_cache (K/V {LLAMA_KV}, valid_len {t}, "
+          f"k={LLAMA_CODES}; dense, R = 2): {kv_s!r} s, relative error "
+          f"{err!r}; its solve repeated by kv_codebooks_batched: n_iter "
+          f"{res.n_iter.tolist()}, n_accepted {res.n_accepted.tolist()}, "
+          f"the same reconstruction {same_cb}")
+    check(same_cb and 0.0 < err < 1.0, "compress_kv_cache")
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    cbs, codes, res = app.kv_codebooks_batched(stacked, LLAMA_CODES,
+                                               backend="fused")
+    sync()
+    kvb_s = time.perf_counter() - t0
+    rec = torch.stack([cbs[i][codes[i].long()] for i in range(2)])
+    kvb_err = float(torch.linalg.norm(rec - stacked)
+                    / torch.linalg.norm(stacked))
+    counts, plain = read_counts()
+    record("kv_codebooks_batched fused (15g)", counts)
+    print(f"  (g) kv_codebooks_batched({tuple(stacked.shape)}, "
+          f"k={LLAMA_CODES}, backend='fused'): {kvb_s!r} s, n_iter "
+          f"{res.n_iter.tolist()}, n_accepted {res.n_accepted.tolist()}, "
+          f"relative error {kvb_err!r}; fused launches "
+          f"{counts['fused_lloyd']} (1 + trips), plain {plain}")
+    check(counts["fused_lloyd"] > 0 and plain == 0, "kv_codebooks_batched")
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    cb, codes, hres = app.kv_codebook_hierarchical(stacked[0], LLAMA_HIER_K,
+                                                   backend="fused")
+    sync()
+    kvh_s = time.perf_counter() - t0
+    kvh_err = float(torch.linalg.norm(cb[codes.long()] - stacked[0])
+                    / torch.linalg.norm(stacked[0]))
+    counts, plain = read_counts()
+    record("kv_codebook_hierarchical fused (15g)", counts)
+    print(f"  (g) kv_codebook_hierarchical({tuple(stacked[0].shape)}, "
+          f"k={LLAMA_HIER_K}, backend='fused'; G="
+          f"{hres.routers.shape[0]}): {kvh_s!r} s, rounds {hres.n_rounds}, "
+          f"relative error {kvh_err!r}; launches {counts}, plain {plain}")
+    check(counts["fused_lloyd"] > 0 and plain == 0,
+          "kv_codebook_hierarchical")
+    del cache, new, stacked, cb, codes
+    table = torch.randn((LLAMA_VOCAB, LLAMA_HIDDEN), generator=gen_g,
+                        device=dev)
+    zero_counts()
+    sync()
+    t0 = time.perf_counter()
+    cbs, codes, emb_err = app.embedding_codebook(table, LLAMA_CODES,
+                                                 n_subspaces=4)
+    sync()
+    emb_s = time.perf_counter() - t0
+    blocks = app._subspace_blocks(table, 4)
+    cbs2, _, res = app.kv_codebooks_batched(blocks, LLAMA_CODES)
+    counts, plain = read_counts()
+    check(sum(counts.values()) == 0 and plain == 0,
+          "embedding_codebook launched a kernel or a plain version")
+    print(f"  (g) embedding_codebook({tuple(table.shape)}, k={LLAMA_CODES}, "
+          f"n_subspaces 4; dense, R = 4): {emb_s!r} s, relative error "
+          f"{emb_err!r}; its solve repeated by kv_codebooks_batched on the "
+          f"subspace blocks: n_iter {res.n_iter.tolist()}, the same "
+          f"codebooks {torch.equal(cbs, cbs2)}", flush=True)
+    check(torch.equal(cbs, cbs2) and 0.0 < emb_err < 1.0,
+          "embedding_codebook")
+    del table, blocks, cbs, cbs2
+    print(f"  phase 15 launches {launches}; took "
+          f"{time.perf_counter() - t_phase!r} s")
+    return launches, errs
+
+
 def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
             tile_rows):
     """The paper's protocols on the card at full size on the USCensus1990
@@ -2556,6 +3138,11 @@ def run():
     serve_launches = phase14(torch, x, x_np, model, labels, model_mb,
                              zero_counts, read_counts, path_launches)
     del model_mb
+    hier_launches, errs15 = phase15(torch, dev, x, c0_main, model, fit_s,
+                                    zero_counts, read_counts, path_launches)
+    main_abs_err = max(main_abs_err, errs15["fused_lloyd"])
+    assign_abs_err = max(assign_abs_err, errs15["assignment"])
+    update_abs_err = max(update_abs_err, errs15["update"])
     assign_abs_err = max(assign_abs_err, errs10["assignment"])
     update_abs_err = max(update_abs_err, errs10["update"])
     bounds_abs_err = max(bounds_abs_err, errs10["fused_bounds"])
@@ -2774,7 +3361,8 @@ def run():
          "launches": total["fused_lloyd"], "max_abs_err": main_abs_err,
          "ms": fused_ms, "plain_ms": fused_plain_ms,
          "bound_ms": fused_bound, "bound_by": fused_by,
-         "fp32_bound_ms": fused_fp32, "library_ms": None},
+         "fp32_bound_ms": fused_fp32, "library_ms": None,
+         "hierarchy_launches": hier_launches.get("fused_lloyd", 0)},
         {"name": "assignment", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/assignment.cu",
          "replaces": "src/repro/kernels/assignment.py:37",
@@ -2783,6 +3371,7 @@ def run():
          "bound_ms": assign_bound, "bound_by": assign_by,
          "fp32_bound_ms": assign_fp32, "library_ms": library_ms,
          "serving_launches": serve_launches,
+         "hierarchy_launches": hier_launches.get("assignment", 0),
          "all_rows": {"ms": assign_full_ms, "bound_ms": full_bound,
                       "bound_by": full_by, "fp32_bound_ms": full_fp32,
                       "library_ms": library_full_ms}},
@@ -2792,7 +3381,8 @@ def run():
          "launches": total["update"], "max_abs_err": update_abs_err,
          "ms": update_ms, "plain_ms": update_plain_ms,
          "bound_ms": update_bound, "bound_by": update_by,
-         "fp32_bound_ms": update_bound, "library_ms": update_lib_ms},
+         "fp32_bound_ms": update_bound, "library_ms": update_lib_ms,
+         "hierarchy_launches": hier_launches.get("update", 0)},
         {"name": "fused_bounds", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_bounds.cu",
          "replaces": "src/repro/kernels/fused_lloyd.py:123",

@@ -1,6 +1,6 @@
 """Anderson-accelerated K-Means (Algorithm 1), PyTorch port.
 
-Public surface (this slice):
+Public surface (ported so far):
     AAKMeans           — estimator: fit / predict / transform / inertia_ /
                          save / load
     MiniBatchAAKMeans  — streaming estimator: fit / partial_fit /
@@ -15,7 +15,9 @@ Public surface (this slice):
     aa_kmeans_minibatch / aa_kmeans_minibatch_streamed — streaming
                          Algorithm 1 over device chunks / host chunks
     MiniBatchConfig    — streaming solver configuration
-    select_best        — best-of-R selection
+    select_best        — best-of-R selection (per group with groups=)
+    aa_kmeans_hierarchical / HierarchyResult — the two-level solve for
+                         large K (core/hierarchy.py)
     lloyd_kmeans / hamerly_kmeans — the Lloyd and Hamerly-bound baselines
     ReorderConfig/reorder_backend — the locality engine
     KMeansConfig/AAConfig — solver configuration
@@ -28,6 +30,8 @@ from repro_torch.core.api import (AAKMeans,                     # noqa: F401
 from repro_torch.core.backends import (Backend, Precision,      # noqa: F401
                                        StepResult, get_backend)
 from repro_torch.core.hamerly import hamerly_kmeans             # noqa: F401
+from repro_torch.core.hierarchy import (HierarchyResult,        # noqa: F401
+                                        aa_kmeans_hierarchical)
 from repro_torch.core.kmeans import (KMeansConfig,              # noqa: F401
                                      KMeansResult, aa_kmeans,
                                      aa_kmeans_batched, aa_kmeans_minibatch,

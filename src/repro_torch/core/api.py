@@ -30,9 +30,14 @@ solve's scalars at each segment boundary of ``fit``, and those of each
 serving_index=)`` builds one at each fit.  ``predict`` / ``transform``
 with ``approx=True`` then scan only each row's candidate centroids (the
 exact scan when the model has no index); ``save`` / ``load`` carry the
-index.  Still to be ported: the mesh and the hierarchical fit — the
-constructors have no fields for them, and ``load`` refuses an artifact
-that holds the hierarchy's arrays.
+index.
+
+``AAKMeans(hierarchical=True)`` (or a dict of keyword overrides) fits
+through ``core.hierarchy.aa_kmeans_hierarchical``, the two-level solve
+for large K, and keeps its routing (``hier_routers_``,
+``hier_offsets_``): ``build_serving_index()`` with no sizes then turns
+it into the serving index with no more clustering.  Still to be ported:
+the mesh (the constructors have no ``mesh`` / ``data_axes`` fields).
 """
 
 from __future__ import annotations
@@ -152,11 +157,22 @@ def _transform_rows(model, x, chunk_size, approx=False) -> np.ndarray:
 def _build_serving_index(model, n_candidates=None, n_groups=None, seed=0):
     """Build the cluster-closure index of a fitted model's centroids and
     attach it (``closure_routers_``, ``closure_candidates_``); ``save``
-    persists it and ``load`` restores it."""
+    persists it and ``load`` restores it.  A hierarchical fit's model
+    asked for no sizes gets its own routing as the index
+    (``serving.closure.hierarchy_closure_index``): the routers are its
+    super-centroids and each group's codebook rows its candidates, so
+    nothing is clustered."""
     model._assert_fitted()
-    from repro_torch.serving.closure import build_closure_index
-    idx = build_closure_index(model.centroids_, n_candidates=n_candidates,
-                              n_groups=n_groups, seed=seed)
+    if n_candidates is None and n_groups is None \
+            and getattr(model, "hier_routers_", None) is not None:
+        from repro_torch.serving.closure import hierarchy_closure_index
+        idx = hierarchy_closure_index(model.centroids_, model.hier_routers_,
+                                      model.hier_offsets_)
+    else:
+        from repro_torch.serving.closure import build_closure_index
+        idx = build_closure_index(model.centroids_,
+                                  n_candidates=n_candidates,
+                                  n_groups=n_groups, seed=seed)
     model.closure_routers_ = idx.routers
     model.closure_candidates_ = idx.candidates
     return model
@@ -171,20 +187,17 @@ def _closure_index(model):
 
 
 def _index_arrays(model) -> dict:
-    """The serving index's arrays for ``save`` (none without an index)."""
-    if model.closure_routers_ is None:
-        return {}
-    return {"closure_routers_": model.closure_routers_,
-            "closure_candidates_": model.closure_candidates_}
+    """The serving index's arrays and a hierarchical fit's routing for
+    ``save`` (none of either when the model has none)."""
+    out = {}
+    for a, b in (("closure_routers_", "closure_candidates_"),
+                 ("hier_routers_", "hier_offsets_")):
+        if getattr(model, a, None) is not None:
+            out.update({a: getattr(model, a), b: getattr(model, b)})
+    return out
 
 
 # -- estimator persistence ---------------------------------------------------
-
-# fitted arrays of the reference that the port cannot serve yet: loading
-# them would drop them in silence
-_UNPORTED_ARRAYS = {
-    "hier_routers_": "the hierarchical fit (ROADMAP queue A item 6)",
-    "hier_offsets_": "the hierarchical fit (ROADMAP queue A item 6)"}
 
 
 def _dtype_name(dt) -> str:
@@ -260,25 +273,27 @@ def _save_estimator(model, path, kind, arrays: dict, stream: dict,
 
 
 def _load_estimator(cls, path, kind, device):
-    """-> (model with its params, centroids_ and scalars set, meta,
-    {leaf path: host tensor}, device).  Refuses an artifact holding
-    arrays the port cannot use yet."""
+    """-> (model with its params, centroids_, the index's and the
+    hierarchy's arrays and scalars set, meta, {leaf path: host tensor},
+    device).  Refuses an artifact holding an array this estimator has no
+    field for: loading it would drop it in silence."""
     # interop imports this module; it holds the params' mapping
     from repro_torch.interop import estimator_kwargs
     meta, by_path = serialize.load(path, expect_kind=kind)
-    unported = sorted(set(meta["has"]) & set(_UNPORTED_ARRAYS))
-    if unported:
+    fitted = {f.name for f in dataclasses.fields(cls)
+              if f.name.endswith("_")}
+    unknown = sorted(set(meta["has"]) - fitted)
+    if unknown:
         raise ValueError(
-            f"{path}: the artifact holds {unported}, arrays of "
-            f"{sorted({_UNPORTED_ARRAYS[a] for a in unported})}, which the "
-            f"port does not have yet; loading it would drop them")
+            f"{path}: the artifact holds {unknown}, which {cls.__name__} "
+            f"has no field for in the port; loading it would drop them")
     dev = resolve_device(device)
     model = cls(**estimator_kwargs(cls, meta["params"], device, path))
     model.centroids_ = by_path["arrays/centroids_"].to(dev)
-    if "closure_routers_" in meta["has"]:
-        model.closure_routers_ = by_path["arrays/closure_routers_"].to(dev)
-        model.closure_candidates_ = \
-            by_path["arrays/closure_candidates_"].to(dev)
+    for name in ("closure_routers_", "closure_candidates_",
+                 "hier_routers_", "hier_offsets_"):
+        if name in meta["has"]:
+            setattr(model, name, by_path[f"arrays/{name}"].to(dev))
     for name, val in meta["scalars"].items():
         setattr(model, name, val)
     return model, meta, by_path, dev
@@ -320,6 +335,11 @@ class AAKMeans:
     # candidates; build_serving_index() attaches one to a fitted model
     # either way
     serving_index: object = None
+    # the two-level fit for large K (core/hierarchy.py): False fits flat;
+    # True calls aa_kmeans_hierarchical with its defaults (G = the divisor
+    # of K nearest √K); a dict gives it keyword overrides (n_groups=,
+    # n_reassign=, super_max_iter=, ...)
+    hierarchical: object = False
 
     # fitted state
     centroids_: Optional[torch.Tensor] = None
@@ -329,6 +349,11 @@ class AAKMeans:
     n_accepted_: Optional[int] = None
     closure_routers_: Optional[torch.Tensor] = None
     closure_candidates_: Optional[torch.Tensor] = None
+    # a hierarchical fit's routing: the (G, d) super-centroids and the
+    # (G+1,) group offsets of the group-major codebook (the free serving
+    # index; see build_serving_index)
+    hier_routers_: Optional[torch.Tensor] = None
+    hier_offsets_: Optional[torch.Tensor] = None
 
     def _config(self) -> KMeansConfig:
         return KMeansConfig(
@@ -341,10 +366,16 @@ class AAKMeans:
     def fit(self, x, c0s=None) -> "AAKMeans":
         """Fit on X (N, d).  ``c0s`` (R, K, d), when given, replaces the
         seeding (R = its first axis) — how a caller hands over seeds made
-        elsewhere, e.g. by the reference package."""
+        elsewhere, e.g. by the reference package.  With ``hierarchical``
+        set, ``c0s`` are the sub-problems' seeds of
+        ``aa_kmeans_hierarchical`` ((G·n_init, K/G, d); (n_init, K, d) at
+        G = 1)."""
         dev = resolve_device(self.device)
         x = _as_input(x, dev)
         cfg = self._config()
+        if self.hierarchical:
+            return self._fit_hierarchical(
+                x, cfg, None if c0s is None else _as_input(c0s, dev))
         if c0s is None:
             gen = torch.Generator(device=dev).manual_seed(self.seed)
             c0s = batched_init(self.init, gen, x, self.n_clusters,
@@ -366,8 +397,43 @@ class AAKMeans:
         self.energy_ = energy
         self.n_iter_ = int(best.n_iter)
         self.n_accepted_ = int(best.n_accepted)
-        # new centroids make any earlier index stale: rebuild it when
-        # asked to, never serve the old one
+        # new centroids make any earlier index and routing stale: rebuild
+        # the index when asked to, never serve the old one
+        self.hier_routers_ = self.hier_offsets_ = None
+        return self._refresh_index()
+
+    def _fit_hierarchical(self, x, cfg: KMeansConfig, c0s) -> "AAKMeans":
+        """The two-level fit (``core.hierarchy``): the flat fit's contract
+        (centroids_, labels_ in original row order, the finite-energy
+        check) plus the routing, which ``save`` persists and the serving
+        index reuses.  ``n_iter_`` is the rounds run; ``n_accepted_`` is
+        None, as in the reference."""
+        from repro_torch.core.hierarchy import aa_kmeans_hierarchical
+        opts = dict(self.hierarchical) \
+            if isinstance(self.hierarchical, dict) else {}
+        if c0s is not None:
+            opts["c0s"] = c0s
+        res = aa_kmeans_hierarchical(
+            x, self.n_clusters, cfg, backend=self.backend,
+            n_init=max(self.n_init, 1), init=self.init, seed=self.seed,
+            metrics=self.metrics, **opts)
+        energy = float(res.energy)
+        if not math.isfinite(energy):
+            raise FloatingPointError(
+                f"hierarchical fit produced a non-finite energy "
+                f"(E={energy}); check X for NaN/inf rows")
+        self.centroids_ = res.centroids
+        self.labels_ = res.labels
+        self.energy_ = energy
+        self.n_iter_ = int(res.n_rounds)
+        self.n_accepted_ = None
+        self.hier_routers_ = res.routers
+        self.hier_offsets_ = res.group_offsets
+        return self._refresh_index()
+
+    def _refresh_index(self) -> "AAKMeans":
+        """After a fit: drop the stale index, and build a new one when
+        ``serving_index`` asks for it."""
         self.closure_routers_ = self.closure_candidates_ = None
         if self.serving_index:
             self.build_serving_index(
@@ -387,7 +453,9 @@ class AAKMeans:
                             seed: int = 0) -> "AAKMeans":
         """Attach a cluster-closure candidate index to the fitted
         centroids (``repro_torch.serving.closure``); ``save`` persists it
-        and ``load`` restores it."""
+        and ``load`` restores it.  After a hierarchical fit, and with no
+        sizes given, the index is the fit's own routing, built with no
+        clustering."""
         return _build_serving_index(self, n_candidates=n_candidates,
                                     n_groups=n_groups, seed=seed)
 
@@ -417,7 +485,8 @@ class AAKMeans:
     # -- persistence ------------------------------------------------------
 
     def save(self, path):
-        """Write params and fitted state to one npz artifact in the
+        """Write params and fitted state (the serving index and a
+        hierarchical fit's routing included) to one npz artifact in the
         reference's format (``core/serialize.py``); the reference's
         ``AAKMeans.load`` reads it.  -> the artifact's path."""
         self._assert_fitted()

@@ -318,14 +318,35 @@ def aa_kmeans_batched(x: torch.Tensor, c0s: torch.Tensor,
         checkpoint_cb, keep_last_n, keep_every_m, metrics, sync_writes)
 
 
-def select_best(results: KMeansResult) -> KMeansResult:
+def select_best(results: KMeansResult, groups=None,
+                n_groups: Optional[int] = None) -> KMeansResult:
     """The restart with the lowest final energy, unbatched; ties go to
     the lower index.  A non-finite energy never wins; if every restart is
     non-finite, restart 0 comes back with its NaN energy so the caller
-    sees the failure."""
+    sees the failure.
+
+    ``groups`` (R,) int selects per problem: restart r competes only
+    within group groups[r] (the hierarchy runs G sub-problems x n_init
+    seeds as one batch), and the result keeps a leading axis of
+    ``n_groups`` whose row g is group g's winner, by the same rule.  A
+    group whose every restart is non-finite gets its first restart, NaN
+    energy and all (the reference's argmin hands such a group restart 0
+    of the whole batch, another group's result: ROADMAP queue C)."""
     e = results.energy
     masked = torch.where(torch.isfinite(e), e, float("inf"))
-    best = torch.argmin(masked)
+    if groups is None:
+        best = torch.argmin(masked)
+        return KMeansResult(*(a[best] for a in results))
+    if n_groups is None:
+        raise ValueError("select_best(groups=...) needs n_groups")
+    gid = torch.arange(n_groups, device=e.device)
+    member = groups.to(e.device).long()[None, :] == gid[:, None]  # (G, R)
+    emat = torch.where(member, masked[None, :], float("inf"))
+    # argmin returns the first minimum; a row of +inf only falls back to
+    # the group's first member
+    best = torch.where(torch.isfinite(torch.amin(emat, dim=1)),
+                       torch.argmin(emat, dim=1),
+                       torch.argmax(member.to(torch.int8), dim=1))
     return KMeansResult(*(a[best] for a in results))
 
 

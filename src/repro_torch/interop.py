@@ -25,10 +25,11 @@ from repro_torch.core.kmeans import _BatchedState, _LoopState
 from repro_torch.core.minibatch import MiniBatchState, from_reference_layout
 from repro_torch.device import resolve_device
 
-# Reference constructor fields the port has no counterpart for; they do
-# not change what a fitted model predicts, so they are dropped.  Any
-# other unknown field raises.
-_DROPPED = ("mesh", "data_axes", "hierarchical")
+# Reference constructor fields the port has no counterpart for (the
+# mesh: distribution is not ported yet); they do not change what a
+# fitted model predicts, so they are dropped.  Any other unknown field
+# raises.
+_DROPPED = ("mesh", "data_axes")
 
 
 def estimator_kwargs(cls, params: Mapping, device=None,
@@ -58,7 +59,8 @@ def estimator_from_arrays(params: Mapping, arrays: Mapping,
     ``params`` are the constructor parameters of the reference's
     ``AAKMeans.save`` (its ``meta["params"]``); ``arrays`` hold
     ``centroids_`` and optionally ``labels_``, the serving index's
-    ``closure_routers_`` and ``closure_candidates_``, ``energy_``,
+    ``closure_routers_`` and ``closure_candidates_``, a hierarchical
+    fit's ``hier_routers_`` and ``hier_offsets_``, ``energy_``,
     ``n_iter_`` and ``n_accepted_`` as numpy arrays or scalars."""
     model = AAKMeans(**estimator_kwargs(AAKMeans, params, device))
     dev = resolve_device(device)
@@ -66,7 +68,9 @@ def estimator_from_arrays(params: Mapping, arrays: Mapping,
         np.asarray(arrays["centroids_"], np.float32), device=dev)
     for name, dt in (("labels_", np.int32),
                      ("closure_routers_", np.float32),
-                     ("closure_candidates_", np.int32)):
+                     ("closure_candidates_", np.int32),
+                     ("hier_routers_", np.float32),
+                     ("hier_offsets_", np.int32)):
         if arrays.get(name) is not None:
             setattr(model, name, torch.as_tensor(
                 np.asarray(arrays[name], dt), device=dev))

@@ -1018,3 +1018,212 @@ def test_server_hot_reload_on_the_card(cuda, tmp_path):
                    for s, got in seen)
         np.testing.assert_array_equal(srv.predict(x[:1000], timeout=30),
                                       want[1][:1000])
+
+
+# -- hierarchy and applications ---------------------------------------------
+
+def _hier_data():
+    from repro_torch.data.synthetic import make_dataset
+    return torch.from_numpy(make_dataset("USCensus1990", scale=0.04)).cuda()
+
+
+def _zero_counts():
+    for mod in (F, A, U):
+        mod.launches = mod.plain_calls = 0
+    F.bounds_launches = F.bounds_plain_calls = 0
+
+
+@pytest.mark.gpu
+def test_hierarchical_fit_runs_on_the_kernels(cuda):
+    """AAKMeans(K=1024, backend="fused", hierarchical=True) on 98,331 rows
+    of the USCensus1990 stand-in (G = 32, K/G = 32): fused launches for
+    the super-solve and the batched sub-solves, assignment launches for
+    the reassignment, no plain version; the energy finite, the sum of
+    the sub-energies, no higher than round 0's; every label inside its
+    super-group's block; repeated bit for bit."""
+    from repro_torch.core.hierarchy import default_n_groups
+    from repro_torch.runtime.metrics import CollectMetrics
+    x = _hier_data()
+    assert default_n_groups(1024) == 32
+    mx = CollectMetrics()
+    _zero_counts()
+    m = AAKMeans(n_clusters=1024, backend="fused", hierarchical=True,
+                 max_iter=60, metrics=mx).fit(x)
+    assert F.launches > 0 and A.launches > 0
+    assert F.plain_calls == A.plain_calls == U.plain_calls == 0
+    assert F.bounds_launches == 0
+    assert np.isfinite(m.energy_)
+    assert m.energy_ <= mx.records[0][1]["energy"]
+    lab = m.labels_.long()
+    offs = m.hier_offsets_.long()
+    assert offs.tolist() == list(range(0, 1025, 32))
+    # every row's label lies in the block of the router it was solved in
+    e = float(torch.sum((x - m.centroids_[lab]) ** 2))
+    assert e == pytest.approx(m.energy_, rel=1e-5)
+    again = AAKMeans(n_clusters=1024, backend="fused", hierarchical=True,
+                     max_iter=60).fit(x)
+    assert torch.equal(again.centroids_, m.centroids_)
+    assert torch.equal(again.labels_, m.labels_)
+
+
+@pytest.mark.gpu
+def test_hierarchical_solve_leaves_on_the_card(cuda):
+    """The solve's own invariants at K = 1024: sub-energies summing to the
+    energy within 1e-6, labels inside each row's super-group block, and
+    the routers the update kernel's row means."""
+    from repro_torch.core import KMeansConfig, aa_kmeans_hierarchical
+    from repro_torch.core.hierarchy import _routers_of
+    x = _hier_data()
+    res = aa_kmeans_hierarchical(x, 1024, KMeansConfig(k=1024, max_iter=60),
+                                 "fused")
+    assert float(res.sub_energies.sum()) == pytest.approx(float(res.energy),
+                                                          rel=1e-6)
+    assert torch.equal(res.labels.long() // 32, res.labels_super.long())
+    bk = get_backend("fused")
+    want = _routers_of(x.cpu(), res.labels_super.cpu(), 32,
+                       res.routers.cpu(), get_backend("dense"))
+    got = _routers_of(x, res.labels_super, 32, res.routers, bk)
+    np.testing.assert_allclose(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_hierarchical_predict_and_free_index_on_the_card(cuda):
+    """Exact predict at K = 4096 on the assignment kernel (its energy no
+    higher than the fit's), the kernel against its plain version on a
+    16,384-row chunk at that K (distances within 1e-5 of |x|^2 + |c|^2),
+    the hierarchy's free index built with no kernel launch, and
+    approximate predict's recall."""
+    from repro_torch.core.api import PREDICT_CHUNK
+    from repro_torch.serving import hierarchy_closure_index
+    x = _hier_data()
+    m = AAKMeans(n_clusters=4096, backend="fused", hierarchical=True,
+                 max_iter=30).fit(x)
+    _zero_counts()
+    lab = m.predict(x)
+    assert A.launches == -(-x.shape[0] // PREDICT_CHUNK)
+    e = float(torch.sum((x - m.centroids_[torch.from_numpy(lab).cuda()
+                                          .long()]) ** 2))
+    assert e <= m.energy_ * (1 + 1e-5)
+    xc = x[:PREDICT_CHUNK]
+    got, want = A.assignment(xc, m.centroids_), A.assignment_plain(
+        xc, m.centroids_)
+    assert float((got[0] != want[0]).float().mean()) < 1e-4
+    # at this K a distance is far smaller than the norms it cancels
+    # from: held to the f32 expansion's scale, |x|^2 + |c|^2
+    scale = torch.maximum(want[1], torch.sum(xc * xc, dim=1) + torch.sum(
+        m.centroids_ ** 2, dim=1)[want[0].long()]).clamp_min(1.0)
+    assert float(((got[1] - want[1]).abs() / scale).max()) < 1e-5
+    _zero_counts()
+    m.build_serving_index()
+    assert F.launches == A.launches == U.launches == 0
+    idx = hierarchy_closure_index(m.centroids_, m.hier_routers_,
+                                  m.hier_offsets_)
+    assert torch.equal(m.closure_candidates_, idx.candidates)
+    la = m.predict(x, approx=True)
+    assert float((la == lab).mean()) > 0.9
+
+
+@pytest.mark.gpu
+def test_hierarchical_g1_equals_flat_on_the_card(cuda):
+    from repro_torch.core import (KMeansConfig, aa_kmeans_batched,
+                                  aa_kmeans_hierarchical, select_best)
+    from repro_torch.core.init_schemes import batched_init
+    x = _hier_data()
+    c0s = batched_init("kmeans++", torch.Generator(device="cuda")
+                       .manual_seed(0), x, 200, 2)
+    cfg = KMeansConfig(k=200, max_iter=60)
+    res = aa_kmeans_hierarchical(x, 200, cfg, "fused", n_groups=1, c0s=c0s)
+    flat = select_best(aa_kmeans_batched(x, c0s, cfg, backend="fused"))
+    assert torch.equal(res.centroids, flat.centroids)
+    assert torch.equal(res.labels, flat.labels)
+    assert torch.equal(res.energy, flat.energy)
+
+
+@pytest.mark.gpu
+def test_hierarchical_resume_is_bit_identical_on_the_card(cuda, tmp_path):
+    import glob
+    from repro_torch.core import KMeansConfig, aa_kmeans_hierarchical
+    x = _hier_data()
+    cfg = KMeansConfig(k=1024, max_iter=30)
+    kw = dict(n_reassign=2, super_max_iter=5)
+    full = aa_kmeans_hierarchical(x, 1024, cfg, "fused",
+                                  checkpoint_dir=tmp_path, **kw)
+    snaps = sorted(glob.glob(str(tmp_path / "it_*.npz")))
+    assert len(snaps) == full.n_rounds + 1
+    resumed = aa_kmeans_hierarchical(x, 1024, cfg, "fused",
+                                     resume_from=snaps[0], **kw)
+    for f, a, b in zip(full._fields, full, resumed):
+        assert (torch.equal(a, b) if isinstance(a, torch.Tensor)
+                else a == b), f
+
+
+@pytest.mark.gpu
+def test_padded_group_equals_unpadded_on_the_card(cuda):
+    """One group of a G = 2 partition solved padded beside the other and
+    alone on its live rows from the same seeds: one fused step's labels
+    equal and its stats within 1e-6; a plain Lloyd solve through the
+    same driver with equal labels and iterations, centroids and energy
+    within 1e-6; the AA solve with equal labels and iterations and its
+    energy within 1e-6.  Not bit for bit: the segment sum's slabs follow
+    N and R, and Anderson steps extrapolate the sums' last bits, so the
+    AA centroids are not held to 1e-6."""
+    import dataclasses
+    from repro_torch.core import KMeansConfig, aa_kmeans_batched
+    from repro_torch.core.hierarchy import _partition
+    from repro_torch.core.init_schemes import batched_init
+    x = _hier_data()[:30000]
+    lab = (torch.arange(30000, device="cuda") >= 20000).to(torch.int32)
+    xg, wg, _, n_max = _partition(x, lab, 2, 64, 256)
+    c0s = batched_init("kmeans++", torch.Generator(device="cuda")
+                       .manual_seed(1), xg, 64, 2, weights=wg)
+    step_p = F.fused_lloyd(xg, c0s, wg)
+    step_a = F.fused_lloyd(x[20000:], c0s[1])
+    assert torch.equal(step_p[0][1, :10000], step_a[0])
+    for i in (2, 3, 4):
+        np.testing.assert_allclose(step_p[i][1].cpu(), step_a[i].cpu(),
+                                   rtol=1e-6, atol=1e-6 * float(
+                                       step_a[i].abs().max()))
+    cfg = KMeansConfig(k=64, max_iter=60)
+    for acc in (False, True):
+        cfg_s = dataclasses.replace(cfg, accelerated=acc)
+        both = aa_kmeans_batched(xg, c0s, cfg_s, backend="fused",
+                                 weights=wg)
+        alone = aa_kmeans_batched(x[20000:], c0s[1:], cfg_s,
+                                  backend="fused")
+        assert torch.equal(both.labels[1, :10000], alone.labels[0])
+        assert torch.equal(both.n_iter[1:], alone.n_iter)
+        np.testing.assert_allclose(both.energy[1:].cpu(),
+                                   alone.energy.cpu(), rtol=1e-6)
+        if not acc:
+            scale = float(alone.centroids.abs().max())
+            assert float((both.centroids[1:] - alone.centroids).abs()
+                         .max()) <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+def test_applications_on_the_card(cuda):
+    """The batched and hierarchical KV codebooks on the fused engine run
+    its kernels with no plain version; compress_kv_cache and
+    embedding_codebook on the dense engine run none."""
+    from repro_torch.core import applications as app
+    g = torch.Generator(device="cuda").manual_seed(0)
+    kv = torch.randn((2, 4096, 64), generator=g, device="cuda")
+    _zero_counts()
+    cbs, codes, res = app.kv_codebooks_batched(kv, 64, backend="fused")
+    assert F.launches > 0 and F.plain_calls == 0
+    assert cbs.shape == (2, 64, 64) and bool(torch.isfinite(res.energy)
+                                             .all())
+    cb, codes, res = app.kv_codebook_hierarchical(kv[0], 1024,
+                                                  backend="fused")
+    assert A.launches > 0 and F.plain_calls == A.plain_calls == 0
+    e = float(torch.sum((kv[0] - cb[codes.long()]) ** 2))
+    assert e == pytest.approx(float(res.energy), rel=1e-5)
+    _zero_counts()
+    cache = {n: torch.randn((1, 512, 2, 64), generator=g, device="cuda")
+             for n in ("k", "v")}
+    new, err = app.compress_kv_cache(cache, 32, 512)
+    assert 0.0 < err < 1.0 and new["k"].device.type == "cuda"
+    cbs, codes, err = app.embedding_codebook(
+        torch.randn((3000, 64), generator=g, device="cuda"), 32)
+    assert 0.0 < err < 1.0 and codes.shape == (3000, 4)
+    assert F.launches == A.launches == U.launches == 0

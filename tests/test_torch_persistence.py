@@ -436,9 +436,9 @@ def test_unregistered_backend_name_is_refused(tmp_path, data, name):
 
 @pytest.mark.parametrize("what", ["serving", "hierarchy"])
 def test_unported_arrays_are_refused(tmp_path, data, what):
-    """The hierarchy's arrays are refused.  The serving index is ported:
-    beside them ("serving") it is loaded, so the refusal names the
-    hierarchy's arrays alone."""
+    """The hierarchy's arrays are ported: they load, beside the serving
+    index ("serving") or alone.  An array the port's estimator has no
+    field for is refused, and the refusal names it alone."""
     jm = JAAKMeans(n_clusters=K, max_iter=40, seed=0).fit(data)
     if what == "serving":
         jm.build_serving_index()
@@ -447,11 +447,24 @@ def test_unported_arrays_are_refused(tmp_path, data, what):
     p = jm.save(tmp_path / "model")
     for load in (lambda: AAKMeans.load(p, device="cpu"),
                  lambda: load_estimator(p, device="cpu")):
-        with pytest.raises(ValueError, match="hier_routers_") as err:
+        tm = load()
+        assert np.array_equal(tm.hier_offsets_.numpy(), [0, 2, K])
+        assert tm.hier_routers_.shape == (2, D)
+        assert (tm.closure_routers_ is not None) == (what == "serving")
+    meta, by_path = jserialize.load(p)
+    arrays = {n: by_path[f"arrays/{n}"] for n in meta["has"]}
+    arrays["mesh_shards_"] = np.zeros(2, np.int32)
+    p = jserialize.save(tmp_path / "extra", {"arrays": arrays},
+                        kind=meta["kind"],
+                        extra={**{key: meta[key] for key in
+                                  ("params", "scalars", "has_stream")},
+                               "has": sorted(arrays)})
+    for load in (lambda: AAKMeans.load(p, device="cpu"),
+                 lambda: load_estimator(p, device="cpu")):
+        with pytest.raises(ValueError, match="mesh_shards_") as err:
             load()
-        assert "hier_offsets_" in str(err.value)
+        assert "hier_" not in str(err.value)
         assert "closure_" not in str(err.value)
-        assert "ROADMAP" in str(err.value)
 
 
 def test_load_estimator_picks_the_class(tmp_path, ref_artifacts):
