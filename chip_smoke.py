@@ -191,8 +191,37 @@ Phases, each fatal on failure:
      kv_codebook_hierarchical (fused, k = 4096) on a (1, 4096, 8, 128)
      K/V cache and embedding_codebook on a (128256, 4096) table
      (Meta-Llama-3-8B's widths, random values).
-Phases 9 to 15 run between phases 7 and 8, so that phase 8's kernel
-line counts their launches.
+  16. distribution over torch.distributed at full size on the same data,
+     each rank group in spawned children that load X from one .npy: (a)
+     AAKMeans(n_clusters=1000, backend="fused", mesh=<one rank over
+     NCCL>).fit(x) and predict equal to phase 5's bit for bit, its wall
+     beside phase 5's; (b) the same fit at two ranks sharing the card over
+     Gloo (card tensors staged through pinned host memory; N padded by a
+     row of weight 0): the first step's sums, counts and energy within
+     1e-6 of one rank's, the energy within 1e-4 of phase 5's, both ranks'
+     results and a repeat (its collectives timed, a sync on each side)
+     equal bit for bit, predict under the mesh equal to the single-device
+     predict of its centroids, trips, launches per rank, the reduction's
+     time per trip; (c) make_distributed_kmeans_batched at R = 2 (phase
+     5's seeds and a kmeans++ draw at seed 1), max_iter 60 (cut): one step
+     collective per trip, each restart within 1e-4 of one rank's, bit for
+     bit on repeat; (d) phase 11's MiniBatchAAKMeans configuration at two
+     ranks (each holding half of every chunk): one collective per chunk
+     step and one per guard, energy within 1e-4 of phase 11's, bit for bit
+     on repeat; aa_kmeans_minibatch_streamed(mesh=) for 2 epochs from host
+     memory at two ranks and one, the ingest per rank; (e)
+     make_distributed_kmeans with checkpoint_every=100 at two ranks on the
+     first N - 1 rows (only rank 0 writes; each snapshot's gather and
+     write times, its bytes), resumed from t = 100 at two ranks bit for
+     bit and at one rank over NCCL within 1e-4; (f) two steps of pallas
+     and of fused_bounds (64-centroid groups, G = 16; phase 5's
+     centroids, then one Lloyd step on, the carry running on) at two
+     ranks against one: labels equal, sums and energy
+     within 1e-6, counts equal, the skipped share equal on both ranks and
+     within 1e-6 of one rank's.  The card's compute mode is printed first;
+     an exclusive mode fails the phase.
+Phases 9 to 16 run between phases 7 and 8, so that phase 8's kernel
+line counts their launches (phase 16's are the ranks').
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -274,6 +303,11 @@ HIER_CUT_ITER, HIER_PAD_ITER = 60, 100
 LLAMA_KV = (1, 4096, 8, 128)
 LLAMA_VOCAB, LLAMA_HIDDEN = 128256, 4096
 LLAMA_CODES, LLAMA_HIER_K = 256, 4096
+# phase 16: the batched restarts' iteration cap (cut), the snapshot
+# interval of the resume, the streamed epochs, and each rank group's wall
+# limit (s)
+DIST_BATCH_MAX_ITER, DIST_EVERY, DIST_STREAM_EPOCHS = 60, 100, 2
+DIST_TIMEOUT = 600
 
 
 class PhaseError(RuntimeError):
@@ -2216,6 +2250,548 @@ def phase15(torch, dev, x, c0_main, model5, fit5_s, zero_counts,
     return launches, errs
 
 
+def _dist_counts():
+    """Every kernel's launches and plain-version calls so far, in this
+    process."""
+    from repro_torch.kernels import assignment as A
+    from repro_torch.kernels import fused_lloyd as F
+    from repro_torch.kernels import update as U
+    return {"fused_lloyd": F.launches, "assignment": A.launches,
+            "update": U.launches, "fused_bounds": F.bounds_launches,
+            "plain": F.plain_calls + A.plain_calls + U.plain_calls
+            + F.bounds_plain_calls}
+
+
+def _dist_delta(before):
+    now = _dist_counts()
+    return {key: now[key] - before[key] for key in now}
+
+
+def _rank16(rank, world, pg, tmp, cfg):
+    """One rank of phase 16, in a spawned child: the process group over
+    ``pg`` ("gloo": both ranks on the card, its tensors staged through
+    the host; "nccl"), a one-dim mesh on ``cfg["device"]`` ("cuda"), the
+    rank's work, its results saved for the parent.  ``cfg`` carries the
+    parent's sizes, since a spawned child imports this file anew."""
+    import datetime
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    tmp = Path(tmp)
+    if cfg["device"] == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group(
+        pg, init_method=f"file://{tmp / f'store{world}'}", rank=rank,
+        world_size=world,
+        timeout=datetime.timedelta(seconds=cfg["timeout"]),
+        device_id=torch.device("cuda", 0) if pg == "nccl" else None)
+    try:
+        mesh = init_device_mesh(cfg["device"], (world,),
+                                mesh_dim_names=("data",))
+        out = _ranks16(torch, world, mesh, tmp, cfg)
+        torch.save(out, tmp / f"out{world}_{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _ranks16(torch, world, mesh, tmp, cfg):
+    """What every rank of phase 16 runs; -> its results (host tensors,
+    numbers, launch and collective counts)."""
+    import numpy as np
+    from repro_torch.core import AAKMeans, MiniBatchAAKMeans, get_backend
+    from repro_torch.core import distributed as D
+    from repro_torch.core.backends import distribute
+    from repro_torch.core.backends.bounds import extract_stats
+    from repro_torch.core.kmeans import (KMeansConfig,
+                                         aa_kmeans_minibatch_streamed)
+    from repro_torch.core.minibatch import MiniBatchConfig
+    from repro_torch.device import mesh_device
+    from repro_torch.runtime import CollectMetrics, IngestMeter
+    dev = mesh_device(mesh)
+    x_np = np.load(tmp / "x.npy", mmap_mode="r")
+    c0, c0b, c_fin, c_next = (
+        torch.from_numpy(np.load(tmp / f"{name}.npy")).to(dev)
+        for name in ("c0", "c0b", "c_fin", "c_next"))
+    n, k, axes = x_np.shape[0], cfg["k"], ("data",)
+    out = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def host(res):
+        return [t.cpu() if isinstance(t, torch.Tensor) else t for t in res]
+
+    def padding_weights(r, pad):
+        """(r, N + pad) weights, 0 on the rows that pad N to the shard
+        count (global; each rank keeps its block)."""
+        if not pad:
+            return None
+        w = torch.ones((r, n + pad))
+        w[:, n:] = 0.0
+        return w
+
+    # the fit's first step (c0 on every row; the padding at weight 0)
+    x_sh, pad = D.shard_dataset(x_np, mesh, axes)
+    w = padding_weights(1, pad)
+    fused = distribute(get_backend("fused"), axes)
+    with D.mesh_scope(mesh):
+        res, _ = fused.batched_step(
+            x_sh.local, c0[None], k, (),
+            w=None if w is None else D.local_block(w, mesh, axes, dim=1))
+    out["first_step"] = [t[0].cpu() for t in res[2:]]
+    out["pad"] = pad
+    del res
+
+    # (a) / (b): the estimator's fit and predict
+    def fit_once(timed):
+        D.time_collectives(timed)
+        D.reset_collective_counts()
+        before = _dist_counts()
+        sync()
+        t0 = time.perf_counter()
+        model = AAKMeans(n_clusters=k, backend="fused", mesh=mesh,
+                         seed=0, max_iter=cfg["max_iter"]).fit(x_np)
+        sync()
+        fit_s = time.perf_counter() - t0
+        got = {"centroids": model.centroids_.cpu(),
+               "labels": model.labels_.cpu(), "energy": model.energy_,
+               "n_iter": model.n_iter_, "n_accepted": model.n_accepted_,
+               "trips": trips_of(model), "fit_s": fit_s,
+               "reduce_s": D.collective_seconds(),
+               "collectives": D.collective_counts(),
+               "launches": _dist_delta(before)}
+        D.time_collectives(False)
+        return model, got
+
+    model, out["fit"] = fit_once(False)
+    before = _dist_counts()
+    t0 = time.perf_counter()
+    out["fit"]["predict"] = model.predict(x_np)
+    out["fit"]["predict_s"] = time.perf_counter() - t0
+    out["fit"]["predict_launches"] = _dist_delta(before)
+    del model
+    if world > 1:
+        # the repeat, with every collective timed (a sync on each side)
+        out["repeat"] = fit_once(True)[1]
+
+    # (c) batched restarts, cut at DIST_BATCH_MAX_ITER
+    cfg_c = KMeansConfig(k=k, max_iter=cfg["batch_iter"])
+    c0s = torch.stack([c0, c0b])
+    fit_c = D.make_distributed_kmeans_batched(mesh, cfg_c, axes,
+                                              backend="fused")
+    out["batched"] = []
+    for _ in range(2 if world > 1 else 1):
+        D.reset_collective_counts()
+        before = _dist_counts()
+        t0 = time.perf_counter()
+        res = fit_c(x_sh, c0s, padding_weights(2, pad))
+        sync()
+        out["batched"].append({
+            "res": host(res), "wall_s": time.perf_counter() - t0,
+            "collectives": D.collective_counts(),
+            "launches": _dist_delta(before)})
+    del x_sh, res
+
+    # (d) streaming: the estimator (two ranks only), then the streamed
+    # driver from host memory
+    if world > 1:
+        out["minibatch"] = []
+        for _ in range(2):
+            D.reset_collective_counts()
+            before = _dist_counts()
+            t0 = time.perf_counter()
+            mb = MiniBatchAAKMeans(
+                n_clusters=k, chunk_size=cfg["chunk"], epochs=cfg["epochs"],
+                val_size=cfg["val"], backend="fused", mesh=mesh,
+                seed=0).fit(x_np)
+            sync()
+            out["minibatch"].append({
+                "centroids": mb.centroids_.cpu(), "energy": mb.energy_,
+                "n_steps": mb.n_steps_, "n_accepted": mb.n_accepted_,
+                "labels": mb.labels_, "wall_s": time.perf_counter() - t0,
+                "collectives": D.collective_counts(),
+                "launches": _dist_delta(before)})
+        del mb
+    cfg_s = MiniBatchConfig(k=k, chunk_size=cfg["chunk"],
+                            epochs=cfg["stream_epochs"])
+    meter = IngestMeter()
+    D.reset_collective_counts()
+    before = _dist_counts()
+    t0 = time.perf_counter()
+    res = aa_kmeans_minibatch_streamed(
+        x_np[cfg["val"]:], x_np[:cfg["val"]], c0, cfg_s, "fused", seed=0,
+        drop_remainder=True, meter=meter, mesh=mesh)
+    sync()
+    out["streamed"] = {"res": host(res), "wall_s": time.perf_counter() - t0,
+                       "ingest": meter.scalars(),
+                       "collectives": D.collective_counts(),
+                       "launches": _dist_delta(before)}
+
+    # (e) elastic resume, on the first N - N % 2 rows
+    # (make_distributed_kmeans takes no weights, so N must divide)
+    x_e = x_np[:n - n % 2]
+    cfg_e = KMeansConfig(k=k, max_iter=cfg["max_iter"])
+    run = tmp / "run16"
+    plain_fit = D.make_distributed_kmeans(mesh, cfg_e, axes, backend="fused")
+    first = run / f"it_{cfg['every']:08d}.npz"
+    if world > 1:
+        mx = CollectMetrics()
+        D.time_collectives(True)
+        D.reset_collective_counts()
+        before = _dist_counts()
+        t0 = time.perf_counter()
+        seg = D.make_distributed_kmeans(
+            mesh, cfg_e, axes, backend="fused", checkpoint_every=cfg["every"],
+            checkpoint_dir=run, metrics=mx)(x_e, c0)
+        sync()
+        out["segmented"] = {"res": host(seg),
+                            "wall_s": time.perf_counter() - t0,
+                            "reduce_s": D.collective_seconds(),
+                            "collectives": D.collective_counts(),
+                            "records": mx.records,
+                            "writes": D._writes(mesh),
+                            "launches": _dist_delta(before)}
+        D.time_collectives(False)
+    before = _dist_counts()
+    t0 = time.perf_counter()
+    res = plain_fit(x_e, c0, resume_from=first)
+    sync()
+    out["resumed"] = {"res": host(res), "wall_s": time.perf_counter() - t0,
+                      "launches": _dist_delta(before)}
+
+    # (f) the other kernel engines: two steps, from phase 5's last
+    # centroids and then from the parent's one Lloyd step past them (the
+    # same bits at every world size; the carry runs on), on rows that
+    # tile alike at one and two ranks
+    x_f = D.local_block(x_np[:n - n % (2 * 64)], mesh, axes)
+    out["steps"] = {}
+    for name, opts in (("pallas", {}),
+                       ("fused_bounds", {"group_size": cfg["gs"]})):
+        bk = distribute(get_backend(name, **opts), axes)
+        before = _dist_counts()
+        with D.mesh_scope(mesh):
+            r1, carry = bk.step(x_f, c_fin, k, bk.init_carry(x_f, c_fin, k))
+            r2, carry = bk.step(x_f, c_next, k, carry)
+        stats = extract_stats(carry)
+        out["steps"][name] = {
+            "steps": [host((r.labels, r.sums, r.counts, r.energy))
+                      for r in (r1, r2)],
+            "stats": None if stats is None else host(stats),
+            "launches": _dist_delta(before)}
+    return out
+
+
+def _spawn16(torch, world, pg, tmp, cfg):
+    """Run phase 16's ranks (spawned children) and wait for them within
+    DIST_TIMEOUT; a child that fails or hangs fails the phase.
+    -> (each rank's results, wall seconds)."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_rank16, args=(world, pg, str(tmp), cfg),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_TIMEOUT
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise PhaseError(f"phase 16: the {world}-rank group passed its "
+                             f"{DIST_TIMEOUT} s limit")
+    return ([torch.load(tmp / f"out{world}_{r}.pt", weights_only=False)
+             for r in range(world)], time.perf_counter() - t0)
+
+
+def _rel(a, b):
+    """|a - b| / |b| in the Frobenius norm."""
+    b = b.double()
+    return float(torch_norm(a.double() - b) / torch_norm(b).clamp_min(
+        1e-30))
+
+
+def torch_norm(t):
+    return t.reshape(-1).norm()
+
+
+def compute_mode():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def phase16(torch, x, x_np, c0_main, model5, labels5, fit5_s, mb11,
+            path_launches, device_type="cuda", pgs=("gloo", "nccl")):
+    """Distribution over torch.distributed at full size (see the module
+    docstring); -> each kernel's launches in the ranks.  ``device_type``
+    and ``pgs`` (the two-rank and the one-rank groups' backends) are for
+    a rehearsal on the CPU ("cpu", ("gloo", "gloo"))."""
+    import tempfile
+    import numpy as np
+    from repro_torch.core import AAKMeans
+    from repro_torch.core.init_schemes import batched_init
+    print("phase 16: distribution over torch.distributed (two ranks on "
+          "the card over Gloo, one over NCCL)")
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    mode = compute_mode()
+    print(f"  the card: {smi}; compute mode {mode}")
+    check("exclusive" not in mode.lower(),
+          f"the card's compute mode is {mode}: two ranks cannot share it, "
+          f"and phase 16 does not run fewer")
+    from repro_torch.core import lloyd
+    from repro_torch.kernels import fused_lloyd as F
+    n, k = x_np.shape[0], MAIN_K
+    c0b = batched_init("kmeans++", torch.Generator(device=x.device)
+                       .manual_seed(1), x, k, 1)[0]
+    c_fin = model5.centroids_
+    step = F.fused_lloyd(x, c_fin)
+    c_next = lloyd.update_from_sums(step[2], step[3], c_fin)
+    del step
+    if device_type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = {"k": k, "chunk": STREAM_CHUNK, "epochs": STREAM_EPOCHS,
+           "val": STREAM_VAL, "batch_iter": DIST_BATCH_MAX_ITER,
+           "every": DIST_EVERY, "stream_epochs": DIST_STREAM_EPOCHS,
+           "gs": ORDERED_GS, "max_iter": model5.max_iter,
+           "timeout": DIST_TIMEOUT, "device": device_type}
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmpd:
+        tmp = Path(tmpd)
+        np.save(tmp / "x.npy", x_np)
+        for name, t in (("c0", c0_main), ("c0b", c0b), ("c_fin", c_fin),
+                        ("c_next", c_next)):
+            np.save(tmp / f"{name}.npy", t.cpu().numpy())
+        del c0b, c_next
+        two, two_s = _spawn16(torch, 2, pgs[0], tmp, cfg)
+        print(f"  two ranks (Gloo, card tensors staged through pinned host "
+              f"memory) ran in {two_s!r} s")
+        one, one_s = _spawn16(torch, 1, pgs[1], tmp, cfg)
+        print(f"  one rank (NCCL) ran in {one_s!r} s")
+        snap = tmp / "run16" / f"it_{DIST_EVERY:08d}.npz"
+        snap_bytes = snap.stat().st_size
+        n_snaps = len(list((tmp / "run16").glob("it_*.npz")))
+    w1, r0, r1 = one[0], two[0], two[1]
+
+    def launched(what, counts):
+        path_launches[f"phase 16 {what}"] = {
+            key: v for key, v in counts.items() if key != "plain"}
+        for key, v in counts.items():
+            launches[key] = launches.get(key, 0) + v
+
+    # (a) one rank over NCCL: phase 5's fit, bit for bit
+    fa = w1["fit"]
+    same = {"labels": torch.equal(fa["labels"], model5.labels_.cpu()),
+            "centroids": torch.equal(fa["centroids"],
+                                     model5.centroids_.cpu()),
+            "inertia_": fa["energy"] == model5.inertia_,
+            "n_iter_": fa["n_iter"] == model5.n_iter_,
+            "n_accepted_": fa["n_accepted"] == model5.n_accepted_}
+    print(f"  (a) AAKMeans(mesh=1 rank, NCCL).fit: {fa['fit_s']!r} s "
+          f"against phase 5's {fit5_s!r} s; n_iter_ {fa['n_iter']}, "
+          f"n_accepted_ {fa['n_accepted']}, inertia_ {fa['energy']!r}")
+    print(f"  (a) equal to phase 5's fit bit for bit: {same}")
+    print(f"  (a) predict {fa['predict_s']!r} s, equal to phase 5's "
+          f"{bool(np.array_equal(fa['predict'], labels5))}; launches "
+          f"{fa['launches']} fit, {fa['predict_launches']} predict; "
+          f"collectives {fa['collectives']}")
+    check(all(same.values()), "(a) the one-rank mesh fit is not phase 5's")
+    check(np.array_equal(fa["predict"], labels5),
+          "(a) the one-rank mesh predict is not phase 5's")
+    launched("(a) fit + predict, 1 rank", {
+        key: fa["launches"][key] + fa["predict_launches"][key]
+        for key in fa["launches"]})
+
+    # (b) two ranks sharing the card over Gloo
+    fb, rb = r0["fit"], r0["repeat"]
+    step_rel = [_rel(a, b) for a, b in zip(r0["first_step"],
+                                            w1["first_step"])]
+    e_rel = abs(fb["energy"] - model5.inertia_) / model5.inertia_
+    agree = float((fb["labels"] == model5.labels_.cpu()).float().mean())
+    ranks_equal = all(
+        torch.equal(r0["fit"][key], r1["fit"][key])
+        if isinstance(r0["fit"][key], torch.Tensor)
+        else r0["fit"][key] == r1["fit"][key]
+        for key in ("centroids", "labels", "energy", "n_iter", "n_accepted"))
+    repeat_equal = all(
+        torch.equal(fb[key], rb[key]) if isinstance(fb[key], torch.Tensor)
+        else fb[key] == rb[key]
+        for key in ("centroids", "labels", "energy", "n_iter", "n_accepted"))
+    single = AAKMeans(n_clusters=k, backend="fused")
+    single.centroids_ = fb["centroids"].to(x.device)
+    pred_single = single.predict(x)
+    trips_b = fb["trips"]
+    print(f"  (b) two ranks: fit {fb['fit_s']!r} s (repeat, collectives "
+          f"timed: {rb['fit_s']!r} s), {trips_b} trips; n_iter_ "
+          f"{fb['n_iter']} / n_accepted_ {fb['n_accepted']} against phase "
+          f"5's {model5.n_iter_} / {model5.n_accepted_}; inertia_ "
+          f"{fb['energy']!r}, {e_rel!r} relative from phase 5's")
+    print(f"  (b) padding rows at weight 0: {r0['pad']}")
+    print(f"  (b) labels equal to phase 5's: {agree!r}")
+    print(f"  (b) first step against one rank's (relative, Frobenius): "
+          f"sums {step_rel[0]!r}, counts {step_rel[1]!r}, energy "
+          f"{step_rel[2]!r}")
+    for r, rank in enumerate(two):
+        print(f"  (b) rank {r}: fused launches {rank['fit']['launches']}, "
+              f"collectives {rank['fit']['collectives']}")
+    print(f"  (b) the reduction per trip (host clock ending in a sync, "
+          f"both ends): {rb['reduce_s'] / max(1, trips_b) * 1e3!r} ms, "
+          f"{rb['reduce_s']!r} s of the repeat's {rb['fit_s']!r} s")
+    print(f"  (b) ranks equal bit for bit {ranks_equal}; the repeat equal "
+          f"bit for bit {repeat_equal}; predict {fb['predict_s']!r} s, "
+          f"equal to the single-device predict of the same centroids on "
+          f"every row {bool(np.array_equal(fb['predict'], pred_single))}")
+    check(max(step_rel) <= 1e-6, "(b) the first step differs from one "
+          "rank's by more than 1e-6")
+    check(e_rel <= 1e-4, "(b) the final energy is not within 1e-4 of "
+          "phase 5's")
+    check(ranks_equal, "(b) the ranks' results differ")
+    check(repeat_equal, "(b) the repeat fit differs")
+    check(np.array_equal(fb["predict"], pred_single)
+          and np.array_equal(r1["fit"]["predict"], pred_single),
+          "(b) predict under the mesh differs from the single-device one")
+    check(fb["launches"]["plain"] == 0, "(b) a plain version ran")
+    for r, rank in enumerate(two):
+        f = rank["fit"]
+        launched(f"(b) fit + predict, rank {r} of 2", {
+            key: f["launches"][key] + f["predict_launches"][key]
+            + rank["repeat"]["launches"][key] for key in f["launches"]})
+    del pred_single, single
+
+    # (c) batched restarts
+    bc, bc2, bw1 = r0["batched"][0], r0["batched"][1], w1["batched"][0]
+    e2, e1 = bc["res"][2], bw1["res"][2]
+    rel_c = (e2.double() - e1.double()).abs() / e1.double()
+    trips_c = bc["collectives"]["converged"]
+    print(f"  (c) R = 2, max_iter {DIST_BATCH_MAX_ITER} (cut): two ranks "
+          f"{bc['wall_s']!r} s, one rank {bw1['wall_s']!r} s; energies "
+          f"{e2.tolist()} against one rank's {e1.tolist()}, relative "
+          f"{rel_c.tolist()}; n_iter {bc['res'][3].tolist()} / "
+          f"{bw1['res'][3].tolist()}; collectives {bc['collectives']} "
+          f"({trips_c} trips)")
+    repeat_c = all(torch.equal(a, b) for a, b in zip(bc["res"],
+                                                      bc2["res"]))
+    print(f"  (c) repeat equal bit for bit {repeat_c}")
+    check(bc["collectives"]["step"] == trips_c + 1,
+          "(c) not one step collective per trip")
+    check(float(rel_c.max()) <= 1e-4, "(c) a restart is not within 1e-4 "
+          "of its one-rank run")
+    check(repeat_c, "(c) the repeat differs")
+    for r, rank in enumerate(two):
+        launched(f"(c) batched, rank {r} of 2", {
+            key: sum(b["launches"][key] for b in rank["batched"])
+            for key in bc["launches"]})
+    launched("(c) batched, 1 rank", bw1["launches"])
+
+    # (d) streaming
+    md, md2 = r0["minibatch"]
+    rel_d = abs(md["energy"] - mb11[0]) / mb11[0]
+    repeat_d = torch.equal(md["centroids"], md2["centroids"]) and \
+        md["energy"] == md2["energy"]
+    chunk_steps = md["n_steps"]
+    print(f"  (d) MiniBatchAAKMeans(mesh=2 ranks).fit: {md['wall_s']!r} s "
+          f"(labels_ included), {chunk_steps} steps, {md['n_accepted']} "
+          f"accepted; energy {md['energy']!r} against phase 11's "
+          f"{mb11[0]!r} ({rel_d!r} relative; phase 11: {mb11[1]} steps, "
+          f"{mb11[2]} accepted); collectives {md['collectives']}; repeat "
+          f"equal bit for bit {repeat_d}")
+    s2, s1 = r0["streamed"], w1["streamed"]
+    rel_s = abs(float(s2["res"][1]) - float(s1["res"][1])) / \
+        float(s1["res"][1])
+    print(f"  (d) aa_kmeans_minibatch_streamed(mesh=), "
+          f"{DIST_STREAM_EPOCHS} epochs from host memory: two ranks "
+          f"{s2['wall_s']!r} s, one rank {s1['wall_s']!r} s; energy "
+          f"{float(s2['res'][1])!r} against one rank's "
+          f"{float(s1['res'][1])!r} ({rel_s!r} relative); collectives "
+          f"{s2['collectives']}")
+    for r, rank in enumerate(two):
+        print(f"  (d) rank {r} of 2 ingest: {rank['streamed']['ingest']}")
+    print(f"  (d) one rank's ingest: {s1['ingest']}")
+    check(md["collectives"]["step"] == 2 * chunk_steps + 1,
+          "(d) not one collective per chunk step and one per guard")
+    check(rel_d <= 1e-4, "(d) the minibatch energy is not within 1e-4 of "
+          "phase 11's")
+    check(repeat_d, "(d) the repeat differs")
+    check(rel_s <= 1e-4, "(d) the streamed energy is not within 1e-4 of "
+          "one rank's")
+    for r, rank in enumerate(two):
+        launched(f"(d) streaming, rank {r} of 2", {
+            key: sum(m["launches"][key] for m in rank["minibatch"])
+            + rank["streamed"]["launches"][key]
+            for key in md["launches"]})
+    launched("(d) streamed, 1 rank", s1["launches"])
+
+    # (e) elastic resume
+    seg, res2, res1 = r0["segmented"], r0["resumed"], w1["resumed"]
+    same_e = all(torch.equal(a, b) for a, b in zip(seg["res"], res2["res"]))
+    rel_e = abs(float(res1["res"][2]) - float(seg["res"][2])) / \
+        float(seg["res"][2])
+    gathers = [rec["gather_s"] for _, rec in seg["records"]
+               if "gather_s" in rec]
+    writes = [rec["checkpoint_write_s"] for _, rec in seg["records"]
+              if "checkpoint_write_s" in rec]
+    print(f"  (e) segmented every {DIST_EVERY} on {n - n % 2} rows: "
+          f"{seg['wall_s']!r} s, {n_snaps} snapshots of {snap_bytes} B "
+          f"(the first), written by rank 0 only: "
+          f"{[r['segmented']['writes'] for r in two]}")
+    print(f"  (e) each snapshot's gather {gathers} s; each write {writes} s")
+    print(f"  (e) resumed at two ranks from t = {DIST_EVERY}: "
+          f"{res2['wall_s']!r} s, equal bit for bit {same_e}; at one rank "
+          f"(NCCL): {res1['wall_s']!r} s, energy {float(res1['res'][2])!r} "
+          f"against {float(seg['res'][2])!r} ({rel_e!r} relative), n_iter "
+          f"{int(res1['res'][3])} / {int(seg['res'][3])}")
+    check(same_e, "(e) the same-world resume differs from the "
+          "uninterrupted run")
+    check(rel_e <= 1e-4, "(e) the one-rank resume is not within 1e-4")
+    check([r["segmented"]["writes"] for r in two] == [True, False],
+          "(e) a rank other than the first wrote")
+    for r, rank in enumerate(two):
+        launched(f"(e) segmented + resumed, rank {r} of 2", {
+            key: rank["segmented"]["launches"][key]
+            + rank["resumed"]["launches"][key]
+            for key in seg["launches"]})
+    launched("(e) resumed, 1 rank", res1["launches"])
+
+    # (f) the pallas and fused_bounds engines
+    for name in ("pallas", "fused_bounds"):
+        g = [rank["steps"][name] for rank in two]
+        want = w1["steps"][name]
+        rows = []
+        for i in range(2):
+            lab = torch.cat([gg["steps"][i][0] for gg in g])
+            rows.append({
+                "labels_equal": torch.equal(lab, want["steps"][i][0]),
+                "sums": _rel(g[0]["steps"][i][1], want["steps"][i][1]),
+                "counts_equal": torch.equal(g[0]["steps"][i][2],
+                                            want["steps"][i][2]),
+                "energy": _rel(g[0]["steps"][i][3], want["steps"][i][3]),
+                "ranks_equal": all(torch.equal(a, b) for a, b in zip(
+                    g[0]["steps"][i][1:], g[1]["steps"][i][1:]))})
+        print(f"  (f) {name}, two steps (phase 5's centroids, then one "
+              f"Lloyd step on) at two ranks against one: {rows}")
+        check(all(r["labels_equal"] and r["counts_equal"]
+                  and r["ranks_equal"] and r["sums"] <= 1e-6
+                  and r["energy"] <= 1e-6 for r in rows),
+              f"(f) {name} at two ranks differs from one rank")
+        if want["stats"] is not None:
+            sk = [float(gg["stats"][1]) for gg in g]
+            print(f"  (f) {name} skipped share: ranks {sk}, one rank "
+                  f"{float(want['stats'][1])!r}")
+            check(sk[0] == sk[1] and abs(sk[0] - float(want["stats"][1]))
+                  <= 1e-6, f"(f) {name}'s skipped share differs")
+        for r, gg in enumerate(g):
+            launched(f"(f) {name}, rank {r} of 2", gg["launches"])
+        launched(f"(f) {name}, 1 rank", want["launches"])
+    check(launches["plain"] == 0, "phase 16 ran a plain version")
+    check(launches["fused_lloyd"] > 0 and launches["assignment"] > 0
+          and launches["update"] > 0 and launches["fused_bounds"] > 0,
+          "phase 16 left a kernel unlaunched")
+    print(f"  launches in the ranks: {launches}")
+    print(f"  phase 16 took {time.perf_counter() - t_phase!r} s")
+    sys.stdout.flush()
+    return launches
+
+
 def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
             tile_rows):
     """The paper's protocols on the card at full size on the USCensus1990
@@ -3137,9 +3713,12 @@ def run():
     del res9
     serve_launches = phase14(torch, x, x_np, model, labels, model_mb,
                              zero_counts, read_counts, path_launches)
+    mb11 = (model_mb.energy_, model_mb.n_steps_, model_mb.n_accepted_)
     del model_mb
     hier_launches, errs15 = phase15(torch, dev, x, c0_main, model, fit_s,
                                     zero_counts, read_counts, path_launches)
+    dist_launches = phase16(torch, x, x_np, c0_main, model, labels, fit_s,
+                            mb11, path_launches)
     main_abs_err = max(main_abs_err, errs15["fused_lloyd"])
     assign_abs_err = max(assign_abs_err, errs15["assignment"])
     update_abs_err = max(update_abs_err, errs15["update"])
@@ -3362,7 +3941,8 @@ def run():
          "ms": fused_ms, "plain_ms": fused_plain_ms,
          "bound_ms": fused_bound, "bound_by": fused_by,
          "fp32_bound_ms": fused_fp32, "library_ms": None,
-         "hierarchy_launches": hier_launches.get("fused_lloyd", 0)},
+         "hierarchy_launches": hier_launches.get("fused_lloyd", 0),
+         "distributed_launches": dist_launches["fused_lloyd"]},
         {"name": "assignment", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/assignment.cu",
          "replaces": "src/repro/kernels/assignment.py:37",
@@ -3372,6 +3952,7 @@ def run():
          "fp32_bound_ms": assign_fp32, "library_ms": library_ms,
          "serving_launches": serve_launches,
          "hierarchy_launches": hier_launches.get("assignment", 0),
+         "distributed_launches": dist_launches["assignment"],
          "all_rows": {"ms": assign_full_ms, "bound_ms": full_bound,
                       "bound_by": full_by, "fp32_bound_ms": full_fp32,
                       "library_ms": library_full_ms}},
@@ -3382,14 +3963,16 @@ def run():
          "ms": update_ms, "plain_ms": update_plain_ms,
          "bound_ms": update_bound, "bound_by": update_by,
          "fp32_bound_ms": update_bound, "library_ms": update_lib_ms,
-         "hierarchy_launches": hier_launches.get("update", 0)},
+         "hierarchy_launches": hier_launches.get("update", 0),
+         "distributed_launches": dist_launches["update"]},
         {"name": "fused_bounds", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_bounds.cu",
          "replaces": "src/repro/kernels/fused_lloyd.py:123",
          "launches": total["fused_bounds"], "max_abs_err": bounds_abs_err,
          "ms": bounds_ms_main, "plain_ms": bounds_plain_ms,
          "bound_ms": bounds_bound, "bound_by": bounds_by,
-         "fp32_bound_ms": bounds_fp32, "library_ms": None},
+         "fp32_bound_ms": bounds_fp32, "library_ms": None,
+         "distributed_launches": dist_launches["fused_bounds"]},
     ]
     print(json.dumps({"kernels": kernels}))
     return smi, name

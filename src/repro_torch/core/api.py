@@ -36,8 +36,16 @@ index.
 through ``core.hierarchy.aa_kmeans_hierarchical``, the two-level solve
 for large K, and keeps its routing (``hier_routers_``,
 ``hier_offsets_``): ``build_serving_index()`` with no sizes then turns
-it into the serving index with no more clustering.  Still to be ported:
-the mesh (the constructors have no ``mesh`` / ``data_axes`` fields).
+it into the serving index with no more clustering.
+
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) with ``data_axes``
+distributes both estimators' ``fit`` and ``predict`` / ``transform``
+(``core/distributed.py``): every rank calls them with the same global X
+and each solves on its shard of the rows.  Seeds are drawn on shard 0 of
+the global X, as the single-device fit draws them, and broadcast; rows
+padding N to the shard count get weight 0; labels come back global on
+every rank.  ``partial_fit`` and ``hierarchical=`` refuse a mesh, and
+``save`` persists ``data_axes`` but never the mesh.
 """
 
 from __future__ import annotations
@@ -63,8 +71,9 @@ from repro_torch.core.minibatch import (MiniBatchConfig,
                                         minibatch_init, minibatch_iteration,
                                         reference_layout)
 from repro_torch.data.streaming import (DeviceChunks, chunk_dataset,
-                                        split_validation, stream_chunks)
-from repro_torch.device import resolve_device
+                                        shard_count, split_validation,
+                                        stream_chunks)
+from repro_torch.device import mesh_device, resolve_device
 from repro_torch.kernels.tiles import pad_rows
 from repro_torch.runtime.metrics import as_metrics
 from repro_torch.runtime.prefetch import IngestMeter
@@ -108,6 +117,25 @@ def _chunked_rows_apply(model, x, fn, out_dtype, out_cols=None,
     return out
 
 
+def _rows_apply(model, x, fn, out_dtype, out_cols=None,
+                chunk_size=None) -> np.ndarray:
+    """``_chunked_rows_apply`` on one device, or under a fitted model's
+    mesh on each rank's block of rows, gathered over the ranks with the
+    padding stripped (the reference's ``_mesh_rows_apply``)."""
+    if model.mesh is None:
+        return _chunked_rows_apply(model, x, fn, out_dtype, out_cols,
+                                   chunk_size)
+    from repro_torch.core.distributed import rows_apply
+    return rows_apply(model.mesh, model.data_axes, _host_array(x),
+                      lambda xl: _chunked_rows_apply(
+                          model, xl, fn, out_dtype, out_cols, chunk_size))
+
+
+def _host_array(x):
+    """X as it came (a tensor or an array), or an array of a list."""
+    return x if hasattr(x, "shape") else np.asarray(x)
+
+
 def _closure_extras(model):
     """(routers, candidates, candidate table) when the model carries a
     serving index, else None.  The (G, C, d) table is built once per
@@ -128,11 +156,11 @@ def _predict_rows(model, x, chunk_size, approx=False) -> np.ndarray:
     extras = _closure_extras(model) if approx else None
     if extras is not None:
         from repro_torch.serving.closure import closure_assign
-        return _chunked_rows_apply(
+        return _rows_apply(
             model, x, lambda xc, c: closure_assign(xc, c, *extras)[0],
             np.int32, chunk_size=chunk_size)
     bk = resolve_backend(model.backend)
-    return _chunked_rows_apply(
+    return _rows_apply(
         model, x, lambda xc, c: bk.assign(xc, c).labels, np.int32,
         chunk_size=chunk_size)
 
@@ -145,11 +173,11 @@ def _transform_rows(model, x, chunk_size, approx=False) -> np.ndarray:
     extras = _closure_extras(model) if approx else None
     if extras is not None:
         from repro_torch.serving.closure import closure_sqdist
-        return _chunked_rows_apply(
+        return _rows_apply(
             model, x,
             lambda xc, c: torch.sqrt(closure_sqdist(xc, c, *extras)),
             np.float32, out_cols=model.n_clusters, chunk_size=chunk_size)
-    return _chunked_rows_apply(
+    return _rows_apply(
         model, x, lambda xc, c: torch.sqrt(pairwise_sqdist(xc, c)),
         np.float32, out_cols=model.n_clusters, chunk_size=chunk_size)
 
@@ -254,15 +282,20 @@ def _save_estimator(model, path, kind, arrays: dict, stream: dict,
     """One ``core/serialize.py`` artifact in the reference's layout:
     fitted arrays (and a streaming state) as the tree, the constructor
     params and the fitted scalars (Python numbers) in the meta block.
-    ``device`` and ``metrics`` are properties of the process, as the
-    reference's mesh and metrics sink are, and are not persisted."""
+    ``device``, ``mesh`` and ``metrics`` are properties of the process,
+    as in the reference, and are not persisted; ``data_axes`` is, as a
+    list."""
     params = {}
     for f in dataclasses.fields(model):
         if f.name.endswith("_") or f.name.startswith("_") \
-                or f.name in ("device", "metrics"):
+                or f.name in ("device", "mesh", "metrics"):
             continue
         v = getattr(model, f.name)
-        params[f.name] = _encode_backend(v) if f.name == "backend" else v
+        if f.name == "backend":
+            v = _encode_backend(v)
+        elif f.name == "data_axes":
+            v = list(v)
+        params[f.name] = v
     tree = {"arrays": arrays}
     if stream:
         tree["stream"] = stream
@@ -340,6 +373,11 @@ class AAKMeans:
     # of K nearest √K); a dict gives it keyword overrides (n_groups=,
     # n_reassign=, super_max_iter=, ...)
     hierarchical: object = False
+    # a torch.distributed DeviceMesh: fit and predict run SPMD, X sharded
+    # by rows over the mesh dims named by data_axes (core/distributed.py).
+    # A process property: not persisted, and a loaded model is local.
+    mesh: object = None
+    data_axes: tuple = ("data",)
 
     # fitted state
     centroids_: Optional[torch.Tensor] = None
@@ -369,7 +407,10 @@ class AAKMeans:
         elsewhere, e.g. by the reference package.  With ``hierarchical``
         set, ``c0s`` are the sub-problems' seeds of
         ``aa_kmeans_hierarchical`` ((G·n_init, K/G, d); (n_init, K, d) at
-        G = 1)."""
+        G = 1).  With a ``mesh``, every rank calls ``fit`` with the same
+        global X (``_fit_mesh``)."""
+        if self.mesh is not None:
+            return self._fit_mesh(x, c0s)
         dev = resolve_device(self.device)
         x = _as_input(x, dev)
         cfg = self._config()
@@ -382,18 +423,22 @@ class AAKMeans:
                                max(self.n_init, 1))
         else:
             c0s = _as_input(c0s, dev)
-        best: KMeansResult = select_best(
+        return self._take(select_best(
             aa_kmeans_batched(x, c0s, cfg, backend=self.backend,
-                              metrics=self.metrics))
+                              metrics=self.metrics)), c0s.shape[0],
+            x.shape[0])
+
+    def _take(self, best: KMeansResult, r: int, n: int) -> "AAKMeans":
+        """Keep a flat fit's winner (its labels' first n rows)."""
         energy = float(best.energy)
         if not math.isfinite(energy):
             # select_best skips non-finite restarts, so EVERY restart
             # degenerated (NaN rows in X, exploded iterate).
             raise FloatingPointError(
-                f"all {c0s.shape[0]} restarts produced non-finite energies "
+                f"all {r} restarts produced non-finite energies "
                 f"(E={energy}); check X for NaN/inf rows")
         self.centroids_ = best.centroids
-        self.labels_ = best.labels
+        self.labels_ = best.labels[:n]
         self.energy_ = energy
         self.n_iter_ = int(best.n_iter)
         self.n_accepted_ = int(best.n_accepted)
@@ -401,6 +446,43 @@ class AAKMeans:
         # the index when asked to, never serve the old one
         self.hier_routers_ = self.hier_offsets_ = None
         return self._refresh_index()
+
+    def _fit_mesh(self, x, c0s) -> "AAKMeans":
+        """The fit on a mesh (the reference's ``make_distributed_kmeans_
+        batched(pick_best=True)`` path): the seeds drawn on shard 0 over
+        the global X from the single-device fit's generator, so a mesh
+        fit from ``seed`` starts where the single-device fit does, and
+        broadcast; X padded to the shard count with rows of weight 0,
+        where the reference repeats its last row at weight 1."""
+        if self.hierarchical:
+            raise NotImplementedError(
+                "hierarchical=True is a host-driven round loop; a "
+                "mesh-distributed hierarchy is a ROADMAP follow-up — fit "
+                "flat under the mesh or hierarchical on one device")
+        from repro_torch.core import distributed as D
+        dev = mesh_device(self.mesh, self.device)
+        axes = tuple(self.data_axes)
+        x = _host_array(x)
+        n, d = int(x.shape[0]), int(x.shape[1])
+        x_sh, pad = D.shard_dataset(x, self.mesh, axes)
+        x_sh = x_sh._replace(local=_as_input(x_sh.local, dev))
+        r = max(self.n_init, 1)
+        if c0s is None:
+            def seeds():
+                gen = torch.Generator(device=dev).manual_seed(self.seed)
+                return (batched_init(self.init, gen, _as_input(x, dev),
+                                     self.n_clusters, r),)
+            c0s, = D.on_shard_zero(self.mesh, axes, seeds, (torch.empty(
+                (r, self.n_clusters, d), dtype=torch.float32, device=dev),))
+        else:
+            c0s = _as_input(c0s, dev)
+        weights = None
+        if pad:
+            weights = torch.ones((c0s.shape[0], n + pad))
+            weights[:, n:] = 0.0
+        return self._take(D.make_distributed_kmeans_batched(
+            self.mesh, self._config(), axes, backend=self.backend,
+            pick_best=True)(x_sh, c0s, weights), c0s.shape[0], n)
 
     def _fit_hierarchical(self, x, cfg: KMeansConfig, c0s) -> "AAKMeans":
         """The two-level fit (``core.hierarchy``): the flat fit's contract
@@ -570,6 +652,10 @@ class MiniBatchAAKMeans:
     # scalars waits for its step, a sync the stream otherwise avoids, so
     # attach one only when the diagnostics are worth it.  Not persisted.
     metrics: object = None
+    # a DeviceMesh, as on AAKMeans: fit (not partial_fit) and predict run
+    # on each rank's shard of the rows
+    mesh: object = None
+    data_axes: tuple = ("data",)
 
     # fitted state
     centroids_: Optional[torch.Tensor] = None
@@ -595,6 +681,8 @@ class MiniBatchAAKMeans:
 
     def _val_rows(self, n: int) -> int:
         v = min(self.val_size, max(n // 4, self.n_clusters))
+        if self.mesh is not None:
+            v -= v % shard_count(self.mesh, self.data_axes)
         if v < 1:
             raise ValueError(
                 f"cannot carve a validation chunk from N={n} rows "
@@ -623,6 +711,8 @@ class MiniBatchAAKMeans:
                          torch.Generator().manual_seed(self.seed))
 
     def fit(self, x, chunk_size: Optional[int] = None) -> "MiniBatchAAKMeans":
+        if self.mesh is not None:
+            return self._fit_mesh(x, self._config(chunk_size))
         dev = resolve_device(self.device)
         x = _as_input(x, dev)
         cfg = self._config(chunk_size)
@@ -645,6 +735,58 @@ class MiniBatchAAKMeans:
         self.labels_ = self.predict(x) if self.compute_labels else None
         return self
 
+    def _fit_mesh(self, x, cfg: MiniBatchConfig) -> "MiniBatchAAKMeans":
+        """``fit`` on a mesh (the reference's
+        ``make_distributed_kmeans_minibatch`` path).  Shard 0 draws what
+        the single-device fit draws (the validation split's permutation
+        and the seeds, on its device over the global X) and broadcasts
+        them; every rank then gathers only its block of each chunk and of
+        the validation rows, and takes the chunk order from a CPU
+        generator seeded alike."""
+        from repro_torch.core import distributed as D
+        dev = mesh_device(self.mesh, self.device)
+        axes = tuple(self.data_axes)
+        x = _host_array(x)
+        n, d = int(x.shape[0]), int(x.shape[1])
+        if n < 2 * self.n_clusters:
+            raise ValueError(f"need at least {2 * self.n_clusters} rows to "
+                             f"fit k={self.n_clusters}; got {n}")
+        v = self._val_rows(n)
+        self._state = self._x_val = None
+
+        def draws():
+            xd = _as_input(x, dev)
+            gen = torch.Generator(device=dev).manual_seed(self.seed)
+            # split_validation's draw, then the seeding of fit_inputs
+            perm = torch.randperm(n, generator=gen, device=dev)
+            x_train = xd[perm[v:]]
+            n_seed = min(x_train.shape[0], max(cfg.chunk_size, 4096))
+            return perm, make_init(self.init)(gen, x_train[:n_seed],
+                                              self.n_clusters)
+
+        perm, c0 = D.on_shard_zero(self.mesh, axes, draws, (
+            torch.empty((n,), dtype=torch.int64, device=dev),
+            torch.empty((self.n_clusters, d), dtype=torch.float32,
+                        device=dev)))
+        perm = perm.cpu()
+        rows = x[perm.to(x.device)].cpu() if isinstance(x, torch.Tensor) \
+            else torch.from_numpy(np.asarray(x)[perm.numpy()])
+        rows = _as_input(rows, torch.device("cpu"))
+        dc = chunk_dataset(rows[v:], cfg.chunk_size, mesh=self.mesh,
+                           data_axes=axes)
+        res = D.make_distributed_kmeans_minibatch(
+            self.mesh, cfg, axes, backend=self.backend)(
+            dc.chunks, dc.weights, rows[:v], c0,
+            torch.Generator().manual_seed(self.seed))
+        del dc, rows
+        self.centroids_ = res.centroids
+        self.energy_ = float(res.energy)
+        self.n_steps_ = int(res.n_steps)
+        self.n_accepted_ = int(res.n_accepted)
+        self.closure_routers_ = self.closure_candidates_ = None
+        self.labels_ = self.predict(x) if self.compute_labels else None
+        return self
+
     # -- streaming ---------------------------------------------------------
 
     def partial_fit(self, chunk) -> "MiniBatchAAKMeans":
@@ -652,7 +794,12 @@ class MiniBatchAAKMeans:
         the validation chunk.  ``centroids_`` becomes the fresh
         running-stats iterate and ``energy_`` the guard's pricing of the
         previous one (see the class docstring; ``finalize()`` makes them
-        consistent)."""
+        consistent).  A mesh estimator refuses it, as the reference's
+        does."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "partial_fit streams from one host; for mesh execution "
+                "use fit() / make_distributed_kmeans_minibatch")
         dev = resolve_device(self.device)
         x = _as_input(chunk, dev)
         cfg = self._config()

@@ -21,15 +21,17 @@ original-order outputs.  Its options ``warmup``, ``churn_threshold`` and
 ``sort_tile`` go to the ``ReorderConfig``, the rest to the inner
 backend's factory.
 
-Still to be ported: ``distribute``.
+``distribute(backend, axes)`` wraps any of them for rows sharded over a
+``torch.distributed`` device mesh (``core/distributed.py``).
 """
 
 import dataclasses as _dc
 
 from repro_torch.core.backends.base import (Backend, Precision,  # noqa: F401
                                             StepResult, backend_names,
-                                            from_lloyd_ops, get_backend,
-                                            instrument, register_backend)
+                                            distribute, from_lloyd_ops,
+                                            get_backend, instrument,
+                                            register_backend)
 from repro_torch.core.backends.bounds import BoundStats  # noqa: F401
 from repro_torch.core.backends.dense import (blocked_backend,  # noqa: F401
                                              dense_backend)

@@ -1,6 +1,5 @@
 """The step-primitive backend protocol of Algorithm 1 (counterpart of
-``repro.core.backends.base``, lines 57-290 and 395-475; ``distribute`` is
-still to be ported).
+``repro.core.backends.base``, lines 57-391 and 395-475).
 
 A backend's core op is one logical pass over X,
 
@@ -21,14 +20,16 @@ solver loop: ``()`` for the stateless engines, the bound contract of
 partial stats of a known assignment, from which the derived ``update``
 op follows; ``energy``, ``g_map`` and ``reduce_scalar`` are the other
 derived ops.  ``from_lloyd_ops`` adapts a legacy ``lloyd.LloydOps`` and
-``instrument`` counts the passes over X.
+``instrument`` counts the passes over X.  ``distribute`` wraps any
+engine for a row-sharded mesh (``core/distributed.py``): the stats and
+the energy are summed over the ranks, labels and carries stay local.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import weakref
-from typing import Any, Callable, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -138,6 +139,8 @@ class Backend:
     # (x, res, k, c_prev) -> next centroids.
     finalize_fn: Callable = _default_finalize
     precision: Precision = DEFAULT_PRECISION
+    # the mesh axes ``distribute`` reduces over; () for a local engine
+    axes: Tuple[str, ...] = ()
 
     def step(self, x, c, k, carry=()):
         return self.step_fn(x, c, k, carry)
@@ -237,6 +240,91 @@ def get_backend(name: str, **opts) -> Backend:
     if key not in _INSTANCES:
         _INSTANCES[key] = _REGISTRY[name](**opts)
     return _INSTANCES[key]
+
+
+def _with_stats(carry, stats):
+    """``carry`` with its BoundStats node replaced by ``stats``."""
+    from repro_torch.core.backends.bounds import BoundStats
+    if isinstance(carry, BoundStats):
+        return stats
+    if isinstance(carry, tuple) and not hasattr(carry, "_fields"):
+        return tuple(_with_stats(node, stats) for node in carry)
+    if isinstance(carry, tuple):
+        return type(carry)(*(_with_stats(node, stats) for node in carry))
+    return carry
+
+
+def distribute(backend: Backend, axes: Sequence[str]) -> Backend:
+    """Wrap any local backend for rows sharded over the mesh axes
+    ``axes`` (the reference's combinator, run SPMD: every rank calls the
+    wrapped engine on its own rows, inside ``distributed.mesh_scope``).
+
+    A step's sums, counts and energy are summed over the ranks in ONE
+    collective (``distributed.all_sum``: every rank's partials are
+    gathered and added in rank order, so every rank holds the same
+    bits); labels, min_sqdist and the carry stay shard-local, but for the
+    carry's BoundStats, which are averaged over the ranks in the same
+    collective, so every rank carries the global fractions.
+    ``batched_step`` and ``minibatch_step`` wrap the Backend *methods*:
+    R restarts through an engine's per-restart fallback, or its generic
+    weighted path, still reduce once.  ``stats_fn`` and ``energy_fn``
+    reduce once, the convergence test sums the per-row mismatch counts
+    as integers, and ``reduce_scalar`` sums.  The axes are names, as
+    ``psum``'s are; a wrapped collective outside a mesh scope raises."""
+    if backend.axes:
+        raise ValueError(
+            f"backend {backend.name!r} is already distributed over "
+            f"{backend.axes}; wrapping it again would double-psum the "
+            f"stats and inflate the reported energy")
+    axes = tuple(axes)
+    # core/distributed.py imports the drivers, which import this module
+    from repro_torch.core import distributed as D
+    from repro_torch.core.backends.bounds import BoundStats, extract_stats
+
+    def reduced(res: StepResult, carry):
+        stats = extract_stats(carry)
+        extra = [] if stats is None else list(stats)
+        out = D.all_sum([res.sums, res.counts, res.energy] + extra, axes)
+        if stats is not None:
+            w = D.axis_size(axes)
+            carry = _with_stats(carry, BoundStats(*(s / w for s in out[3:])))
+        return StepResult(res.labels, res.min_sqdist, *out[:3]), carry
+
+    def step_fn(x, c, k, carry):
+        return reduced(*backend.step_fn(x, c, k, carry))
+
+    def batched_step_fn(x, cs, k, carries, w=None):
+        return reduced(*backend.batched_step(x, cs, k, carries, w=w))
+
+    def minibatch_step_fn(x, c, k, w, carry):
+        return reduced(*backend.minibatch_step(x, c, k, w, carry))
+
+    def init_carry_fn(x, c, k):
+        # batched_init_carry calls this with (R, K, d) seeds, since the
+        # wrapper always sets batched_step_fn
+        if c.dim() == 3:
+            return backend.batched_init_carry(x, c, k)
+        return backend.init_carry(x, c, k)
+
+    def stats_fn(x, labels, k):
+        return tuple(D.all_sum(list(backend.stats_fn(x, labels, k)), axes,
+                               "stats"))
+
+    def energy_fn(x, c, labels):
+        return D.all_sum([backend.energy_fn(x, c, labels)], axes,
+                         "energy")[0]
+
+    def all_equal_fn(a, b):
+        neq = torch.sum((a != b).to(torch.int64), dim=-1)
+        return D.all_sum([neq], axes, "converged")[0] == 0
+
+    return dataclasses.replace(
+        backend, name=f"{backend.name}@{'x'.join(axes)}",
+        step_fn=step_fn, batched_step_fn=batched_step_fn,
+        minibatch_step_fn=minibatch_step_fn, init_carry_fn=init_carry_fn,
+        stats_fn=stats_fn, energy_fn=energy_fn, all_equal_fn=all_equal_fn,
+        reduce_scalar=lambda s: D.all_sum([s], axes, "scalar")[0],
+        axes=axes)
 
 
 _OPS_ADAPTERS: "weakref.WeakKeyDictionary[LloydOps, Backend]" = \

@@ -46,6 +46,7 @@ live here.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, NamedTuple, Optional, Union
@@ -65,7 +66,7 @@ from repro_torch.core.minibatch import (MiniBatchConfig, MiniBatchResult,
                                         reference_layout,
                                         stack_traces)
 from repro_torch.data.streaming import stream_chunks
-from repro_torch.device import resolve_device
+from repro_torch.device import mesh_device, resolve_device
 from repro_torch.runtime.metrics import as_metrics
 
 
@@ -382,8 +383,9 @@ def aa_kmeans_minibatch(chunks: torch.Tensor, weights: torch.Tensor,
     loop is ``segmented.aa_kmeans_minibatch_segmented``, which leaves
     the result as it is without these keywords, bit for bit.  With a
     checkpoint keyword it refuses a generator that has been drawn from,
-    whose orders a resume could not replay.  The reference's mesh
-    keywords are not ported yet."""
+    whose orders a resume could not replay.  On a mesh,
+    ``distributed.make_distributed_kmeans_minibatch`` runs this driver
+    on each rank's rows."""
     from repro_torch.core.segmented import aa_kmeans_minibatch_segmented
     if chunks.dim() != 3:
         raise ValueError(f"chunks must be (n_chunks, B, d); got "
@@ -414,7 +416,8 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
                                  drop_remainder: bool = False,
                                  sort_chunks: bool = False, meter=None,
                                  metrics=None, return_trace: bool = False,
-                                 device=None):
+                                 device=None, mesh=None,
+                                 data_axes=("data",)):
     """Streaming Algorithm 1 over a host-resident source, with the
     host-to-device copies prefetched (``data.streaming.stream_chunks``
     over ``runtime.prefetch``): chunk t+1's copy runs while chunk t's
@@ -438,14 +441,30 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
     waits for the step, so a sink serialises the overlap this driver is
     for; without one the loop never syncs.
 
+    With ``mesh`` (a ``DeviceMesh``; every rank calls with the same
+    source, seed, ``x_val`` and ``c0``), each host chunk's rows are
+    sharded over ``data_axes``: a rank copies only its block of every
+    chunk (``stream_chunks(mesh=)``) and holds its block of ``x_val``,
+    the engine is ``distribute``d, and each chunk step reduces its stats
+    in one collective (and the guard's in another).  Chunk lengths and V
+    must divide by the shard count.
+
     Returns a ``MiniBatchResult`` (with ``return_trace=True`` also a
     ``MiniBatchTrace`` stacked over all chunk steps)."""
-    dev = resolve_device(device)
+    scope = contextlib.nullcontext()
+    if mesh is None:
+        dev = resolve_device(device)
+        bk = resolve_backend(backend)
+    else:
+        from repro_torch.core import distributed as D
+        dev = mesh_device(mesh, device)
+        bk = D._resolve_distributed(backend, None, 0, tuple(data_axes))
+        x_val = D.local_block(x_val, mesh, tuple(data_axes))
+        scope = D.mesh_scope(mesh)
     # float64 narrows to float32, as the prefetcher narrows the chunks
     x_val, c0 = (t.to(dev, torch.float32 if t.dtype == torch.float64
                       else t.dtype)
                  for t in map(torch.as_tensor, (x_val, c0)))
-    bk = resolve_backend(backend)
     state = minibatch_init(c0, cfg, bk)
     mx = None if metrics is None else as_metrics(metrics)
 
@@ -454,20 +473,24 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
 
     is_iter = hasattr(source, "__next__")
     traces = []
-    for xc in stream_chunks(
-            source, None if is_iter else (chunk_size or cfg.chunk_size),
-            epochs=cfg.epochs, seed=seed, drop_remainder=drop_remainder,
-            prefetch=prefetch, device=dev, meter=meter,
-            sort_by=sort_by if sort_chunks else None):
-        w = torch.ones((xc.shape[0],), dtype=torch.float32, device=dev)
-        state, trace = minibatch_iteration(xc, w, x_val, state, cfg, bk)
-        if return_trace:
-            traces.append(trace)
-        if mx is not None:
-            e_val, accepted = torch.stack(
-                [trace.e_val, trace.accepted.to(trace.e_val.dtype)]).tolist()
-            mx.log_scalars(state.t, {"e_val": e_val, "accepted": accepted})
-    c_fin, e_fin, _, _ = guard_pick(x_val, state, cfg, bk)
+    with scope:
+        for xc in stream_chunks(
+                source, None if is_iter else (chunk_size or cfg.chunk_size),
+                epochs=cfg.epochs, seed=seed, drop_remainder=drop_remainder,
+                prefetch=prefetch, device=dev, meter=meter,
+                sort_by=sort_by if sort_chunks else None, mesh=mesh,
+                data_axes=data_axes):
+            w = torch.ones((xc.shape[0],), dtype=torch.float32, device=dev)
+            state, trace = minibatch_iteration(xc, w, x_val, state, cfg, bk)
+            if return_trace:
+                traces.append(trace)
+            if mx is not None:
+                e_val, accepted = torch.stack(
+                    [trace.e_val,
+                     trace.accepted.to(trace.e_val.dtype)]).tolist()
+                mx.log_scalars(state.t, {"e_val": e_val,
+                                         "accepted": accepted})
+        c_fin, e_fin, _, _ = guard_pick(x_val, state, cfg, bk)
     result = MiniBatchResult(c_fin, e_fin, state.t, state.n_acc)
     if not return_trace:
         return result

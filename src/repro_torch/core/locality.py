@@ -242,7 +242,16 @@ def reorder_backend(inner: Backend,
     """Wrap a bound-carrying backend with churn-triggered row reordering:
     the same step contract and original-order outputs, the inner engine
     seeing rows sorted by label.  Cached per (inner, config), so the
-    registry and the drivers get one instance per option set."""
+    registry and the drivers get one instance per option set.
+
+    Compose it INSIDE ``distribute``, ``distribute(reorder_backend(b),
+    axes)``, so the sort stays shard-local and the wrapper's shard-local
+    stats are the ones reduced; a distributed inner engine is refused."""
+    if inner.axes:
+        raise ValueError(
+            f"{inner.name} is already distributed; wrap the local backend "
+            "first — distribute(reorder_backend(b), axes) — so the "
+            "permutation stays shard-local")
 
     def init_carry_fn(x, c, k):
         lead = tuple(c.shape[:-2])

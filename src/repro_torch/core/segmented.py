@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -72,27 +72,51 @@ def _read(scalars: dict) -> dict:
     return dict(zip(scalars, vals.tolist()))
 
 
+class Share(NamedTuple):
+    """How a mesh rank takes part in a boundary's snapshot
+    (``core/distributed.py``): ``gather`` turns its shard-local tree into
+    the global one (a collective, so every rank calls it), ``writes``
+    says whether this rank writes it, and ``extra`` goes into the meta."""
+    gather: Callable
+    writes: bool
+    extra: dict
+
+
 class _Boundary:
     """What every boundary of a segmented driver does with its snapshot:
-    the host copy, the write (a thread's, or in line) and the callback."""
+    the host copy, the write (a thread's, or in line) and the callback.
+    Under a mesh (``share``), the snapshot is first gathered, and only
+    the writing rank copies and writes it."""
 
     def __init__(self, checkpoint_dir, kind: str, cfg, bk: Backend,
                  checkpoint_cb: Optional[Callable], keep_last_n: int,
-                 keep_every_m: int, mx, sync_writes: bool):
+                 keep_every_m: int, mx, sync_writes: bool,
+                 share: Optional[Share] = None):
         self.dir, self.kind, self.cfg, self.bk = checkpoint_dir, kind, cfg, bk
         self.cb = checkpoint_cb
+        self.share = share
         self.keep = dict(keep_last_n=keep_last_n, keep_every_m=keep_every_m)
         self.writer = None
-        if checkpoint_dir is not None and not sync_writes:
+        if checkpoint_dir is not None and not sync_writes \
+                and (share is None or share.writes):
             self.writer = CheckpointWriter(checkpoint_dir, kind=kind,
                                            metrics=mx, **self.keep)
 
     def snapshot(self, tree, step: int, extra=None) -> dict:
         """Write ``tree`` as the snapshot of ``step``; -> {"snapshot_s":
-        the host copy's seconds} (ending in the copy's sync), or {} when
-        nothing is written."""
+        the host copy's seconds} (ending in the copy's sync; under a
+        mesh also "gather_s", the gather's), or {} when nothing is
+        written."""
         if self.dir is None:
             return {}
+        out = {}
+        if self.share is not None:
+            t0 = time.perf_counter()
+            tree = self.share.gather(tree)
+            out["gather_s"] = time.perf_counter() - t0
+            extra = {**(extra or {}), **self.share.extra}
+            if not self.share.writes:
+                return out
         t0 = time.perf_counter()
         host = _host_copy(tree)
         copy_s = time.perf_counter() - t0
@@ -102,7 +126,7 @@ class _Boundary:
         else:
             write_snapshot(self.dir, host, kind=self.kind, step=step,
                            extra=meta, **self.keep)
-        return {"snapshot_s": copy_s}
+        return {**out, "snapshot_s": copy_s}
 
     def callback(self, tree, step: int) -> None:
         if self.cb is not None:
@@ -138,14 +162,15 @@ def aa_kmeans_segmented(x, c0, cfg: KMeansConfig, bk: Backend,
                         checkpoint_every=0, checkpoint_dir=None,
                         resume_from=None, checkpoint_cb=None,
                         keep_last_n=0, keep_every_m=0, metrics=None,
-                        sync_writes=False) -> KMeansResult:
+                        sync_writes=False, share=None) -> KMeansResult:
     """The loop of ``aa_kmeans``, cut every ``checkpoint_every``
     iterations (all of ``cfg.max_iter`` when 0).  It is the batched
     loop at R = 1, reading ``t`` together with the convergence flag in
     its one copy from the device per trip, and it stops a segment where
     ``t`` reaches its end, after a completed iteration (``pending``
     False), so the ``KIND_LOOP`` tree is the R = 1 state with its R axis
-    dropped."""
+    dropped.  ``share`` is a mesh rank's part in the snapshots (the
+    distributed fit's; see ``Share``)."""
     mx = as_metrics(metrics)
     every = int(checkpoint_every) if checkpoint_every else cfg.max_iter
     if _is_path(resume_from):
@@ -161,7 +186,7 @@ def aa_kmeans_segmented(x, c0, cfg: KMeansConfig, bk: Backend,
                                         device=x.device))
     bd = _Boundary(checkpoint_dir, serialize.KIND_LOOP, cfg, bk,
                    checkpoint_cb, keep_last_n, keep_every_m, mx,
-                   sync_writes)
+                   sync_writes, share)
     try:
         t, conv = _t_converged(bst)
         while not conv and t < cfg.max_iter:

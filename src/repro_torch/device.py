@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and a mesh rank's
+device."""
 
 from __future__ import annotations
 
@@ -27,4 +28,29 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu'; got {dev}")
+    return dev
+
+
+def mesh_device(mesh, device: Optional[Union[str, torch.device]] = None
+                ) -> torch.device:
+    """The device a rank of ``mesh`` (a ``torch.distributed``
+    ``DeviceMesh``) computes on: the current CUDA device on a CUDA mesh,
+    the CPU on a "cpu" mesh, which runs the kernels' plain versions.  A
+    ``device`` that names another one raises ValueError."""
+    if mesh.device_type == "cuda":
+        dev = resolve_device(
+            torch.device("cuda", torch.cuda.current_device())
+            if torch.cuda.is_available() else None)
+    elif mesh.device_type == "cpu":
+        dev = torch.device("cpu")
+    else:
+        raise ValueError(f"a mesh must be on 'cuda' or 'cpu'; got "
+                         f"{mesh.device_type!r}")
+    if device is not None:
+        want = torch.device(device)
+        if want.type != dev.type or (want.index is not None
+                                     and want.index != dev.index):
+            raise ValueError(
+                f"device={want} contradicts the mesh, whose ranks compute "
+                f"on {dev}; pass device=None or the mesh's device")
     return dev

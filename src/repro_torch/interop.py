@@ -25,11 +25,11 @@ from repro_torch.core.kmeans import _BatchedState, _LoopState
 from repro_torch.core.minibatch import MiniBatchState, from_reference_layout
 from repro_torch.device import resolve_device
 
-# Reference constructor fields the port has no counterpart for (the
-# mesh: distribution is not ported yet); they do not change what a
-# fitted model predicts, so they are dropped.  Any other unknown field
-# raises.
-_DROPPED = ("mesh", "data_axes")
+# Reference constructor fields a persisted artifact may name that a
+# loaded model does not take: the mesh is a property of the process (the
+# reference never persists it either), so a loaded model is local.  Any
+# other unknown field raises.
+_DROPPED = ("mesh",)
 
 
 def estimator_kwargs(cls, params: Mapping, device=None,
@@ -37,7 +37,8 @@ def estimator_kwargs(cls, params: Mapping, device=None,
     """Constructor keywords of the port's estimator ``cls`` from the
     reference's (or the port's) persisted ``params``: fields in
     ``_DROPPED`` are dropped, any other unknown field raises ValueError,
-    and the backend is rebuilt by ``api._decode_backend``.  ``device`` is
+    the backend is rebuilt by ``api._decode_backend`` and ``data_axes``
+    (a list in the meta) becomes a tuple.  ``device`` is
     the process's, never persisted."""
     fields = {f.name for f in dataclasses.fields(cls)
               if not f.name.endswith("_") and not f.name.startswith("_")}
@@ -45,9 +46,12 @@ def estimator_kwargs(cls, params: Mapping, device=None,
     if unknown:
         raise ValueError(f"{where}: parameters with no counterpart in the "
                          f"port: {sorted(unknown)}")
-    kwargs = {key: val for key, val in params.items() if key in fields}
+    kwargs = {key: val for key, val in params.items()
+              if key in fields and key not in _DROPPED}
     if "backend" in kwargs:
         kwargs["backend"] = _decode_backend(kwargs["backend"], where)
+    if "data_axes" in kwargs:
+        kwargs["data_axes"] = tuple(kwargs["data_axes"])
     kwargs["device"] = device
     return kwargs
 

@@ -1227,3 +1227,64 @@ def test_applications_on_the_card(cuda):
         torch.randn((3000, 64), generator=g, device="cuda"), 32)
     assert 0.0 < err < 1.0 and codes.shape == (3000, 4)
     assert F.launches == A.launches == U.launches == 0
+
+
+# -- distribution on the card (core/distributed.py) --------------------------
+
+def _dist_ranks(case, world, pg, inputs, tmp_path, **params):
+    from torch_dist_ranks import run_ranks
+    return run_ranks(case, world, inputs, tmp_path, timeout=300.0, pg=pg,
+                     mesh_device="cuda", **params)
+
+
+@pytest.mark.gpu
+def test_mesh_fit_one_rank_nccl_is_bitwise_on_the_card(cuda, tmp_path):
+    """AAKMeans(mesh=) at one rank over NCCL against the undistributed
+    fit in the same process: every fitted field and predict bit for bit,
+    on the fused and assignment kernels, no plain version."""
+    x = make_blobs(60000, 16, 40, seed=2, spread=2.0).astype(np.float32)
+    got = _dist_ranks("gpu_solve", 1, "nccl", dict(x=x), tmp_path, k=40)[0]
+    for a, b in zip(got["mesh"], got["local"]):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    assert np.array_equal(*got["predict"])
+    n = got["launches"]
+    assert n["fused_lloyd"] > 0 and n["assignment"] > 0 and n["plain"] == 0
+
+
+@pytest.mark.gpu
+def test_mesh_steps_two_ranks_gloo_on_the_card(cuda, tmp_path):
+    """Two ranks sharing the card over Gloo (card tensors staged through
+    the host) against one rank over NCCL: two steps (at c, then at c2 on
+    the carry) of fused, pallas and fused_bounds (16-centroid groups,
+    G = 3 at K = 40) through distribute: labels equal on every row, sums within 1e-6 of their
+    scale, counts equal, energies 1e-6, both ranks' stats equal bit for
+    bit, the skipped share equal to one rank's within 1e-6; kernel
+    launches only."""
+    rng = np.random.default_rng(4)
+    x = make_blobs(40960, 16, 40, seed=4, spread=2.0).astype(np.float32)
+    c = x[rng.choice(x.shape[0], 40, replace=False)].copy()
+    c2 = (c + 0.05 * rng.standard_normal(c.shape)).astype(np.float32)
+    inputs = dict(x=x, c=c, c2=c2)
+    one = _dist_ranks("gpu_steps", 1, "nccl", inputs, tmp_path)[0]
+    two = _dist_ranks("gpu_steps", 2, "gloo", inputs, tmp_path)
+    for name in ("fused", "pallas", "fused_bounds"):
+        for i in range(2):
+            want = one[name]["steps"][i]
+            got = [r[name]["steps"][i] for r in two]
+            assert torch.equal(torch.cat([g[0] for g in got]), want[0])
+            scale = float(want[2].abs().max())
+            assert float((got[0][2] - want[2]).abs().max()) <= 1e-6 * scale
+            assert torch.equal(got[0][3], want[3])
+            assert float(got[0][4]) == pytest.approx(float(want[4]),
+                                                     rel=1e-6)
+            for j in (2, 3, 4):
+                assert torch.equal(got[0][j], got[1][j])
+        if one[name]["stats"] is not None:
+            for a, b, w in zip(two[0][name]["stats"], two[1][name]["stats"],
+                               one[name]["stats"]):
+                assert torch.equal(a, b)
+                assert abs(float(a) - float(w)) <= 1e-6
+        for r in two + [one]:
+            n = r[name]["launches"]
+            assert n["plain"] == 0 and sum(
+                v for key, v in n.items() if key != "plain") > 0

@@ -449,13 +449,13 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(problem,
 
 
 def test_config_fields_mirror_the_reference():
-    """The estimator's parameters are the reference's, less the mesh
-    ones, plus ``device``."""
+    """The estimator's parameters are the reference's, the mesh ones
+    included, plus ``device``."""
     from repro.core.api import MiniBatchAAKMeans as JMiniBatchAAKMeans
     params = {f.name for f in dataclasses.fields(MiniBatchAAKMeans)
               if not f.name.endswith("_") and not f.name.startswith("_")}
     jparams = {f.name for f in dataclasses.fields(JMiniBatchAAKMeans)
                if not f.name.endswith("_") and not f.name.startswith("_")}
-    assert params == (jparams - {"mesh", "data_axes"}) | {"device"}
+    assert params == jparams | {"device"}
     assert {f.name for f in dataclasses.fields(MiniBatchConfig)} == \
         {f.name for f in dataclasses.fields(JMiniBatchConfig)}
