@@ -220,8 +220,32 @@ Phases, each fatal on failure:
      within 1e-6, counts equal, the skipped share equal on both ranks and
      within 1e-6 of one rank's.  The card's compute mode is printed first;
      an exclusive mode fails the phase.
-Phases 9 to 16 run between phases 7 and 8, so that phase 8's kernel
-line counts their launches (phase 16's are the ranks').
+  17. the bf16 compute path at full size on the same data: (a) each
+     kernel on bf16 X and C (phase 5's centroids; the bounded one at the
+     init carry with G = 2 and on one bf16-policy step's bounds with
+     64-centroid groups) against its plain version with the f32 gates
+     and bit for bit against its own f32 launch on the upcast operands;
+     the assignment of bf16 X against f32 centroids; one bf16 fused
+     step's peak device memory above its inputs under a quarter of X's
+     f32 bytes (no f32 copy of X); (b) AAKMeans(backend=get_backend(
+     "fused", precision=Precision(compute=torch.bfloat16))) from phase
+     5's seeds, max_iter 500: every fused launch bf16, the f32 energy of
+     its centroids within 2 % of phase 5's, the per-step cast's time;
+     pallas and fused_bounds at the policy one step each from its
+     centroids, labels equal to the bf16 fused step's; predict equal to
+     an f32 assignment of its centroids; save and load keep the policy
+     and the labels; (c) the bf16-X fit (bf16 centroids), finite, its
+     repeat bit-equal, and its predict of the bf16 rows (the assignment's
+     bf16 variant, one launch a chunk) equal to the bf16 fused step's
+     labels; (d) phase 11's MiniBatchAAKMeans configuration on the
+     bf16-policy engine, its repeat bit-equal; every bf16 variant was
+     launched on these paths.
+Phases 9 to 17 run between phases 7 and 8, so that phase 8's kernel
+line counts their launches (phase 16's are the ranks'); phase 8 also
+times each kernel's bf16 variant in turns beside it, and the kernel line
+lists the four bf16 variants as entries of their own ("<kernel>_bf16":
+the launches on a bf16 X, bounds at 2-byte X and bf16 tensor-core
+rates, library calls on the upcast operands).
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -233,6 +257,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -244,6 +269,7 @@ ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_FP32_PER_S = 67e12        # H100 SXM FP32, CUDA cores
 PEAK_TF32_PER_S = 495e12       # H100 SXM TF32 tensor cores, dense
+PEAK_BF16_PER_S = 989e12       # H100 SXM bf16 tensor cores, dense
 MAIN_N_NAME = "USCensus1990"   # 2,458,285 x 69 (the paper's Table 1)
 MAIN_K = 1000
 
@@ -571,6 +597,22 @@ def distance_bound_ms(n_bytes, n_cross, n_other):
     tc_by = ("bytes" if t_bytes >= max(t_tc, t_other) else
              "split-tf32 operations" if t_tc >= t_other else "operations")
     return (tc, tc_by, fp32, tc) if tc < fp32 else (fp32, fp32_by, fp32, tc)
+
+
+def bf16_bound_ms(n_bytes, n_cross, n_other):
+    """Bounds of a distance kernel on bf16 operands: -> (bound ms, what
+    bounds it, FP32-core bound ms).  The least time for the work is its
+    bf16 products on the tensor cores (989 TFLOP/s, f32 accumulation)
+    beside the other operations on the FP32 cores, or the bytes; the
+    kernels run the products on the FP32 cores, whose bound is also
+    returned."""
+    t_bytes = n_bytes / PEAK_BYTES_PER_S
+    t_tc = n_cross / PEAK_BF16_PER_S
+    t_other = n_other / PEAK_FP32_PER_S
+    by = ("bytes" if t_bytes >= max(t_tc, t_other) else
+          "bf16 tensor-core operations" if t_tc >= t_other else "operations")
+    return max(t_bytes, t_tc, t_other) * 1e3, by, \
+        bound_ms(n_bytes, n_cross + n_other)[0]
 
 
 def phase5c(torch, x, c0, model, zero_counts, read_counts, path_launches,
@@ -2792,6 +2834,288 @@ def phase16(torch, x, x_np, c0_main, model5, labels5, fit5_s, mb11,
     return launches
 
 
+def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
+            read_counts, path_launches, tile_rows):
+    """The bf16 compute path at full size: (a) each kernel's bf16 variant
+    against its plain version and bit for bit against its own f32 launch
+    on the upcast operands, a bf16 X against f32 centroids, and one bf16
+    fused step's peak device memory; (b) the bf16-policy fused fit from
+    phase 5's seeds, its cast, the pallas and fused_bounds steps at the
+    policy, predict, save and load; (c) the bf16-X fit, its repeat and
+    its predict of the bf16 rows;
+    (d) MiniBatchAAKMeans with the bf16-policy engine on phase 11's
+    configuration and its repeat.  -> (the bf16 operands phase 8 times:
+    X and phase 5's centroids; each bf16 variant's largest absolute error
+    against its plain version)."""
+    import tempfile
+
+    from repro_torch.core import AAKMeans, MiniBatchAAKMeans, get_backend
+    from repro_torch.core.api import PREDICT_CHUNK
+    from repro_torch.core.backends import Precision, bounds
+    from repro_torch.core.backends.fused_bounds import (engine_group_size,
+                                                        squared_bounds)
+    from repro_torch.kernels import assignment as A
+    from repro_torch.kernels import fused_lloyd as F
+    from repro_torch.kernels import update as U
+    bf16 = torch.bfloat16
+    policy = Precision(compute=bf16)
+    n, d = x.shape
+    k = MAIN_K
+    t_phase = time.perf_counter()
+    print(f"phase 17: the bf16 compute path at full size (N={n}, d={d}, "
+          f"K={k})")
+
+    def same(a, b):
+        return all(torch.equal(p, q) for p, q in zip(a, b))
+
+    # (a) the four kernels on bf16 operands
+    xb = x.to(bf16)
+    c5 = model5.centroids_
+    cb = c5.to(bf16)
+    print(f"  (a) X in bf16: {xb.numel() * 2 / 1e6:.0f} MB (f32: "
+          f"{x.numel() * 4 / 1e6:.0f} MB)")
+    got = F.fused_lloyd(xb, cb)
+    res_f = compare(torch, tuple(g[None] for g in got),
+                    tuple(v[None] for v in F.fused_lloyd_plain(xb, cb)),
+                    xb, cb[None], None)
+    up = F.fused_lloyd(xb.float(), cb.float())
+    eq_f = same(got, up)
+    print(f"  fused_lloyd bf16 vs plain: {fmt(res_f)}; vs its f32 launch on "
+          f"the upcast operands: bit-equal {eq_f}")
+    accept(res_f, "bf16 fused at full size")
+    check(eq_f, "the bf16 fused step is not its f32 launch on the upcast "
+          "operands")
+    del up
+    lab_a, mind_a = A.assignment(xb, cb)
+    res_a = compare(torch, (lab_a[None], mind_a[None]),
+                    tuple(v[None] for v in A.assignment_plain(xb, cb)),
+                    xb, cb[None], None)
+    eq_a = same((lab_a, mind_a), A.assignment(xb.float(), cb.float()))
+    eq_af = torch.equal(lab_a, got[0]) and torch.equal(mind_a, got[1])
+    mixed = same(A.assignment(xb, c5), A.assignment(xb.float(), c5))
+    print(f"  assignment bf16 vs plain at all rows: {fmt(res_a)}; vs its f32 "
+          f"launch: bit-equal {eq_a}; vs the bf16 fused step: bit-equal "
+          f"{eq_af}; bf16 X against f32 centroids vs the f32 launch on the "
+          f"upcast X: bit-equal {mixed}")
+    accept(res_a, "bf16 assignment at full size")
+    check(eq_a and eq_af and mixed, "the bf16 assignment is not its f32 "
+          "launch on the upcast operands")
+    lab = got[0]
+    got_u = U.update(xb, lab, k)
+    res_u = compare_stats(got_u, U.update_plain(xb, lab, k))
+    eq_u = same(got_u, U.update(xb.float(), lab, k))
+    print(f"  update bf16 vs plain on the fused step's labels: sums "
+          f"{res_u['sums_rel']:.2e} (abs {res_u['sums_abs']:.2e}), counts "
+          f"{res_u['counts_rel']:.2e}; vs its f32 launch: bit-equal {eq_u}")
+    accept_stats(res_u, "bf16 update at full size")
+    check(eq_u, "the bf16 update is not its f32 launch on the upcast X")
+    errs = {"fused_lloyd": res_f["mind_abs"], "assignment": res_a["mind_abs"],
+            "update": res_u["sums_abs"]}
+    del got_u, lab_a, mind_a
+    # the bounded step: at the init carry with the default groups (G = 2,
+    # nothing skipped), and on the bounds of one bf16-policy step with
+    # 64-centroid groups
+    gs_main = engine_group_size(k)
+    c_p = cb[None]
+    bnd0 = squared_bounds(bounds.init_carry(x, c_p, k, gs_main),
+                          c_p.float(), k, gs_main)
+    bk_g = get_backend("fused_bounds", group_size=ORDERED_GS,
+                       precision=policy)
+    carry = bk_g.init_carry(x, c5[None], k)
+    res_g, carry = bk_g.batched_step(x, c5[None], k, carry)
+    c_g = bk_g.centroids_from_step(x, res_g, k, c5[None]).to(bf16)
+    gs_g = engine_group_size(k, ORDERED_GS)
+    bnd_g = squared_bounds(carry, c_g.float(), k, gs_g)
+    errs["fused_bounds"] = 0.0
+    for what, cc, gs, bnds in (("default groups, skip 0", c_p, gs_main, bnd0),
+                               (f"gs {gs_g}, one step's bounds", c_g, gs_g,
+                                bnd_g)):
+        got_b = F.fused_lloyd(xb, cc, bounds=bnds, gs=gs)
+        res_b = compare_bounds(torch, got_b, F.fused_bounds_plain(
+            xb, cc, None, *bnds, gs, tile_rows), xb, cc, None, bnds[1],
+            bnds[2], tile_rows)
+        eq_b = same(got_b, F.fused_lloyd(xb.float(), cc.float(), bounds=bnds,
+                                         gs=gs))
+        print(f"  fused_bounds bf16 ({what}) vs plain: {fmt_bounds(res_b)}; "
+              f"vs its f32 launch: bit-equal {eq_b}")
+        accept_bounds(res_b, f"bf16 fused_bounds ({what})",
+                      exact_labels=False)
+        check(eq_b, f"the bf16 bounded step ({what}) is not its f32 launch")
+        errs["fused_bounds"] = max(errs["fused_bounds"], res_b["mind_abs"])
+    del got_b, carry, res_g
+    # one bf16 fused step's device memory above its resident inputs: no
+    # f32 copy of X (678 MB) may appear
+    del got
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = F.fused_lloyd(xb, cb)
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() - base
+    del out
+    print(f"  one bf16 fused step's peak device memory above its inputs: "
+          f"{step_peak / 1e6:.1f} MB (a quarter of X in f32: "
+          f"{x.numel() / 1e6:.1f} MB)", flush=True)
+    check(step_peak < x.numel(), "a bf16 fused step allocated a quarter of "
+          "X's f32 bytes or more")
+
+    # (b) the bf16-policy fused fit from phase 5's seeds
+    fused_bf = get_backend("fused", precision=policy)
+    model = AAKMeans(n_clusters=k, backend=fused_bf, n_init=1)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(x, c0s=c0_main[None])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts, plain = read_counts()
+    path_launches["bf16-policy fused fit"] = counts
+    trips = trips_of(model)
+    e32 = float(F.fused_lloyd(x, model.centroids_)[4])
+    gap = abs(e32 - model5.inertia_) / model5.inertia_
+    print(f"  (b) bf16-policy fused fit (phase 5's seeds): {fit_s!r} s, "
+          f"n_iter_ {model.n_iter_}, n_accepted_ {model.n_accepted_}, "
+          f"inertia_ {model.inertia_!r}, fused launches "
+          f"{counts['fused_lloyd']} (bf16 {counts['fused_lloyd_bf16']}); "
+          f"phase 5's f32 fit: {fit5_s!r} s (seeding included), n_iter_ "
+          f"{model5.n_iter_}, n_accepted_ {model5.n_accepted_}, inertia_ "
+          f"{model5.inertia_!r}")
+    print(f"  the f32 energy of its centroids {e32!r}: {gap!r} relative "
+          f"from phase 5's; centroids {model.centroids_.dtype}")
+    check(counts["fused_lloyd"] == counts["fused_lloyd_bf16"] == 1 + trips,
+          "bf16-policy fused launches != 1 + trips, or not all bf16")
+    check(plain == 0, "the bf16-policy fit called a plain version")
+    check(model.centroids_.dtype == torch.float32, "policy centroids")
+    check(gap <= 0.02, "the bf16-policy fit's f32 energy is more than 2 % "
+          "from phase 5's")
+    # the engine casts X in every step, as the reference writes it
+    cast_ms = event_ms(torch, lambda i: x.to(bf16), 10)
+    print(f"  the per-step cast of X to bf16: {cast_ms!r} ms "
+          f"({trips + 1} steps: {(trips + 1) * cast_ms / 1e3!r} s of the "
+          f"fit), {xb.numel() * 2 / 1e6:.0f} MB transient")
+    c_b = model.centroids_
+    step_f = fused_bf.step(x, c_b, k)[0].labels
+    for name in ("pallas", "fused_bounds"):
+        bk = get_backend(name, precision=policy)
+        zero_counts()
+        lab_o = bk.step(x, c_b, k, bk.init_carry(x, c_b, k))[0].labels
+        counts, plain = read_counts()
+        path_launches[f"bf16-policy {name} step"] = counts
+        kname = "assignment" if name == "pallas" else "fused_bounds"
+        agree = torch.equal(lab_o, step_f)
+        print(f"  {name} at the bf16 policy, one step from the fit's "
+              f"centroids: labels equal to the bf16 fused step's {agree}; "
+              f"{kname} bf16 launches {counts[kname + '_bf16']}")
+        check(agree, f"{name} at the bf16 policy disagrees with fused")
+        check(counts[kname + "_bf16"] == 1 and plain == 0,
+              f"{name} at the bf16 policy did not launch its bf16 kernel")
+    zero_counts()
+    labels = model.predict(x)
+    counts, _ = read_counts()
+    path_launches["bf16-policy predict"] = counts
+    want = A.assignment(x, c_b)[0].cpu().numpy()
+    print(f"  predict on all rows: equal to an f32 assignment of the fit's "
+          f"centroids {bool((labels == want).all())} (assignment launches "
+          f"{counts['assignment']}, bf16 {counts['assignment_bf16']})")
+    check(bool((labels == want).all()), "bf16-policy predict is not an f32 "
+          "assignment")
+    with tempfile.TemporaryDirectory() as tmpd:
+        loaded = AAKMeans.load(model.save(Path(tmpd) / "bf16_policy"))
+        same_pred = bool((loaded.predict(x) == labels).all())
+    print(f"  saved and loaded: precision {loaded.backend.precision}, "
+          f"predict equal {same_pred}", flush=True)
+    check(loaded.backend.precision.compute == bf16 and same_pred,
+          "the loaded bf16-policy model")
+    del loaded, labels, want, step_f
+
+    # (c) the bf16-X fit, and its repeat
+    walls, fits = [], []
+    for _ in range(2):
+        m = AAKMeans(n_clusters=k, backend="fused", n_init=1)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.fit(xb, c0s=c0_main[None])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        fits.append(m)
+    counts, plain = read_counts()
+    path_launches["bf16-X fused fit"] = counts
+    m = fits[0]
+    e32 = float(F.fused_lloyd(x, m.centroids_.float())[4])
+    rep = torch.equal(m.centroids_, fits[1].centroids_) \
+        and m.inertia_ == fits[1].inertia_ and m.n_iter_ == fits[1].n_iter_
+    print(f"  (c) bf16-X fit: {walls!r} s, n_iter_ {m.n_iter_}, n_accepted_ "
+          f"{m.n_accepted_}, inertia_ {m.inertia_!r}, the f32 energy of its "
+          f"centroids {e32!r} ({(e32 - model5.inertia_) / model5.inertia_!r}"
+          f" relative to phase 5's); centroids {m.centroids_.dtype}; the "
+          f"repeat bit-equal {rep}; fused launches {counts['fused_lloyd']} "
+          f"(bf16 {counts['fused_lloyd_bf16']})", flush=True)
+    check(m.centroids_.dtype == bf16, "bf16-X centroids are not bf16")
+    check(math.isfinite(m.inertia_) and math.isfinite(e32),
+          "bf16-X fit energy")
+    check(rep, "the bf16-X fit's repeat differs")
+    check(plain == 0 and counts["fused_lloyd"]
+          == counts["fused_lloyd_bf16"] > 0, "the bf16-X fit's launches")
+    # its predict of the bf16 rows: the assignment kernel's bf16 variant,
+    # whose labels are the fused step's on the same operands
+    zero_counts()
+    t0 = time.perf_counter()
+    lab_c = m.predict(xb)
+    predict_s = time.perf_counter() - t0
+    counts, plain = read_counts()
+    path_launches["bf16-X predict"] = counts
+    chunks = -(-n // PREDICT_CHUNK)
+    same_c = bool((lab_c == F.fused_lloyd(xb, m.centroids_)[0].cpu()
+                   .numpy()).all())
+    print(f"  bf16-X predict of the bf16 rows: {predict_s!r} s, assignment "
+          f"bf16 launches {counts['assignment_bf16']} vs {chunks} chunks; "
+          f"labels equal to the bf16 fused step's {same_c}", flush=True)
+    check(counts["assignment"] == counts["assignment_bf16"] == chunks
+          and plain == 0, "bf16-X predict's launches")
+    check(same_c, "bf16-X predict disagrees with the fused step")
+    del fits, m, lab_c
+
+    # (d) MiniBatchAAKMeans with the bf16-policy engine, phase 11's config
+    mbs, walls = [], []
+    for _ in range(2):
+        mb = MiniBatchAAKMeans(n_clusters=k, chunk_size=STREAM_CHUNK,
+                               epochs=STREAM_EPOCHS, val_size=STREAM_VAL,
+                               backend=fused_bf, seed=0)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mb.fit(x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        mbs.append(mb)
+    counts, plain = read_counts()
+    path_launches["bf16-policy MiniBatchAAKMeans fit + labels_"] = counts
+    mb = mbs[0]
+    rep = torch.equal(mb.centroids_, mbs[1].centroids_) \
+        and mb.energy_ == mbs[1].energy_
+    print(f"  (d) MiniBatchAAKMeans, bf16-policy fused: {walls!r} s, "
+          f"n_steps_ {mb.n_steps_}, n_accepted_ {mb.n_accepted_}, validation "
+          f"energy {mb.energy_!r} (phase 11: {mb11[0]!r}, "
+          f"{(mb.energy_ - mb11[0]) / mb11[0]!r} relative; n_steps_ "
+          f"{mb11[1]}, n_accepted_ {mb11[2]}); the repeat bit-equal {rep}; "
+          f"fused launches {counts['fused_lloyd']} (bf16 "
+          f"{counts['fused_lloyd_bf16']})", flush=True)
+    check(rep and plain == 0 and counts["fused_lloyd_bf16"] > 0,
+          "the bf16-policy streaming fit")
+    check(mb.n_steps_ == mb11[1], "bf16-policy n_steps_")
+    del mbs, mb, lab
+    launched = {kn: sum(c[f"{kn}_bf16"] for path, c in path_launches.items()
+                        if path.startswith("bf16"))
+                for kn in ("fused_lloyd", "assignment", "update",
+                           "fused_bounds")}
+    print(f"  bf16 variants launched on phase 17's paths: {launched}; "
+          f"phase 17 took {time.perf_counter() - t_phase!r} s")
+    check(all(v > 0 for v in launched.values()),
+          "a bf16 variant was not launched on phase 17's paths")
+    return xb, cb, errs
+
+
 def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
             tile_rows):
     """The paper's protocols on the card at full size on the USCensus1990
@@ -2951,7 +3275,8 @@ def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
     path_launches["Tables 2 and 3"] = counts
     print(f"  launches: {counts}; plain-version calls {plain}", flush=True)
     check(plain == 0, "phase 10 called a plain version")
-    check(all(v > 0 for v in counts.values()),
+    check(all(counts[kn] > 0 for kn in ("fused_lloyd", "assignment",
+                                         "update", "fused_bounds")),
           "phase 10 did not launch every kernel")
     # every kernel of phase 10 against its plain version at the shapes
     # phase 10 gives it (the counts are read, so these launches are not
@@ -3057,24 +3382,32 @@ def run():
     from repro_torch.kernels import update as U
     from repro_torch.kernels.tiles import pad_rows
 
-    # each kernel's (module, launch count, plain-version count)
+    # each kernel's (module, launch count, plain-version count); the
+    # "_bf16" entries count the launches of each kernel on a bf16 X (its
+    # bf16 variant), which the kernel's own count includes
     counters = {"fused_lloyd": (F, "launches", "plain_calls"),
                 "assignment": (A, "launches", "plain_calls"),
                 "update": (U, "launches", "plain_calls"),
-                "fused_bounds": (F, "bounds_launches", "bounds_plain_calls")}
+                "fused_bounds": (F, "bounds_launches", "bounds_plain_calls"),
+                "fused_lloyd_bf16": (F, "bf16_launches", None),
+                "assignment_bf16": (A, "bf16_launches", None),
+                "update_bf16": (U, "bf16_launches", None),
+                "fused_bounds_bf16": (F, "bounds_bf16_launches", None)}
     path_launches = {}
 
     def zero_counts():
         for mod, launches, plain in counters.values():
             setattr(mod, launches, 0)
-            setattr(mod, plain, 0)
+            if plain:
+                setattr(mod, plain, 0)
 
     def read_counts():
         """The launches of every kernel since zero_counts, and the
         plain-version calls."""
         got = {name: getattr(mod, launches)
                for name, (mod, launches, _) in counters.items()}
-        return got, sum(getattr(mod, p) for mod, _, p in counters.values())
+        return got, sum(getattr(mod, p) for mod, _, p in counters.values()
+                        if p)
 
     dev = resolve_device(None)
     smi = nvidia_smi_line()
@@ -3719,6 +4052,9 @@ def run():
                                     zero_counts, read_counts, path_launches)
     dist_launches = phase16(torch, x, x_np, c0_main, model, labels, fit_s,
                             mb11, path_launches)
+    x_bf, c_bf, errs17 = phase17(torch, x, c0_main, model, fit_s, mb11,
+                                    zero_counts, read_counts, path_launches,
+                                    tile_rows)
     main_abs_err = max(main_abs_err, errs15["fused_lloyd"])
     assign_abs_err = max(assign_abs_err, errs15["assignment"])
     update_abs_err = max(update_abs_err, errs15["update"])
@@ -3748,6 +4084,19 @@ def run():
     turned = {"fused_lloyd": lambda i: F.fused_lloyd(x, c_fin),
               "assignment, all rows": lambda i: A.assignment(x, c_p),
               "update": lambda i: U.update(x, lab_p, k)}
+    # each bf16 variant beside its f32 kernel, on phase 17's bf16 X and
+    # phase 5's centroids in bf16 (the bounded one at the init carry:
+    # G = 2, nothing skipped)
+    cb_p = c_bf[None]
+    bnds_b = squared_bounds(bounds.init_carry(x, cb_p, k, gs_main),
+                            cb_p.float(), k, gs_main)
+    skip_b = float(F.fused_lloyd(x_bf, cb_p, bounds=bnds_b, gs=gs_main)[6][0])
+    turned.update({
+        "fused_lloyd bf16": lambda i: F.fused_lloyd(x_bf, c_bf),
+        "assignment bf16, all rows": lambda i: A.assignment(x_bf, cb_p),
+        "update bf16": lambda i: U.update(x_bf, lab_p, k),
+        "fused_bounds bf16, default groups, skip 0": lambda i: F.fused_lloyd(
+            x_bf, cb_p, bounds=bnds_b, gs=gs_main)})
     for what, xb, cb, gs, bnds, _ in bounds_cases:
         turned[f"fused_bounds, {what}"] = (
             lambda i, xb=xb, cb=cb, gs=gs, bnds=bnds: F.fused_lloyd(
@@ -3909,6 +4258,72 @@ def run():
     print(f"  fused_bounds plain (default groups, skip 0): "
           f"{bounds_plain_ms!r} ms; the ordered run converged at skip "
           f"{skip_conv!r}")
+    # the bf16 variants: times in turns above; plain versions (which
+    # upcast), library calls on the upcast operands, bounds at 2-byte X
+    bf = {}
+    n_chunks_b = n // PREDICT_CHUNK
+
+    def chunk_b(i):
+        return x_bf[(i % n_chunks_b) * PREDICT_CHUNK:
+                  (i % n_chunks_b + 1) * PREDICT_CHUNK]
+
+    cbf = c_bf.float()
+    c_sq_b = torch.sum(cbf * cbf, dim=-1)
+    bf["fused_lloyd"] = dict(
+        ms=turn_ms["fused_lloyd bf16"],
+        plain_ms=event_ms(torch, lambda i: F.fused_lloyd_plain(x_bf, c_bf), 3,
+                          warmup=1),
+        library_ms=None, bounds=bf16_bound_ms(
+            2 * (n * d + k * d) + 4 * (2 * n + k * d + k + 1),
+            2 * n * k * d, 3 * n * k + 2 * n * d))
+    bf["assignment"] = dict(
+        ms=event_ms(torch, lambda i: A.assignment(chunk_b(i), c_bf), 50),
+        plain_ms=event_ms(torch, lambda i: A.assignment_plain(chunk_b(i),
+                                                              c_bf), 50),
+        library_ms=event_ms(torch, lambda i: torch.argmin(torch.addmm(
+            c_sq_b, chunk_b(i).float(), cbf.T, alpha=-2.0), dim=1), 50),
+        bounds=bf16_bound_ms(2 * (step * d + k * d) + 4 * 2 * step,
+                             2 * step * k * d, 3 * step * k),
+        all_rows=dict(
+            ms=turn_ms["assignment bf16, all rows"],
+            library_ms=event_ms(torch, lambda i: torch.argmin(torch.addmm(
+                c_sq_b, x_bf.float(), cbf.T, alpha=-2.0), dim=1), 5),
+            bounds=bf16_bound_ms(2 * (n * d + k * d) + 4 * 2 * n,
+                                 2 * n * k * d, 3 * n * k)))
+    bf["update"] = dict(
+        ms=turn_ms["update bf16"],
+        plain_ms=event_ms(torch, lambda i: U.update_plain(x_bf, lab_p, k), 3,
+                          warmup=1),
+        library_ms=event_ms(torch, lambda i: sums_buf.index_add_(
+            0, lab_p, x_bf.float()), 10))
+    u_ms, u_by = bound_ms(2 * n * d + 4 * n + 4 * (k * d + k), n * d + n)
+    bf["update"]["bounds"] = (u_ms, u_by, u_ms)
+    g_b = bnds_b[1].shape[-1]
+    bf["fused_bounds"] = dict(
+        ms=turn_ms["fused_bounds bf16, default groups, skip 0"],
+        plain_ms=event_ms(torch, lambda i: F.fused_bounds_plain(
+            x_bf, cb_p, None, *bnds_b, gs_main, tile_rows), 3, warmup=1),
+        library_ms=None, bounds=bf16_bound_ms(
+            2 * (n * d + k * d) + 4 * (2 * n + n * g_b)
+            + 4 * (2 * n + n * g_b + k * d + k + 1) + 8,
+            (1.0 - skip_b) * 2 * n * k * d,
+            (1.0 - skip_b) * 3 * n * k + 2 * n * d))
+    for kn, row in bf.items():
+        f32_ms = {"fused_lloyd": fused_ms, "assignment": assign_ms,
+                  "update": update_ms, "fused_bounds": bounds_ms_main}[kn]
+        b_ms, b_by, b_fp32 = row["bounds"]
+        print(f"  {kn} bf16: {row['ms']!r} ms (f32 {f32_ms!r} ms, "
+              f"{row['ms'] / f32_ms!r} of it), bound {b_ms!r} ms ({b_by}; "
+              f"FP32-core bound {b_fp32!r} ms), plain {row['plain_ms']!r} ms"
+              + ("" if row["library_ms"] is None else
+                 f", library on the upcast operands {row['library_ms']!r} "
+                 f"ms"))
+    row = bf["assignment"]["all_rows"]
+    print(f"  assignment bf16 at all rows: {row['ms']!r} ms (f32 "
+          f"{assign_full_ms!r} ms), bound {row['bounds'][0]!r} ms "
+          f"({row['bounds'][1]}; FP32-core bound {row['bounds'][2]!r} ms), "
+          f"f32 addmm + argmin on the upcast operands {row['library_ms']!r} "
+          f"ms")
     kernel_s = fused_launches * fused_ms / 1e3
     print(f"  fit of phase 5 split: seeding {seed_s!r} s, fused launches x "
           f"kernel time {kernel_s!r} s, the rest (host loop, Anderson "
@@ -3931,8 +4346,11 @@ def run():
     print("  launches per path: " + "; ".join(
         f"{path}: " + ", ".join(f"{kn} {v}" for kn, v in c.items() if v)
         for path, c in path_launches.items()))
-    total = {kn: sum(c[kn] for c in path_launches.values())
+    total = {kn: sum(c.get(kn, 0) for c in path_launches.values())
              for kn in counters}
+    # a kernel's own count includes its bf16 variant's launches
+    for kn in bf:
+        total[kn] -= total[f"{kn}_bf16"]
     kernels = [
         {"name": "fused_lloyd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_lloyd.cu",
@@ -3974,6 +4392,23 @@ def run():
          "fp32_bound_ms": bounds_fp32, "library_ms": None,
          "distributed_launches": dist_launches["fused_bounds"]},
     ]
+    replaces = {kn["name"]: kn["replaces"] for kn in kernels}
+    for kn, row in bf.items():
+        b_ms, b_by, b_fp32 = row["bounds"]
+        entry = {"name": f"{kn}_bf16", "route": "cuda",
+                 "source": f"src/repro_torch/kernels/csrc/{kn}.cu",
+                 "replaces": replaces[kn], "launches": total[f"{kn}_bf16"],
+                 "max_abs_err": errs17[kn], "ms": row["ms"],
+                 "plain_ms": row["plain_ms"], "bound_ms": b_ms,
+                 "bound_by": b_by, "fp32_bound_ms": b_fp32,
+                 "library_ms": row["library_ms"]}
+        if "all_rows" in row:
+            a_ms, a_by, a_fp32 = row["all_rows"]["bounds"]
+            entry["all_rows"] = {"ms": row["all_rows"]["ms"],
+                                 "bound_ms": a_ms, "bound_by": a_by,
+                                 "fp32_bound_ms": a_fp32,
+                                 "library_ms": row["all_rows"]["library_ms"]}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     return smi, name
 

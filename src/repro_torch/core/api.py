@@ -60,7 +60,9 @@ import torch
 
 from repro_torch.core import serialize
 from repro_torch.core.anderson import AAConfig
-from repro_torch.core.backends import Precision, backend_names, get_backend
+from repro_torch.core.backends import (Precision, backend_names, get_backend,
+                                       refuse_bf16)
+from repro_torch.core.backends.base import PRECISION_DTYPES
 from repro_torch.core.init_schemes import batched_init, make_init
 from repro_torch.core.kmeans import (KMeansConfig, KMeansResult,
                                      aa_kmeans_batched, aa_kmeans_minibatch,
@@ -85,18 +87,32 @@ class NotFittedError(RuntimeError):
     """Inference was requested on an estimator with no fitted state."""
 
 
+def host_tensor(x) -> torch.Tensor:
+    """``x`` as a tensor.  A numpy array whose dtype is named bfloat16
+    (what ``np.asarray`` of a jax bf16 array gives: an ml_dtypes type,
+    which the port does not import) is read by its bits, as
+    ``core/serialize.py`` reads a bf16 leaf."""
+    if isinstance(x, np.ndarray):
+        if x.dtype.name == "bfloat16":
+            return torch.from_numpy(np.array(x).view(np.int16)).view(
+                torch.bfloat16)
+        if not x.flags.writeable:
+            x = np.array(x)   # torch refuses to share read-only memory
+    return torch.as_tensor(x)
+
+
 def _as_input(x, device: torch.device) -> torch.Tensor:
-    """X as a float32 tensor on ``device``.  float64 input narrows to
-    float32, as ``jnp.asarray`` does in the reference; other dtypes are
-    not ported yet."""
-    if isinstance(x, np.ndarray) and not x.flags.writeable:
-        x = np.array(x)       # torch refuses to share read-only memory
-    x = torch.as_tensor(x)
+    """X as a float32 or bfloat16 tensor on ``device``.  float64 input
+    narrows to float32, as ``jnp.asarray`` does in the reference; a bf16
+    X runs the whole solve in bf16 (seeds, the Anderson window and the
+    centroids), its stats and energies in f32.  Other dtypes (float16)
+    raise TypeError."""
+    x = host_tensor(x)
     if x.dtype == torch.float64:
         x = x.to(torch.float32)
-    if x.dtype != torch.float32:
-        raise TypeError(f"X must be float32 (bf16 is still to be ported); "
-                        f"got {x.dtype}")
+    if x.dtype not in PRECISION_DTYPES:
+        raise TypeError(f"X must be float32 or bfloat16; got {x.dtype} "
+                        f"(ROADMAP.md queue B, \"bf16 paths refused\")")
     return x.to(device).contiguous()
 
 
@@ -113,7 +129,11 @@ def _chunked_rows_apply(model, x, fn, out_dtype, out_cols=None,
     for i in range(0, n, step):
         xc = _as_input(x[i:i + step], c.device)
         m = xc.shape[0]
-        out[i:i + m] = fn(pad_rows(xc, step), c)[:m].cpu().numpy()
+        # a bf16 model's transform of bf16 rows is bf16, which numpy
+        # lacks: it widens exactly
+        res = fn(pad_rows(xc, step), c)[:m].cpu()
+        out[i:i + m] = (res.float() if res.dtype == torch.bfloat16
+                        else res).numpy()
     return out
 
 
@@ -151,8 +171,13 @@ def _predict_rows(model, x, chunk_size, approx=False) -> np.ndarray:
     """Either estimator's predict: labels through its backend's assign;
     ``approx=True`` through the closure index when the model carries one
     (the exact argmin over each row's candidate list), else the exact
-    path."""
+    path.  A bf16 policy or bf16 X predicts through the backend's
+    assignment in the operands' own dtypes (the policy does not apply:
+    ``repro/core/api.py:154-155``); ``approx=True`` refuses both."""
     model._assert_fitted()
+    if approx:
+        refuse_bf16("approx=True (the serving index)", model.backend,
+                    model.centroids_, x)
     extras = _closure_extras(model) if approx else None
     if extras is not None:
         from repro_torch.serving.closure import closure_assign
@@ -170,6 +195,9 @@ def _transform_rows(model, x, chunk_size, approx=False) -> np.ndarray:
     ``approx=True`` with an index prices only each row's candidates and
     gives +inf elsewhere."""
     model._assert_fitted()
+    if approx:
+        refuse_bf16("approx=True (the serving index)", model.backend,
+                    model.centroids_, x)
     extras = _closure_extras(model) if approx else None
     if extras is not None:
         from repro_torch.serving.closure import closure_sqdist
@@ -191,6 +219,7 @@ def _build_serving_index(model, n_candidates=None, n_groups=None, seed=0):
     super-centroids and each group's codebook rows its candidates, so
     nothing is clustered."""
     model._assert_fitted()
+    refuse_bf16("the serving index", model.backend, model.centroids_)
     if n_candidates is None and n_groups is None \
             and getattr(model, "hier_routers_", None) is not None:
         from repro_torch.serving.closure import hierarchy_closure_index
@@ -246,11 +275,16 @@ def _encode_backend(bk):
     return enc
 
 
+# a persisted precision's dtype names (the reference's numpy names)
+_PRECISION_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _decode_backend(enc, path):
     """The backend a persisted ``enc`` names: a registry name as it is, a
     recorded instance rebuilt from the registry (``blocked<N>`` as
-    ``blocked`` with ``block_n=N``).  A precision other than float32
-    raises NotImplementedError; a name the registry cannot rebuild (an
+    ``blocked`` with ``block_n=N``, a float32 or bfloat16 precision
+    policy with it).  Another precision (float16) raises
+    NotImplementedError; a name the registry cannot rebuild (an
     instrumented or wrapped instance's, "fused+count", "elkan+reorder")
     raises ValueError."""
     if isinstance(enc, str):
@@ -261,13 +295,14 @@ def _decode_backend(enc, path):
         if m:
             name, opts["block_n"] = "blocked", int(m.group(1))
         dts = {key: enc[key] for key in ("compute", "accum") if key in enc}
-        if any(dt != "float32" for dt in dts.values()):
+        if any(dt not in _PRECISION_NAMES for dt in dts.values()):
             raise NotImplementedError(
                 f"{path}: model was fitted with the precision policy {dts} "
-                f"of backend {enc['name']!r}; only float32 is ported")
+                f"of backend {enc['name']!r}; only float32 and bfloat16 "
+                f"are ported (ROADMAP.md queue B, \"bf16 paths refused\")")
         if dts:
             opts["precision"] = Precision(
-                **{key: torch.float32 for key in dts})
+                **{key: _PRECISION_NAMES[dt] for key, dt in dts.items()})
     if name not in backend_names():
         raise ValueError(
             f"{path}: model was fitted with backend {enc!r}, which "
@@ -422,7 +457,8 @@ class AAKMeans:
             c0s = batched_init(self.init, gen, x, self.n_clusters,
                                max(self.n_init, 1))
         else:
-            c0s = _as_input(c0s, dev)
+            # given seeds stand in for the seeding, which draws rows of X
+            c0s = _as_input(c0s, dev).to(x.dtype)
         return self._take(select_best(
             aa_kmeans_batched(x, c0s, cfg, backend=self.backend,
                               metrics=self.metrics)), c0s.shape[0],
@@ -459,6 +495,7 @@ class AAKMeans:
                 "hierarchical=True is a host-driven round loop; a "
                 "mesh-distributed hierarchy is a ROADMAP follow-up — fit "
                 "flat under the mesh or hierarchical on one device")
+        refuse_bf16("a mesh (mesh=)", self.backend, x)
         from repro_torch.core import distributed as D
         dev = mesh_device(self.mesh, self.device)
         axes = tuple(self.data_axes)
@@ -743,6 +780,7 @@ class MiniBatchAAKMeans:
         them; every rank then gathers only its block of each chunk and of
         the validation rows, and takes the chunk order from a CPU
         generator seeded alike."""
+        refuse_bf16("a mesh (mesh=)", self.backend, x)
         from repro_torch.core import distributed as D
         dev = mesh_device(self.mesh, self.device)
         axes = tuple(self.data_axes)
@@ -800,10 +838,11 @@ class MiniBatchAAKMeans:
             raise NotImplementedError(
                 "partial_fit streams from one host; for mesh execution "
                 "use fit() / make_distributed_kmeans_minibatch")
+        bk = resolve_backend(self.backend)
+        refuse_bf16("host-streamed chunks (partial_fit)", bk, chunk)
         dev = resolve_device(self.device)
         x = _as_input(chunk, dev)
         cfg = self._config()
-        bk = resolve_backend(self.backend)
         if self._state is None:
             if x.shape[0] < 2 * self.n_clusters:
                 raise ValueError(

@@ -14,7 +14,9 @@
 The engines are the reference's: ``kv_codebook``, ``compress_kv_cache``
 and ``embedding_codebook`` solve on the dense engine; the batched and
 hierarchical codebooks take ``backend=``.  Each runs on its input's
-device; an input that is not a tensor goes to CUDA first.
+device; an input that is not a tensor goes to CUDA first.  Inputs are
+solved in float32, bf16 ones too, as in the reference; a bf16-policy
+``backend=`` is refused (ROADMAP.md queue B, "bf16 paths refused").
 
 Seeds come from a ``torch.Generator`` on that device seeded with
 ``key`` (None: 0), where the reference takes a jax key.  The same key gives other seeds than the reference's; each
@@ -29,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.core.backends import refuse_bf16
 from repro_torch.core.init_schemes import batched_init, kmeanspp_init
 from repro_torch.core.kmeans import (KMeansConfig, aa_kmeans,
                                      aa_kmeans_batched)
@@ -76,6 +79,7 @@ def kv_codebooks_batched(vectors, k: int, *, key=None, max_iter: int = 60,
 
 
 def _codebooks_from_seeds(v32, c0s, max_iter: int, backend=None):
+    refuse_bf16("the codebook applications", backend)
     res = aa_kmeans_batched(
         v32, c0s, KMeansConfig(k=c0s.shape[1], max_iter=max_iter),
         backend=backend)

@@ -31,7 +31,7 @@ from repro_torch.core.backends.base import (Backend, Precision,  # noqa: F401
                                             StepResult, backend_names,
                                             distribute, from_lloyd_ops,
                                             get_backend, instrument,
-                                            register_backend)
+                                            refuse_bf16, register_backend)
 from repro_torch.core.backends.bounds import BoundStats  # noqa: F401
 from repro_torch.core.backends.dense import (blocked_backend,  # noqa: F401
                                              dense_backend)

@@ -53,22 +53,62 @@ class StepResult(NamedTuple):
     energy: torch.Tensor
 
 
+# the dtypes a Precision may name
+PRECISION_DTYPES = (torch.float32, torch.bfloat16)
+
+
 @dataclasses.dataclass(frozen=True)
 class Precision:
-    """Compute-vs-accumulate dtype policy.  This slice runs f32 only: a
-    compute or accumulate dtype other than float32 raises (bf16 is still
-    to be ported)."""
+    """Compute-vs-accumulate dtype policy applied inside a backend
+    (``repro/core/backends/base.py:76-101``).
+
+    compute — dtype of the distance pass (None: the input's); bf16 halves
+              the X stream, and the kernels still add in f32.
+    accum   — dtype of the stats and the energy; ``accum_dtype`` floors it
+              at f32, since a bf16 count stops at 256.
+
+    float32 and bfloat16 are ported; another dtype (float16) raises
+    NotImplementedError (ROADMAP.md queue B, "bf16 paths refused")."""
     compute: Optional[Any] = None
     accum: Optional[Any] = None
 
     def __post_init__(self):
         for dt in (self.compute, self.accum):
-            if dt is not None and dt != torch.float32:
+            if dt is not None and dt not in PRECISION_DTYPES:
                 raise NotImplementedError(
-                    f"Precision({dt}) — only float32 is ported so far")
+                    f"Precision({dt}): only float32 and bfloat16 are ported "
+                    f"(ROADMAP.md queue B, \"bf16 paths refused\")")
+
+    def compute_cast(self, a: torch.Tensor) -> torch.Tensor:
+        return a if self.compute is None else a.to(self.compute)
+
+    @property
+    def accum_dtype(self) -> torch.dtype:
+        if self.accum is None:
+            return torch.float32
+        return torch.promote_types(self.accum, torch.float32)
 
 
 DEFAULT_PRECISION = Precision()
+
+
+def _is_bf16(t) -> bool:
+    """A tensor, or a host array, holding bfloat16."""
+    dt = getattr(t, "dtype", None)
+    return dt is not None and str(dt).removeprefix("torch.") == "bfloat16"
+
+
+def refuse_bf16(where: str, backend=None, *arrays) -> None:
+    """Raise NotImplementedError when a bf16 policy (``backend``'s
+    Precision) or a bfloat16 array reaches ``where``, a path that does not
+    run at bf16 yet; the message names its ROADMAP.md line."""
+    policy = getattr(backend, "precision", None)
+    if (policy is not None and policy.compute == torch.bfloat16) \
+            or any(_is_bf16(a) for a in arrays):
+        raise NotImplementedError(
+            f"{where} does not run at bfloat16 yet (ROADMAP.md queue B, "
+            f"\"bf16 paths refused\"); use float32 data and the default "
+            f"precision there")
 
 
 def _default_init_carry(x, c, k):
@@ -276,6 +316,7 @@ def distribute(backend: Backend, axes: Sequence[str]) -> Backend:
             f"backend {backend.name!r} is already distributed over "
             f"{backend.axes}; wrapping it again would double-psum the "
             f"stats and inflate the reported energy")
+    refuse_bf16("a mesh (distribute)", backend)
     axes = tuple(axes)
     # core/distributed.py imports the drivers, which import this module
     from repro_torch.core import distributed as D

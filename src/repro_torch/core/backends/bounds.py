@@ -153,7 +153,8 @@ def init_carry(x: torch.Tensor, c: torch.Tensor, k: int, gs: int):
 def cpu_engine_stats(x, labels, k):
     """Per-cluster sums and counts of the CPU bound engines (hamerly,
     elkan, yinyang): their step's stats and their ``stats_fn``, so the
-    locality engine's recomputation gives the step's bits."""
+    locality engine's recomputation gives the step's bits.  From the
+    original X in f32, the accumulation dtype of every ``Precision``."""
     return lloyd.cluster_sums(x.to(torch.float32), labels, k)
 
 
@@ -182,7 +183,10 @@ def make_group_bound_backend(name: str, precision: Precision,
     def step_fn(x, c, k, carry):
         labels0, upper, lower, c_last, _ = carry
         g, gs = group_layout(k, gs_of(k))
-        xf, cf = x.to(torch.float32), c.to(torch.float32)
+        # as in hamerly: inputs rounded to the compute dtype, the bound
+        # arithmetic in f32 (repro/core/backends/bounds.py:200-205)
+        xf = precision.compute_cast(x).to(torch.float32)
+        cf = precision.compute_cast(c).to(torch.float32)
         upper, lower = drift_update(labels0, upper, lower,
                                     centroid_drift(cf, c_last), g, gs)
         lab0 = labels0.long()

@@ -7,7 +7,9 @@ segment-sum stats, and for the batched slot one (R, N, K) distance block
 and a one-hot matmul for the stats.  ``blocked`` evaluates the distances
 ``block_n`` rows at a time so the (N, K) block never materialises whole;
 it sets no batched slot, so the batched driver runs it through
-``Backend.batched_step``'s per-restart fallback.
+``Backend.batched_step``'s per-restart fallback.  Both apply the
+``Precision`` policy: distances in the compute dtype, stats and energy
+in the accumulation dtype (>= f32) from the original X.
 """
 
 from __future__ import annotations
@@ -33,63 +35,94 @@ def _blocked_assign(x, c, block_n: int) -> AssignResult:
     return lloyd.assign(x, c, block_n=block_n)
 
 
-def _step(block_n: int = 0):
+def _stats(precision: Precision):
+    def stats_fn(x, labels, k):
+        return lloyd.cluster_sums(x.to(precision.accum_dtype), labels, k)
+    return stats_fn
+
+
+def _step(precision: Precision, block_n: int = 0):
+    """Distances on the compute-cast X and C, in the compute dtype as
+    ``lloyd.pairwise_sqdist`` computes them; min_sqdist, stats and energy
+    in the accumulation dtype, the stats from the ORIGINAL X
+    (``repro/core/backends/dense.py:40-57``)."""
     def step_fn(x, c, k, carry):
-        res = _blocked_assign(x, c, block_n)
-        sums, counts = lloyd.cluster_sums(x, res.labels, k)
-        return StepResult(res.labels, res.min_sqdist, sums, counts,
-                          torch.sum(res.min_sqdist)), carry
+        res = _blocked_assign(precision.compute_cast(x),
+                              precision.compute_cast(c), block_n)
+        acc = precision.accum_dtype
+        mind = res.min_sqdist.to(acc)
+        sums, counts = lloyd.cluster_sums(x.to(acc), res.labels, k)
+        return StepResult(res.labels, mind, sums, counts,
+                          torch.sum(mind)), carry
     return step_fn
 
 
-def _minibatch_step(block_n: int = 0):
+def _minibatch_step(precision: Precision, block_n: int = 0):
     """Natively weighted: the row weights fold into sums/counts/energy in
     the same pass."""
     def minibatch_step_fn(x, c, k, w, carry):
-        res = _blocked_assign(x, c, block_n)
-        wa = w.to(torch.float32)
-        sums, counts = lloyd.weighted_cluster_sums(x, res.labels, wa, k)
-        return StepResult(res.labels, res.min_sqdist, sums, counts,
-                          torch.sum(res.min_sqdist * wa)), carry
+        res = _blocked_assign(precision.compute_cast(x),
+                              precision.compute_cast(c), block_n)
+        acc = precision.accum_dtype
+        wa = w.to(acc)
+        mind = res.min_sqdist.to(acc)
+        sums, counts = lloyd.weighted_cluster_sums(x.to(acc), res.labels,
+                                                   wa, k)
+        return StepResult(res.labels, mind, sums, counts,
+                          torch.sum(mind * wa)), carry
     return minibatch_step_fn
 
 
-def _batched_step(x, cs, k, carries, w=None):
-    """All R centroid sets at once: one batched distance block reading the
-    shared X, stats as a one-hot matmul (matmul reduction order, so sums
-    may differ from the sequential segment sum in the last ulp).  Peak
-    memory is two (R, N, K) f32 blocks."""
-    c_sq = torch.sum(cs * cs, dim=-1)                          # (R, K)
-    x_sq = torch.sum(x * x, dim=-1)                            # (N,)|(R, N)
-    if x.dim() == 2:
-        cross = torch.einsum("nd,rkd->rnk", x, cs)
-        x_term = x_sq[None, :, None]
-    else:
-        cross = torch.einsum("rnd,rkd->rnk", x, cs)
-        x_term = x_sq[:, :, None]
-    d2 = torch.clamp_min(x_term - 2.0 * cross + c_sq[:, None, :], 0.0)
-    mind, labels = torch.min(d2, dim=-1)
-    labels = labels.to(torch.int32)
-    del d2, cross
-    onehot = torch.nn.functional.one_hot(labels.long(), k).to(torch.float32)
-    if w is not None:
-        onehot = onehot * w.to(torch.float32)[:, :, None]
-    if x.dim() == 2:
-        sums = torch.einsum("rnk,nd->rkd", onehot, x)
-    else:
-        sums = torch.einsum("rnk,rnd->rkd", onehot, x)
-    counts = torch.sum(onehot, dim=1)
-    energy = torch.sum(mind if w is None else mind * w.to(mind.dtype),
-                       dim=-1)
-    return StepResult(labels, mind, sums, counts, energy), carries
+def _batched_step(precision: Precision):
+    """All R centroid sets at once: one batched distance block (in the
+    compute dtype) reading the shared X, stats as a one-hot matmul in the
+    accumulation dtype over the original X (matmul reduction order, so
+    sums may differ from the sequential segment sum in the last ulp).
+    Peak memory is two (R, N, K) blocks."""
+    def batched_step_fn(x, cs, k, carries, w=None):
+        xc = precision.compute_cast(x)
+        cc = precision.compute_cast(cs)
+        acc = precision.accum_dtype
+        # bf16 distances as lloyd.pairwise_sqdist gives them: evaluated
+        # in f32 on the bf16 values, rounded once
+        low = torch.promote_types(xc.dtype, cc.dtype) == torch.bfloat16
+        if low:
+            xc, cc = xc.float(), cc.float()
+        c_sq = torch.sum(cc * cc, dim=-1)                      # (R, K)
+        x_sq = torch.sum(xc * xc, dim=-1)                      # (N,)|(R, N)
+        if x.dim() == 2:
+            cross = torch.einsum("nd,rkd->rnk", xc, cc)
+            x_term = x_sq[None, :, None]
+        else:
+            cross = torch.einsum("rnd,rkd->rnk", xc, cc)
+            x_term = x_sq[:, :, None]
+        d2 = torch.clamp_min(x_term - 2.0 * cross + c_sq[:, None, :], 0.0)
+        if low:
+            d2 = d2.to(torch.bfloat16)
+        mind, labels = torch.min(d2, dim=-1)
+        labels = labels.to(torch.int32)
+        mind = mind.to(acc)
+        del d2, cross
+        onehot = torch.nn.functional.one_hot(labels.long(), k).to(acc)
+        if w is not None:
+            onehot = onehot * w.to(acc)[:, :, None]
+        xa = x.to(acc)
+        if x.dim() == 2:
+            sums = torch.einsum("rnk,nd->rkd", onehot, xa)
+        else:
+            sums = torch.einsum("rnk,rnd->rkd", onehot, xa)
+        counts = torch.sum(onehot, dim=1)
+        energy = torch.sum(mind if w is None else mind * w.to(acc), dim=-1)
+        return StepResult(labels, mind, sums, counts, energy), carries
+    return batched_step_fn
 
 
 def dense_backend(precision: Precision = DEFAULT_PRECISION) -> Backend:
     return Backend(name="dense",
-                   step_fn=_step(),
-                   batched_step_fn=_batched_step,
-                   minibatch_step_fn=_minibatch_step(),
-                   stats_fn=lloyd.cluster_sums,
+                   step_fn=_step(precision),
+                   batched_step_fn=_batched_step(precision),
+                   minibatch_step_fn=_minibatch_step(precision),
+                   stats_fn=_stats(precision),
                    assign_fn=lloyd.assign,
                    precision=precision)
 
@@ -100,8 +133,8 @@ def blocked_backend(block_n: int = 4096,
         return _blocked_assign(x, c, block_n)
 
     return Backend(name=f"blocked{block_n}",
-                   step_fn=_step(block_n),
-                   minibatch_step_fn=_minibatch_step(block_n),
-                   stats_fn=lloyd.cluster_sums,
+                   step_fn=_step(precision, block_n),
+                   minibatch_step_fn=_minibatch_step(precision, block_n),
+                   stats_fn=_stats(precision),
                    assign_fn=assign_fn,
                    precision=precision)

@@ -7,7 +7,11 @@ and energy in one call, R centroid sets per launch for the batched
 slot.  ``assign`` (predict) is the assignment kernel
 (``kernels/assignment.py``) and ``stats_fn`` the update kernel
 (``kernels/update.py``).  On CPU tensors they run their plain versions,
-which is how the tests run this backend.
+which is how the tests run this backend.  Under a ``Precision`` policy
+every slot casts X and C to the compute dtype and launches the kernel on
+them (bf16 X and C read as they are, everything added in f32); ``assign``
+and ``stats_fn`` do not cast, as in the reference
+(``repro/core/backends/pallas.py:76-84``, ``:161-198``).
 """
 
 from __future__ import annotations
@@ -25,23 +29,22 @@ def kernel_assign(x, c):
     return AssignResult(*assignment(x, c))
 
 
-def _step_fn(x, c, k, carry):
-    return StepResult(*fused_lloyd(x, c)), carry
-
-
-def _batched_step_fn(x, cs, k, carries, w=None):
-    return StepResult(*fused_lloyd(x, cs, w)), carries
-
-
-def _minibatch_step_fn(x, c, k, w, carry):
-    return StepResult(*fused_lloyd(x, c, w)), carry
-
-
 def fused_backend(precision: Precision = DEFAULT_PRECISION) -> Backend:
+    cast = precision.compute_cast
+
+    def step_fn(x, c, k, carry):
+        return StepResult(*fused_lloyd(cast(x), cast(c))), carry
+
+    def batched_step_fn(x, cs, k, carries, w=None):
+        return StepResult(*fused_lloyd(cast(x), cast(cs), w)), carries
+
+    def minibatch_step_fn(x, c, k, w, carry):
+        return StepResult(*fused_lloyd(cast(x), cast(c), w)), carry
+
     return Backend(name="fused",
-                   step_fn=_step_fn,
-                   batched_step_fn=_batched_step_fn,
-                   minibatch_step_fn=_minibatch_step_fn,
+                   step_fn=step_fn,
+                   batched_step_fn=batched_step_fn,
+                   minibatch_step_fn=minibatch_step_fn,
                    stats_fn=update,
                    assign_fn=kernel_assign,
                    precision=precision)

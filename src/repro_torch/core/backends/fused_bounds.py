@@ -11,6 +11,9 @@ group) cell where no row of the tile can improve, and hands back the
 step with the squared group minima, from which the next carry follows:
 upper = sqrt(min distance), lower = sqrt(group min), c_last = C.
 ``assign`` is the assignment kernel and ``stats_fn`` the update kernel.
+Under a ``Precision`` policy X and C are cast to the compute dtype for the
+kernel; the bound algebra and the carry's c_last stay f32, on the cast C
+(``repro/core/backends/pallas.py:240-243``).
 """
 
 from __future__ import annotations
@@ -63,9 +66,12 @@ def fused_bounds_backend(precision: Precision = DEFAULT_PRECISION,
 
     def run(x, c, k, carry, w=None):
         gs = gs_of(k)
+        cc = precision.compute_cast(c)
+        cf = cc.to(torch.float32)
         labels, mind, sums, counts, energy, gmin_sq, skipped = fused_lloyd(
-            x, c, w, bounds=squared_bounds(carry, c, k, gs), gs=gs)
-        carry = (labels, torch.sqrt(mind), torch.sqrt(gmin_sq), c,
+            precision.compute_cast(x), cc, w,
+            bounds=squared_bounds(carry, cf, k, gs), gs=gs)
+        carry = (labels, torch.sqrt(mind), torch.sqrt(gmin_sq), cf,
                  BoundStats(skipped, skipped))
         return StepResult(labels, mind, sums, counts, energy), carry
 

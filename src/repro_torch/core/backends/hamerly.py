@@ -13,7 +13,9 @@ so it holds across Lloyd updates, accepted Anderson jumps and reverts:
 The exact distance to the assigned centroid is recomputed every step, so
 min_sqdist and the energy the accept test reads are exact.  As in the
 reference this is masked dense code: the full scan is computed for every
-row and applied where the bounds cannot settle the row.
+row and applied where the bounds cannot settle the row.  A ``Precision``
+policy rounds X and C to its compute dtype before the f32 bound
+arithmetic; the stats come from the original X in f32.
 """
 
 from __future__ import annotations
@@ -61,7 +63,11 @@ def hamerly_backend(precision: Precision = DEFAULT_PRECISION) -> Backend:
 
     def step_fn(x, c, k, carry):
         labels0, upper, lower, c_last, _ = carry
-        xf, cf = x.to(torch.float32), c.to(torch.float32)
+        # the policy rounds X and C to the compute dtype; the bound
+        # arithmetic then runs in f32, since the bounds must stay monotone
+        # under the drift updates (repro/core/backends/hamerly.py:88-94)
+        xf = precision.compute_cast(x).to(torch.float32)
+        cf = precision.compute_cast(c).to(torch.float32)
         upper, lower = hamerly_drift(labels0, upper, lower, cf, c_last)
         cc = torch.sqrt(pairwise_sqdist(cf, cf)).masked_fill(
             torch.eye(k, dtype=torch.bool, device=cf.device), float("inf"))

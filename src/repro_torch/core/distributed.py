@@ -54,7 +54,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core import serialize
-from repro_torch.core.backends import Backend, distribute, get_backend
+from repro_torch.core.backends import (Backend, distribute, get_backend,
+                                       refuse_bf16)
 from repro_torch.core.kmeans import (KMeansConfig, KMeansResult, _LoopState,
                                      _check_resume_meta, aa_kmeans,
                                      aa_kmeans_batched, aa_kmeans_minibatch,
@@ -265,6 +266,8 @@ def local_block(a, mesh, axes: Sequence[str], dim: int = 0
     ``Shard``'s own block, or the block of a global host array or tensor,
     whose length along ``dim`` must divide by the shard count.  float64
     narrows to float32, as the estimators narrow X."""
+    refuse_bf16("a mesh (core/distributed.py)", None,
+                a.local if isinstance(a, Shard) else a)
     dev = mesh_device(mesh)
     if isinstance(a, Shard):
         if a.dim != dim:
@@ -294,6 +297,7 @@ def shard_dataset(x, mesh, data_axes: Sequence[str] = ("data",)):
     As in the reference, padding rows copy the final sample, which
     counts it again in the energy and its cluster's mean; the estimators
     give those rows weight 0 instead (ROADMAP queue C)."""
+    refuse_bf16("a mesh (core/distributed.py)", None, x)
     axes = tuple(data_axes)
     w = shard_count(mesh, axes)
     n = int(x.shape[0])

@@ -54,6 +54,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import serialize
+from repro_torch.core.backends import refuse_bf16
 from repro_torch.core.init_schemes import batched_init, kmeanspp_init
 from repro_torch.core.kmeans import (BackendLike, KMeansConfig,
                                      KMeansResult, aa_kmeans,
@@ -269,6 +270,7 @@ def _aa_kmeans_hierarchical(x, k, cfg=None, backend=None, *, n_groups=None,
     """``aa_kmeans_hierarchical`` with the super-solve's seeds
     ``c0_super`` (G, d) given (None: drawn from the generator), so that
     with ``c0s`` a caller hands over every seed of the solve."""
+    refuse_bf16("the two-level solve (hierarchical=)", backend, x)
     x = torch.as_tensor(x)
     if x.dim() != 2:
         raise ValueError(f"x must be (N, d); got shape {tuple(x.shape)}")

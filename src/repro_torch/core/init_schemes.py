@@ -41,7 +41,8 @@ def _draw(p: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     energy.  torch.multinomial takes at most 2**24 categories, which
     covers the largest dataset of the paper's Table 1 (N = 4,898,431)."""
     p = torch.nan_to_num(p, nan=0.0, posinf=0.0)
-    return torch.multinomial(torch.clamp_min(p, 1e-38), 1, generator=gen)
+    return torch.multinomial(torch.clamp_min(p.float(), 1e-38), 1,
+                             generator=gen)
 
 
 def random_init(gen: torch.Generator, x: torch.Tensor, k: int,

@@ -55,7 +55,7 @@ import torch
 
 from repro_torch.core import anderson
 from repro_torch.core.anderson import AAConfig, AAState
-from repro_torch.core.backends import Backend, get_backend
+from repro_torch.core.backends import Backend, get_backend, refuse_bf16
 from repro_torch.core.backends.base import _tree_index, from_lloyd_ops
 from repro_torch.core.backends.bounds import extract_stats
 from repro_torch.core.lloyd import DENSE_OPS, LloydOps
@@ -452,6 +452,8 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
     Returns a ``MiniBatchResult`` (with ``return_trace=True`` also a
     ``MiniBatchTrace`` stacked over all chunk steps)."""
     scope = contextlib.nullcontext()
+    where = "host-streamed chunks (aa_kmeans_minibatch_streamed)"
+    refuse_bf16(where, resolve_backend(backend), source, x_val, c0)
     if mesh is None:
         dev = resolve_device(device)
         bk = resolve_backend(backend)
@@ -480,6 +482,7 @@ def aa_kmeans_minibatch_streamed(source, x_val: torch.Tensor,
                 prefetch=prefetch, device=dev, meter=meter,
                 sort_by=sort_by if sort_chunks else None, mesh=mesh,
                 data_axes=data_axes):
+            refuse_bf16(where, None, xc)
             w = torch.ones((xc.shape[0],), dtype=torch.float32, device=dev)
             state, trace = minibatch_iteration(xc, w, x_val, state, cfg, bk)
             if return_trace:
@@ -570,7 +573,9 @@ def batched_state_like(x, c0s, cfg: KMeansConfig,
     xm, cm = _meta_like(x), _meta_like(c0s)
     r, n = c0s.shape[0], x.shape[-2]
     labels = torch.empty((r, n), dtype=torch.int32, device="meta")
-    energy = torch.empty((r,), dtype=x.dtype, device="meta")
+    # energies are in the engine's accumulation dtype, bf16 X or not
+    energy = torch.empty((r,), dtype=bk.precision.accum_dtype,
+                         device="meta")
     return _assemble_state(xm, cm, cm, labels, energy,
                            bk.batched_init_carry(xm, cm, cfg.k), cfg)
 

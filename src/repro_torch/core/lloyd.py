@@ -24,7 +24,17 @@ class AssignResult(NamedTuple):
 
 def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Squared Euclidean distances between rows of x (N, d) and c (K, d),
-    clamped at 0 against cancellation (NaN passes through)."""
+    clamped at 0 against cancellation (NaN passes through), in the
+    promoted dtype of the two, as JAX promotes (bf16 with f32 is f32).
+    Two bf16 operands give bf16 distances, evaluated in f32 on their
+    values and rounded once: XLA computes the reference's bf16 expression
+    so on the CPU (it widens bf16 arithmetic to f32 and drops the
+    intermediate roundings), and rounding after each eager op would add
+    errors of |x|^2's size."""
+    dt = torch.promote_types(x.dtype, c.dtype)
+    if dt == torch.bfloat16:
+        return pairwise_sqdist(x.float(), c.float()).to(torch.bfloat16)
+    x, c = x.to(dt), c.to(dt)
     x_sq = torch.sum(x * x, dim=-1, keepdim=True)
     c_sq = torch.sum(c * c, dim=-1)
     return torch.clamp_min(x_sq - 2.0 * (x @ c.T) + c_sq[None, :], 0.0)

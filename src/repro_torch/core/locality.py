@@ -246,7 +246,11 @@ def reorder_backend(inner: Backend,
 
     Compose it INSIDE ``distribute``, ``distribute(reorder_backend(b),
     axes)``, so the sort stays shard-local and the wrapper's shard-local
-    stats are the ones reduced; a distributed inner engine is refused."""
+    stats are the ones reduced; a distributed inner engine is refused.
+    The wrapper carries the inner engine's ``Precision`` (the inner step
+    casts the gathered rows; the gather works in X's own dtype), and its
+    stats come from the original-order X through the inner ``stats_fn``,
+    which does not cast (``repro/core/locality.py:250``, ``:339``)."""
     if inner.axes:
         raise ValueError(
             f"{inner.name} is already distributed; wrap the local backend "

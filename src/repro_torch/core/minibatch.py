@@ -78,14 +78,17 @@ class MiniBatchResult(NamedTuple):
 
 def minibatch_init(c0: torch.Tensor, cfg: MiniBatchConfig,
                    backend: Backend) -> MiniBatchState:
-    """The state before the first chunk, on c0's device.  The statistics
-    accumulate in float32 (the only precision ported)."""
+    """The state before the first chunk, on c0's device.  The running
+    statistics and energies accumulate in the engine's accumulation dtype,
+    floored at f32 (a bf16 running count would freeze at 256,
+    ``repro/core/minibatch.py:100-102``); the centroids and the Anderson
+    window keep c0's dtype."""
     k, d = c0.shape
-    f32 = dict(dtype=torch.float32, device=c0.device)
-    inf = torch.full((), float("inf"), **f32)
+    acc = dict(dtype=backend.precision.accum_dtype, device=c0.device)
+    inf = torch.full((), float("inf"), **acc)
     return MiniBatchState(
-        c=c0, c_au=c0, sums=torch.zeros((k, d), **f32),
-        counts=torch.zeros((k,), **f32), e_prev=inf, e_prev2=inf,
+        c=c0, c_au=c0, sums=torch.zeros((k, d), **acc),
+        counts=torch.zeros((k,), **acc), e_prev=inf, e_prev2=inf,
         aa=anderson.aa_init(1, k * d, cfg.aa, c0.dtype, c0.device),
         t=0, n_acc=torch.zeros((), dtype=torch.int32, device=c0.device))
 

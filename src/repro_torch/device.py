@@ -17,7 +17,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     On CUDA this also turns TF32 off for matmuls and cuDNN: the solver's
     f32 distances (the dense oracle's, the plain versions') would
     otherwise keep about three decimal digits, far outside the
-    tolerances the port is held to against the reference."""
+    tolerances the port is held to against the reference.  And bf16
+    matmuls accumulate in f32 (no reduced-precision reduction), as the
+    reference's bf16 products do."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,6 +28,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "available; pass device='cpu' to run the plain versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction \
+            = False
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu'; got {dev}")
     return dev

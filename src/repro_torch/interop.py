@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.anderson import AAState
-from repro_torch.core.api import AAKMeans, _decode_backend
+from repro_torch.core.api import AAKMeans, _decode_backend, host_tensor
 from repro_torch.core.backends.bounds import BoundStats
 from repro_torch.core.kmeans import _BatchedState, _LoopState
 from repro_torch.core.minibatch import MiniBatchState, from_reference_layout
@@ -68,8 +68,11 @@ def estimator_from_arrays(params: Mapping, arrays: Mapping,
     ``n_iter_`` and ``n_accepted_`` as numpy arrays or scalars."""
     model = AAKMeans(**estimator_kwargs(AAKMeans, params, device))
     dev = resolve_device(device)
-    model.centroids_ = torch.as_tensor(
-        np.asarray(arrays["centroids_"], np.float32), device=dev)
+    cent = np.asarray(arrays["centroids_"])
+    # a bf16 model's centroids stay bf16; anything else is float32
+    model.centroids_ = host_tensor(
+        cent if cent.dtype.name == "bfloat16" else cent.astype(np.float32)
+    ).to(dev)
     for name, dt in (("labels_", np.int32),
                      ("closure_routers_", np.float32),
                      ("closure_candidates_", np.int32),

@@ -4,7 +4,8 @@ its plain PyTorch version.
 Counterpart of ``repro.kernels.assignment.assignment_pallas`` (the TPU
 kernel ``_assignment_kernel``), the kernel behind ``predict``.  On a CUDA
 tensor ``assignment`` launches the kernel or raises; on a CPU tensor it
-runs ``assignment_plain``.  ``launches`` / ``plain_calls`` count each.
+runs ``assignment_plain``.  ``launches`` / ``plain_calls`` count each,
+``bf16_launches`` the launches on a bf16 X (the kernel's bf16 variant).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from repro_torch.kernels import build, ref, tiles
 
 launches = 0
+bf16_launches = 0
 plain_calls = 0
 
 
@@ -37,7 +39,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.assignment_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, p, i, i, i, i, p, p, p, p]
+        fn.argtypes = [p, i, ctypes.c_longlong, p, i, i, i, i, i, p, p, p,
+                       p]
         fn.restype = ctypes.c_int
         lib.assignment_error_string.argtypes = [ctypes.c_int]
         lib.assignment_error_string.restype = ctypes.c_char_p
@@ -50,9 +53,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def assignment(x: torch.Tensor, c: torch.Tensor):
     """Nearest centroid of every row.  x (N, d) or (R, N, d); c (K, d) or
-    (R, K, d).  Returns (labels int32, min_sqdist f32), each with a
-    leading R axis when c is (R, K, d)."""
-    global launches
+    (R, K, d), each float32 or bfloat16 (computed in f32 on the upcast
+    values, mixed types too).  Returns (labels int32, min_sqdist f32),
+    each with a leading R axis when c is (R, K, d)."""
+    global launches, bf16_launches
     batched, r, n, k, d = tiles.problem_shape(x, c)
     if x.device.type == "cpu" and c.device.type == "cpu":
         return assignment_plain(x, c)
@@ -67,11 +71,13 @@ def assignment(x: torch.Tensor, c: torch.Tensor):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.assignment_launch(
-            x.data_ptr(), n * d if x.dim() == 3 else 0, c.data_ptr(),
-            r, n, k, d, scratch.data_ptr(), labels.data_ptr(),
+            x.data_ptr(), tiles.type_code(x), n * d if x.dim() == 3 else 0,
+            c.data_ptr(), tiles.type_code(c), r, n, k, d,
+            scratch.data_ptr(), labels.data_ptr(),
             mind.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"assignment launch failed: CUDA error {rc} "
                            f"({lib.assignment_error_string(rc).decode()})")
     launches += 1
+    bf16_launches += x.dtype == torch.bfloat16
     return (labels, mind) if batched else (labels[0], mind[0])

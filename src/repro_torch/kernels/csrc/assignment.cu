@@ -3,8 +3,10 @@
 //
 // Replaces the TPU kernel src/repro/kernels/assignment.py::_assignment_kernel
 // (pl.pallas_call at :98, wrapper assignment_pallas at :120).  Shapes: X
-// (N, d) shared by R centroid sets or (R, N, d); C (R, K, d); float32 ->
-// labels int32 (R, N), min squared distance float32 (R, N).
+// (N, d) shared by R centroid sets or (R, N, d); C (R, K, d); X and C each
+// float32 or bfloat16 (converted to f32 as they are loaded, so mixed types
+// compute in f32 as JAX's promotion does) -> labels int32 (R, N), min
+// squared distance float32 (R, N).
 //
 // What bounds it on this card: operations, 2*N*K*d FMA operations at f32
 // accuracy, 67 TFLOP/s on the CUDA cores; the bytes (N*d*4 in, N*8 out)
@@ -27,18 +29,22 @@ extern "C" long long assignment_scratch_floats(int r, int k, int d) {
 }
 
 // Launches |c|^2, the transpose of C and the assignment on `stream`;
-// scratch holds assignment_scratch_floats(r, k, d) floats (16-byte
-// aligned, as torch allocates).  Returns the first CUDA error (0 on
-// success).
-extern "C" int assignment_launch(const void* x, long long x_rstride,
-                                 const void* c, int r, int n, int k, int d,
+// x_type / c_type are X's and C's type codes (nearest.cuh: 0 float32, 1
+// bfloat16); scratch holds assignment_scratch_floats(r, k, d) floats
+// (16-byte aligned, as torch allocates).  Returns the first CUDA error (0
+// on success).
+extern "C" int assignment_launch(const void* x, int x_type,
+                                 long long x_rstride, const void* c,
+                                 int c_type, int r, int n, int k, int d,
                                  void* scratch, void* labels, void* mind,
                                  void* stream) {
-  return (int)f8::launch_assign(
-      static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
-      x_rstride, static_cast<const float*>(c), r, n, k, d,
-      static_cast<float*>(scratch), static_cast<int*>(labels),
-      static_cast<float*>(mind));
+  return (int)with_operand_types(x, x_type, c, c_type, [&](auto xt, auto ct) {
+    return f8::launch_assign(static_cast<cudaStream_t>(stream), xt,
+                             x_rstride, ct, r, n, k, d,
+                             static_cast<float*>(scratch),
+                             static_cast<int*>(labels),
+                             static_cast<float*>(mind));
+  });
 }
 
 extern "C" int assignment_max_features(int device) {

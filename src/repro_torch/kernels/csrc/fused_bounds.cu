@@ -16,7 +16,9 @@
 // ends at its exact label.  Outputs: the fused step's five, the squared
 // group minima gmin^2 (R, N, G) (a computed group's minimum over its own
 // centroids; a skipped group's lb^2, bit for bit) and the count of skipped
-// (tile, group) cells per problem (R,), summed as integers.
+// (tile, group) cells per problem (R,), summed as integers.  X and C are
+// each float32 or bfloat16, converted to f32 as they are loaded (the fused
+// step's rule); the bounds, weights and outputs are float32.
 //
 // What bounds it on this card: the cross terms of the computed groups,
 // (1 - skip) * 2*N*K*d FP32 operations (67 TFLOP/s), against X, the
@@ -36,6 +38,8 @@
 // registers).  No atomics but the need bits' atomicOr, whose result does
 // not depend on the order.
 
+#include <type_traits>
+
 #include "segment_sum.cuh"
 #include "sweep_fp32.cuh"
 
@@ -53,10 +57,10 @@ constexpr int kLbRegs = 4;   // bounds a thread holds: 64 rows x 16 groups
 
 // kVecGroups: gs and K multiples of 4, so that each 4-centroid vector lies
 // in one group and below K (sweep_fp32.cuh then merges a chunk that lies in
-// one group without masks).
-template <bool kVecGroups>
+// one group without masks).  TX: X's element type.
+template <bool kVecGroups, typename TX>
 __global__ void __launch_bounds__(f8::kThreads, 2)
-bounds_tiles(const float* __restrict__ x, int64_t x_rstride,
+bounds_tiles(const TX* __restrict__ x, int64_t x_rstride,
              const float* __restrict__ ct, const float* __restrict__ csq,
              const int* __restrict__ lab0, const float* __restrict__ lb,
              const float* __restrict__ ub, int n, int k, int d, int dc,
@@ -182,17 +186,19 @@ extern "C" long long fused_bounds_scratch_floats(int r, int k, int d) {
 }
 
 // Launches one step on `stream`, as fused_lloyd_launch does with the
-// bounded sweep.  lab0 (R, N) int32, lb (R, N, G) and ub (R, N) float32 are
-// the squared bounds; gmin (R, N, G) and skipped (R,) int64 are outputs
-// besides the fused step's.  part_skip (R * tiles int32) is scratch
-// besides fused_lloyd_launch's.  Returns the first CUDA error (0 on
-// success); nothing synchronises.
+// bounded sweep (x_type / c_type: X's and C's type codes, nearest.cuh).
+// lab0 (R, N) int32, lb (R, N, G) and ub (R, N) float32 are the squared
+// bounds; gmin (R, N, G) and skipped (R,) int64 are outputs besides the
+// fused step's.  part_skip (R * tiles int32) is scratch besides
+// fused_lloyd_launch's.  Returns the first CUDA error (0 on success);
+// nothing synchronises.
 extern "C" int fused_bounds_launch(
-    const void* x, long long x_rstride, const void* c, const void* w,
-    long long w_rstride, const void* lab0, const void* lb, const void* ub,
-    int r, int n, int k, int d, int gs, int g, const int* lay, void* scratch,
-    void* labels, void* mind, void* gmin, void* part, void* part_skip,
-    void* sums, void* counts, void* energy, void* skipped, void* stream) {
+    const void* x, int x_type, long long x_rstride, const void* c,
+    int c_type, const void* w, long long w_rstride, const void* lab0,
+    const void* lb, const void* ub, int r, int n, int k, int d, int gs,
+    int g, const int* lay, void* scratch, void* labels, void* mind,
+    void* gmin, void* part, void* part_skip, void* sums, void* counts,
+    void* energy, void* skipped, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -200,46 +206,46 @@ extern "C" int fused_bounds_launch(
   const size_t extra = bounds_extra(g);
   const int dc = f8::stage_depth(d, f8::optin_bytes(device), extra, true);
   if (dc == 0) return (int)cudaErrorInvalidValue;
-  float *ct, *csq;
-  err = f8::prepare_c(s, static_cast<const float*>(c), r, k, d,
-                      static_cast<float*>(scratch), &ct, &csq);
-  if (err != cudaSuccess) return (int)err;
-
   const size_t smem = f8::smem_bytes(d, dc, extra, true);
-  // REPRO_BOUNDS_GENERAL_MERGE (scripts/bounds_merge_probe.py builds a
-  // copy with it) takes the general merge at every group size
-#ifdef REPRO_BOUNDS_GENERAL_MERGE
-  auto kernel = bounds_tiles<false>;
-#else
-  auto kernel = gs % 4 == 0 && k % 4 == 0 ? bounds_tiles<true>
-                                          : bounds_tiles<false>;
-#endif
-  err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
   const int n_tiles = cdiv(n, f8::kRows);
   const float* wf = static_cast<const float*>(w);
-  kernel<<<dim3(n_tiles, r), f8::kThreads, smem, s>>>(
-      static_cast<const float*>(x), x_rstride, ct, csq,
-      static_cast<const int*>(lab0), static_cast<const float*>(lb),
-      static_cast<const float*>(ub), n, k, d, dc, gs, g,
-      static_cast<int*>(labels), static_cast<float*>(mind),
-      static_cast<float*>(gmin), static_cast<int*>(part_skip));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
   const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
                         lay[4], lay[5], lay[6], lay[7]};
-  err = launch_segment_sum(s, static_cast<const float*>(x), x_rstride,
-                           static_cast<const int*>(labels), wf, w_rstride, r,
-                           n, k, d, ul, static_cast<float*>(part),
-                           static_cast<float*>(sums),
-                           static_cast<float*>(counts));
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_energy(s, r, static_cast<const float*>(mind), wf,
-                            w_rstride, n, csq + (int64_t)r * k,
-                            static_cast<const int*>(part_skip), n_tiles,
-                            static_cast<float*>(energy),
-                            static_cast<long long*>(skipped));
+  return (int)with_operand_types(x, x_type, c, c_type, [&](auto xt, auto cp) {
+    using TX = std::remove_cv_t<std::remove_pointer_t<decltype(xt)>>;
+    float *ct, *csq;
+    err = f8::prepare_c(s, cp, r, k, d, static_cast<float*>(scratch), &ct,
+                        &csq);
+    if (err != cudaSuccess) return err;
+    // REPRO_BOUNDS_GENERAL_MERGE (scripts/bounds_merge_probe.py builds a
+    // copy with it) takes the general merge at every group size
+#ifdef REPRO_BOUNDS_GENERAL_MERGE
+    auto kernel = bounds_tiles<false, TX>;
+#else
+    auto kernel = gs % 4 == 0 && k % 4 == 0 ? bounds_tiles<true, TX>
+                                            : bounds_tiles<false, TX>;
+#endif
+    err = set_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<dim3(n_tiles, r), f8::kThreads, smem, s>>>(
+        xt, x_rstride, ct, csq, static_cast<const int*>(lab0),
+        static_cast<const float*>(lb), static_cast<const float*>(ub), n, k,
+        d, dc, gs, g, static_cast<int*>(labels), static_cast<float*>(mind),
+        static_cast<float*>(gmin), static_cast<int*>(part_skip));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    err = launch_segment_sum(s, xt, x_rstride,
+                             static_cast<const int*>(labels), wf, w_rstride,
+                             r, n, k, d, ul, static_cast<float*>(part),
+                             static_cast<float*>(sums),
+                             static_cast<float*>(counts));
+    if (err != cudaSuccess) return err;
+    return launch_energy(s, r, static_cast<const float*>(mind), wf,
+                         w_rstride, n, csq + (int64_t)r * k,
+                         static_cast<const int*>(part_skip), n_tiles,
+                         static_cast<float*>(energy),
+                         static_cast<long long*>(skipped));
+  });
 }
 
 // Widest d whose tile, lists of live vectors and G need bits fit the

@@ -6,7 +6,12 @@
 // cluster: the weighted sum of its rows and their total weight; per
 // problem: the energy sum(w * min distance).  Shapes: X (N, d) shared by R
 // centroid sets or (R, N, d) one per set; C (R, K, d); weights none, (N,)
-// or (R, N); all float32.
+// or (R, N).  X and C are each float32 or bfloat16 (the TPU kernel's bf16
+// compute policy: X and C in bf16, |x|^2, |c|^2, the cross terms and the
+// stats accumulated in f32); weights and every output are float32.  A bf16
+// operand is converted to f32 where it is loaded, so a bf16 step reads half
+// the bytes of X and equals the f32 step on the upcast operands bit for
+// bit.
 //
 // What bounds it on this card: the cross terms, 2*N*K*d FP32 operations
 // without tensor cores (67 TFLOP/s), against N*d*4 bytes of X read once
@@ -44,36 +49,37 @@ extern "C" long long fused_lloyd_scratch_floats(int r, int k, int d) {
 // Launches one step on `stream`: |c|^2 and C's transpose, the sweep, the
 // segment sum with the layout `lay` (tiles.update_layout: groups, width,
 // warps, ranges, range_k, slabs, tiles_per_slab, smem) and the energy.
-// Pointers are device pointers; w may be null (every weight 1).  x_rstride
-// / w_rstride are the element offsets between problems (0 when shared).
-// scratch (fused_lloyd_scratch_floats(r, k, d) floats, 16-byte aligned) and
-// part (R * slabs * K * (d+1)) are scratch.  Returns the first CUDA error
-// (0 on success); nothing synchronises.
+// Pointers are device pointers; x_type / c_type are X's and C's type codes
+// (nearest.cuh: 0 float32, 1 bfloat16); w may be null (every weight 1).
+// x_rstride / w_rstride are the element offsets between problems (0 when
+// shared).  scratch (fused_lloyd_scratch_floats(r, k, d) floats, 16-byte
+// aligned) and part (R * slabs * K * (d+1)) are scratch.  Returns the
+// first CUDA error (0 on success); nothing synchronises.
 extern "C" int fused_lloyd_launch(
-    const void* x, long long x_rstride, const void* c, const void* w,
-    long long w_rstride, int r, int n, int k, int d, const int* lay,
-    void* scratch, void* labels, void* mind, void* part, void* sums,
-    void* counts, void* energy, void* stream) {
+    const void* x, int x_type, long long x_rstride, const void* c,
+    int c_type, const void* w, long long w_rstride, int r, int n, int k,
+    int d, const int* lay, void* scratch, void* labels, void* mind,
+    void* part, void* sums, void* counts, void* energy, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
-  float* csq;
-  cudaError_t err = f8::launch_assign(
-      s, xf, x_rstride, static_cast<const float*>(c), r, n, k, d,
-      static_cast<float*>(scratch), static_cast<int*>(labels),
-      static_cast<float*>(mind), &csq);
-  if (err != cudaSuccess) return (int)err;
   const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
                         lay[4], lay[5], lay[6], lay[7]};
-  err = launch_segment_sum(s, xf, x_rstride, static_cast<const int*>(labels),
-                           wf, w_rstride, r, n, k, d, ul,
-                           static_cast<float*>(part),
-                           static_cast<float*>(sums),
-                           static_cast<float*>(counts));
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_energy(s, r, static_cast<const float*>(mind), wf,
-                            w_rstride, n, csq + (int64_t)r * k, nullptr, 0,
-                            static_cast<float*>(energy), nullptr);
+  return (int)with_operand_types(x, x_type, c, c_type, [&](auto xt, auto ct) {
+    float* csq;
+    cudaError_t err = f8::launch_assign(
+        s, xt, x_rstride, ct, r, n, k, d, static_cast<float*>(scratch),
+        static_cast<int*>(labels), static_cast<float*>(mind), &csq);
+    if (err != cudaSuccess) return err;
+    err = launch_segment_sum(s, xt, x_rstride,
+                             static_cast<const int*>(labels), wf, w_rstride,
+                             r, n, k, d, ul, static_cast<float*>(part),
+                             static_cast<float*>(sums),
+                             static_cast<float*>(counts));
+    if (err != cudaSuccess) return err;
+    return launch_energy(s, r, static_cast<const float*>(mind), wf,
+                         w_rstride, n, csq + (int64_t)r * k, nullptr, 0,
+                         static_cast<float*>(energy), nullptr);
+  });
 }
 
 extern "C" int fused_lloyd_max_features(int device) {

@@ -1,5 +1,6 @@
 // Shared device code of the kernels in this directory: the argmin's pair
-// order, the centroid norms and the shared-memory opt-in.  The sweep
+// order, the operands' f32 values, the centroid norms, the operand type
+// dispatch and the shared-memory opt-in.  The sweep
 // itself is sweep_fp32.cuh's.
 //
 // The running (min, argmin) orders pairs by (NaN first, value, index): the
@@ -12,6 +13,7 @@
 // seed does (src/repro/kernels/fused_lloyd.py:176-181).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -30,18 +32,51 @@ __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
+// An operand element as f32: X and C come in float32 or bfloat16, and every
+// kernel computes in f32 on the exact upcast of a bf16 value (a product of
+// two bf16 values is exact in f32), so a bf16 launch equals the f32 launch
+// on the upcast operands bit for bit.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // |c|^2 of `rows` rows of length d, one warp per row, lanes folded by a
 // fixed shuffle tree (deterministic).
-__global__ void row_sqnorms(const float* __restrict__ c, int64_t rows, int d,
+template <typename TC>
+__global__ void row_sqnorms(const TC* __restrict__ c, int64_t rows, int d,
                             float* __restrict__ out) {
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const float* cr = c + row * d;
+  const TC* cr = c + row * d;
   float s = 0.f;
-  for (int j = lane; j < d; j += 32) s = fmaf(cr[j], cr[j], s);
+  for (int j = lane; j < d; j += 32) {
+    const float v = to_f32(cr[j]);
+    s = fmaf(v, v, s);
+  }
   for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) out[row] = s;
+}
+
+// The launchers' operand type codes: X and C are each float32 (0) or
+// bfloat16 (1).  Calls f(x, c) with both cast to their element types (C
+// may be null where a kernel has none); cudaErrorInvalidValue for another
+// code.
+template <typename F>
+__host__ inline cudaError_t with_operand_types(const void* x, int x_type,
+                                               const void* c, int c_type,
+                                               F&& f) {
+  using bf16 = __nv_bfloat16;
+  const auto xf = static_cast<const float*>(x);
+  const auto xb = static_cast<const bf16*>(x);
+  const auto cf = static_cast<const float*>(c);
+  const auto cb = static_cast<const bf16*>(c);
+  if (x_type == 0 && c_type == 0) return f(xf, cf);
+  if (x_type == 0 && c_type == 1) return f(xf, cb);
+  if (x_type == 1 && c_type == 0) return f(xb, cf);
+  if (x_type == 1 && c_type == 1) return f(xb, cb);
+  return cudaErrorInvalidValue;
 }
 
 // Opt in to more than 48 KB of dynamic shared memory when needed.

@@ -3,6 +3,13 @@
 // of the labels their sweep has just written (fused_lloyd.cu).  The
 // design is update.cu's (see there); launch_segment_sum launches it and
 // the slab reduction with the layout of tiles.update_layout.
+//
+// X is float32 or bfloat16 in device memory.  A bf16 X is staged as it is
+// (a 16-byte vector holds 8 values, not 4) and each value converted to f32
+// as it is added, so the partials stay f32 and are added in the same order.
+// The layout depends on the shapes alone and the staging slots keep their
+// f32 size (a bf16 row takes at most as many vectors as an f32 one), so a
+// bf16 launch equals the f32 launch on the upcast X bit for bit.
 #pragma once
 
 #include "async_copy.cuh"
@@ -20,8 +27,8 @@ struct UpdateGeom {
   int n, k, d;
   int64_t w_rstride;   // floats between problems' weights (0: shared)
   int groups, width, warps, ranges, range_k, slabs, tiles_per_slab;
-  int align;           // floats from X's base back to a 16-byte boundary
-  int64_t x_floats;    // floats of X
+  int align;           // elements from X's base back to a 16-byte boundary
+  int64_t x_elems;     // elements of X
 };
 
 // Floats of one staged row of a group `width` columns wide: the 16-byte
@@ -41,14 +48,18 @@ __host__ inline int update_smem(int width, int range_k) {
               6 * kUpdateRows);
 }
 
+// TX: X's element type (float or __nv_bfloat16); kVec of them make a
+// 16-byte vector.
+template <typename TX>
 __global__ void __launch_bounds__(kUpdateWarps * 32, 1)
-update_slabs(const float* __restrict__ x, int64_t x_rstride,
+update_slabs(const TX* __restrict__ x, int64_t x_rstride,
              const int* __restrict__ labels, const float* __restrict__ w,
              UpdateGeom g, float* __restrict__ part) {
+  constexpr int kVec = 16 / sizeof(TX);
   extern __shared__ float4 smem_raw[];
   const int cols = g.d + 1;
   const int pitch = g.width | 1;   // odd: 32 labels hit 32 banks
-  const int spitch = staged_pitch(g.width);
+  const int spitch = staged_pitch(g.width);   // floats of a staged row
   const int grp = blockIdx.x % g.groups;
   const int q = blockIdx.x / g.groups % g.ranges;
   const int slab = blockIdx.x / (g.groups * g.ranges);
@@ -60,7 +71,8 @@ update_slabs(const float* __restrict__ x, int64_t x_rstride,
   const int nthreads = g.warps * 32;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // the staged rows first: 16-byte copies need 16-byte aligned rows
+  // the staged rows first: 16-byte copies need 16-byte aligned rows.  A
+  // staged row is spitch floats (4 * spitch bytes) whatever TX is.
   float* xs = reinterpret_cast<float*>(smem_raw);     // stages x (rows, spitch)
   float* acc = xs + kUpdateStages * kUpdateRows * spitch;    // (k1 - k0, pitch)
   float* ws = acc + (size_t)g.range_k * pitch;         // stages x rows
@@ -74,11 +86,11 @@ update_slabs(const float* __restrict__ x, int64_t x_rstride,
 
   for (int e = threadIdx.x; e < (k1 - k0) * pitch; e += nthreads) acc[e] = 0.f;
 
-  // X from its 16-byte boundary on; row i of the group starts at float
-  // first + i * d, the vector that holds it at (first + i * d) & ~3
-  const float* xa = x - g.align;
+  // X from its 16-byte boundary on; row i of the group starts at element
+  // first + i * d, the vector that holds it at (first + i * d) & ~(kVec-1)
+  const TX* xa = x - g.align;
   const int64_t first = g.align + r * x_rstride + c0;
-  const int nvec = cdiv(xcols + 3, 4);
+  const int nvec = cdiv(xcols + kVec - 1, kVec);
   const int* lr = labels + (int64_t)r * g.n;
   const int n_tiles = cdiv(g.n, kUpdateRows);
   const int t0 = slab * g.tiles_per_slab;
@@ -95,10 +107,12 @@ update_slabs(const float* __restrict__ x, int64_t x_rstride,
       float* xb = xs + b * kUpdateRows * spitch;
       for (int e = threadIdx.x; e < rows * nvec; e += nthreads) {
         const int i = e / nvec, v = e - i * nvec;
-        const int64_t at = ((first + (row0 + i) * g.d) & ~3LL) + 4 * v;
-        // past the end of X: zeros (those floats are never read)
-        const int64_t left = g.align + g.x_floats - at;
-        const int bytes = left >= 4 ? 16 : left > 0 ? 4 * (int)left : 0;
+        const int64_t at =
+            ((first + (row0 + i) * g.d) & ~(int64_t)(kVec - 1)) + kVec * v;
+        // past the end of X: zeros (those elements are never read)
+        const int64_t left = g.align + g.x_elems - at;
+        const int bytes = left >= kVec ? 16
+                          : left > 0 ? (int)sizeof(TX) * (int)left : 0;
         cp_async16(xb + i * spitch + 4 * v, bytes ? xa + at : xa, bytes);
       }
       for (int i = threadIdx.x; i < kUpdateRows; i += nthreads) {
@@ -154,8 +168,8 @@ update_slabs(const float* __restrict__ x, int64_t x_rstride,
       const unsigned mask = im[o], extra = ie[o];
       const int cl = ic[o];
       const float wi = ws[b * kUpdateRows + i];
-      const float* xi = xb + i * spitch +
-                        (int)((first + (row0 + i) * g.d) & 3);
+      const TX* xi = reinterpret_cast<const TX*>(xb + i * spitch) +
+                     (int)((first + (row0 + i) * g.d) & (kVec - 1));
       float* cell = acc + (size_t)(cl < 0 ? 0 : cl) * pitch;
       // the warp's columns j = warp + u * warps, kUpdateBatch at a time:
       // values, then the leader's sums of its peers in lane order, then
@@ -165,7 +179,7 @@ update_slabs(const float* __restrict__ x, int64_t x_rstride,
 #pragma unroll
         for (int u = 0; u < kUpdateBatch; ++u) {
           const int j = j0 + u * g.warps;
-          v[u] = j < xcols ? wi * xi[j] : wi;
+          v[u] = j < xcols ? wi * to_f32(xi[j]) : wi;
           sum[u] = v[u];
         }
         unsigned rest = mask;
@@ -208,25 +222,30 @@ struct UpdateLayout {
   int groups, width, warps, ranges, range_k, slabs, tiles_per_slab, smem;
 };
 
-// The segment sum of labels (R, N) over X and weights (none, or per row
-// with w_rstride floats between problems) into part (R * slabs * K * (d+1)
-// floats), then sums (R, K, d) and counts (R, K) in slab order, on stream
-// s.  Returns the first CUDA error.
+// The segment sum of labels (R, N) over X (float32 or bfloat16, x_rstride
+// elements between problems) and weights (none, or per row with w_rstride
+// floats between problems) into part (R * slabs * K * (d+1) floats), then
+// sums (R, K, d) and counts (R, K) in slab order, on stream s.  Returns the
+// first CUDA error.
+template <typename TX>
 __host__ inline cudaError_t launch_segment_sum(
-    cudaStream_t s, const float* x, int64_t x_rstride, const int* labels,
+    cudaStream_t s, const TX* x, int64_t x_rstride, const int* labels,
     const float* w, int64_t w_rstride, int r, int n, int k, int d,
     const UpdateLayout& lay, float* part, float* sums, float* counts) {
   if (lay.smem != update_smem(lay.width, lay.range_k) ||
       lay.smem > kUpdateSmem || lay.warps < 1 || lay.warps > kUpdateWarps)
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(update_slabs, (size_t)lay.smem);
+  if (reinterpret_cast<uintptr_t>(x) % sizeof(TX) != 0)
+    return cudaErrorMisalignedAddress;
+  cudaError_t err = set_smem(update_slabs<TX>, (size_t)lay.smem);
   if (err != cudaSuccess) return err;
-  const int align = (int)(reinterpret_cast<uintptr_t>(x) % 16 / 4);
-  const int64_t x_floats = x_rstride ? (int64_t)r * x_rstride : (int64_t)n * d;
+  const int align =
+      (int)(reinterpret_cast<uintptr_t>(x) % 16 / sizeof(TX));
+  const int64_t x_elems = x_rstride ? (int64_t)r * x_rstride : (int64_t)n * d;
   const UpdateGeom g{n, k, d, w_rstride, lay.groups, lay.width, lay.warps,
                      lay.ranges, lay.range_k, lay.slabs, lay.tiles_per_slab,
-                     align, x_floats};
-  update_slabs<<<dim3((unsigned)lay.slabs * lay.ranges * lay.groups, r),
+                     align, x_elems};
+  update_slabs<TX><<<dim3((unsigned)lay.slabs * lay.ranges * lay.groups, r),
                  lay.warps * 32, lay.smem, s>>>(x, x_rstride, labels, w, g,
                                                 part);
   err = cudaGetLastError();

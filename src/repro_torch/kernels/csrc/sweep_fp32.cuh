@@ -20,6 +20,16 @@
 // the lowest index wins a tie, and the merge across lanes gives one answer
 // in any order.
 //
+// Operand types.  X and C are each float32 or bfloat16 in device memory
+// (the reference's bf16 compute policy streams both in bf16).  A bf16 value
+// is converted to f32 where it is stored: X into the transposed tile
+// (load_rows), C into the transposed scratch (transpose_c) and |c|^2
+// (row_sqnorms).  The product of two bf16 values is exact in f32, so these
+// FMA chains compute what the TPU kernel's bf16 dot_general with f32
+// accumulation computes, and a bf16 launch equals the f32 launch on the
+// upcast operands bit for bit.  The tile stays f32, so the widest d does not
+// change.
+//
 // Layout.  256 threads; warp w owns rows 4w..4w+3 and 32+4w..32+4w+3 of the
 // tile, and lane l slots 4l..4l+3 and 128+4l..128+4l+3 of each 256-slot
 // chunk: an 8 x 8 block of cross terms per thread, fed per feature by two
@@ -65,10 +75,11 @@ __host__ __device__ inline int pad_centroids(int k) {
   return cdiv(k, kCents) * kCents;
 }
 
-// C (r * k rows of d) -> ct (r, d, pad_centroids(k)): feature-major, zero
-// past k.
+// C (r * k rows of d, float32 or bfloat16) -> ct (r, d, pad_centroids(k))
+// in f32: feature-major, zero past k.
+template <typename TC>
 __global__ void __launch_bounds__(256)
-transpose_c(const float* __restrict__ c, int r, int k, int d, int k_pad,
+transpose_c(const TC* __restrict__ c, int r, int k, int d, int k_pad,
             float* __restrict__ ct) {
   const int64_t total = (int64_t)r * d * k_pad;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
@@ -77,7 +88,7 @@ transpose_c(const float* __restrict__ c, int r, int k, int d, int k_pad,
     const int64_t row = e / k_pad;
     const int j = (int)(row % d);
     const int64_t rr = row / d;
-    ct[e] = kk < k ? c[(rr * k + kk) * d + j] : 0.f;
+    ct[e] = kk < k ? to_f32(c[(rr * k + kk) * d + j]) : 0.f;
   }
 }
 
@@ -87,8 +98,9 @@ __host__ inline long long scratch_floats(int r, int k, int d) {
 }
 
 // On stream s: C transposed into the head of scratch (ct) and |c|^2 after
-// it (csq), both returned through the out pointers.
-__host__ inline cudaError_t prepare_c(cudaStream_t s, const float* c, int r,
+// it (csq), both f32 and returned through the out pointers.
+template <typename TC>
+__host__ inline cudaError_t prepare_c(cudaStream_t s, const TC* c, int r,
                                       int k, int d, float* scratch,
                                       float** ct, float** csq) {
   const int k_pad = pad_centroids(k);
@@ -96,12 +108,12 @@ __host__ inline cudaError_t prepare_c(cudaStream_t s, const float* c, int r,
   *ct = scratch;
   *csq = scratch + ct_floats;
   const int64_t rows = (int64_t)r * k;
-  row_sqnorms<<<(unsigned)((rows + 7) / 8), repro::kThreads, 0, s>>>(
+  row_sqnorms<TC><<<(unsigned)((rows + 7) / 8), repro::kThreads, 0, s>>>(
       c, rows, d, *csq);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int64_t blocks = (ct_floats + 255) / 256;
-  transpose_c<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+  transpose_c<TC><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
       c, r, k, d, k_pad, *ct);
   return cudaGetLastError();
 }
@@ -175,16 +187,18 @@ struct Tile {
   }
 };
 
-// Rows [row0, row0 + rows) of X (row-major, d columns) into the transposed
-// tile, zero past the rows; then |x|^2 per row (threads 0-63), an FMA chain
-// over the columns in increasing order.  Ends with __syncthreads().
-__device__ void load_rows(const Tile& sm, const float* __restrict__ x,
+// Rows [row0, row0 + rows) of X (row-major, d columns, float32 or
+// bfloat16) into the transposed f32 tile, zero past the rows; then |x|^2 per
+// row (threads 0-63), an FMA chain over the columns in increasing order.
+// Ends with __syncthreads().
+template <typename TX>
+__device__ void load_rows(const Tile& sm, const TX* __restrict__ x,
                           int64_t row0, int rows, int d) {
-  const float* src = x + row0 * d;
+  const TX* src = x + row0 * d;
 #pragma unroll 4
   for (int e = threadIdx.x; e < rows * d; e += kThreads) {
     const int r = e / d, col = e - r * d;
-    sm.xs[col * kXLd + r] = src[e];
+    sm.xs[col * kXLd + r] = to_f32(src[e]);
   }
   for (int e = threadIdx.x; e < (kRows - rows) * d; e += kThreads) {
     const int r = rows + e / d, col = e % d;
@@ -631,8 +645,9 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
 // One 64-row tile of X a block (blockIdx.x), one problem a grid row
 // (blockIdx.y): each row's label and min distance.  The assignment kernel,
 // and the fused step's sweep.
+template <typename TX>
 __global__ void __launch_bounds__(kThreads, 2)
-assign_tiles(const float* __restrict__ x, int64_t x_rstride,
+assign_tiles(const TX* __restrict__ x, int64_t x_rstride,
              const float* __restrict__ ct, const float* __restrict__ csq,
              int n, int k, int d, int dc, int* __restrict__ labels,
              float* __restrict__ mind) {
@@ -654,9 +669,11 @@ assign_tiles(const float* __restrict__ x, int64_t x_rstride,
 // (scratch_floats(r, k, d) floats, 16-byte aligned), then assign_tiles.
 // The assignment kernel's launch and the fused step's sweep, so the two
 // give the same labels and distances by construction.  *csq (may be null)
-// receives |c|^2's address in scratch.
-__host__ inline cudaError_t launch_assign(cudaStream_t s, const float* x,
-                                          int64_t x_rstride, const float* c,
+// receives |c|^2's address in scratch.  X and C are each float32 or
+// bfloat16; the sweep runs on their f32 values.
+template <typename TX, typename TC>
+__host__ inline cudaError_t launch_assign(cudaStream_t s, const TX* x,
+                                          int64_t x_rstride, const TC* c,
                                           int r, int n, int k, int d,
                                           float* scratch, int* labels,
                                           float* mind,
@@ -671,9 +688,9 @@ __host__ inline cudaError_t launch_assign(cudaStream_t s, const float* x,
   if (err != cudaSuccess) return err;
   if (csq_out) *csq_out = csq;
   const size_t smem = smem_bytes(d, dc);
-  err = set_smem(assign_tiles, smem);
+  err = set_smem(assign_tiles<TX>, smem);
   if (err != cudaSuccess) return err;
-  assign_tiles<<<dim3(cdiv(n, kRows), r), kThreads, smem, s>>>(
+  assign_tiles<TX><<<dim3(cdiv(n, kRows), r), kThreads, smem, s>>>(
       x, x_rstride, ct, csq, n, k, d, dc, labels, mind);
   return cudaGetLastError();
 }

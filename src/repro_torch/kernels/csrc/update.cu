@@ -7,8 +7,9 @@
 // counts[r, k] = sum of their w_i.  A label outside [0, K) adds nothing
 // (the TPU wrapper gives its padding rows label -1).  Shapes: X (N, d)
 // shared by the R label sets or (R, N, d) one per set; labels (R, N)
-// int32; weights none or (N,); all float32 -> sums (R, K, d), counts
-// (R, K).
+// int32; weights none or (N,) float32; X float32 or bfloat16 (each value
+// converted to f32 as it is added) -> sums (R, K, d), counts (R, K)
+// float32.
 //
 // What bounds it on this card: bytes.  X, the labels and the weights are
 // read once, (N*d + 2N)*4 bytes: 0.7 GB, 0.21 ms at 3.35 TB/s at N = 2.46 M,
@@ -51,11 +52,12 @@
 #include "segment_sum.cuh"
 
 // Launches the two kernels on `stream` with the layout of
-// tiles.update_layout.  Pointers are device pointers; w may be null (every
-// weight 1).  x_rstride is the element offset between problems (0 when X
-// is shared).  part (R*slabs*K*(d+1) floats) is scratch.  Returns the first
+// tiles.update_layout.  Pointers are device pointers; x_type is X's type
+// code (nearest.cuh: 0 float32, 1 bfloat16); w may be null (every weight
+// 1).  x_rstride is the element offset between problems (0 when X is
+// shared).  part (R*slabs*K*(d+1) floats) is scratch.  Returns the first
 // CUDA error (0 on success); nothing synchronises.
-extern "C" int update_launch(const void* x, long long x_rstride,
+extern "C" int update_launch(const void* x, int x_type, long long x_rstride,
                              const void* labels, const void* w, int r, int n,
                              int k, int d, int groups, int width, int warps,
                              int ranges, int range_k, int slabs,
@@ -63,12 +65,13 @@ extern "C" int update_launch(const void* x, long long x_rstride,
                              void* sums, void* counts, void* stream) {
   const UpdateLayout lay{groups, width, warps,          ranges,
                          range_k, slabs, tiles_per_slab, smem};
-  return (int)launch_segment_sum(
-      static_cast<cudaStream_t>(stream), static_cast<const float*>(x),
-      x_rstride, static_cast<const int*>(labels),
-      static_cast<const float*>(w), 0, r, n, k, d, lay,
-      static_cast<float*>(part), static_cast<float*>(sums),
-      static_cast<float*>(counts));
+  return (int)with_operand_types(x, x_type, nullptr, 0, [&](auto xt, auto) {
+    return launch_segment_sum(
+        static_cast<cudaStream_t>(stream), xt, x_rstride,
+        static_cast<const int*>(labels), static_cast<const float*>(w), 0, r,
+        n, k, d, lay, static_cast<float*>(part), static_cast<float*>(sums),
+        static_cast<float*>(counts));
+  });
 }
 
 extern "C" const char* update_error_string(int code) {

@@ -12,8 +12,10 @@ kernel or raises; on a CPU tensor it runs ``fused_lloyd_plain`` or
 ``fused_bounds_plain``.
 
 ``launches`` / ``bounds_launches`` count the launches of the two kernels
-and ``plain_calls`` / ``bounds_plain_calls`` the calls of their plain
-versions, so a run can show which of them it went through.
+(``bf16_launches`` / ``bounds_bf16_launches`` those of them on a bf16 X,
+the kernels' bf16 variants) and ``plain_calls`` / ``bounds_plain_calls``
+the calls of their plain versions, so a run can show which of them it
+went through.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ import torch
 from repro_torch.kernels import build, ref, tiles, update
 
 launches = 0
+bf16_launches = 0
 plain_calls = 0
 bounds_launches = 0
+bounds_bf16_launches = 0
 bounds_plain_calls = 0
 
 
@@ -65,7 +69,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.fused_lloyd_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, p, ll, i, i, i, i, p,
+        fn.argtypes = [p, i, ll, p, i, p, ll, i, i, i, i, p,
                        p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.fused_lloyd_error_string.argtypes = [ctypes.c_int]
@@ -88,9 +92,12 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
 
     x (N, d) or (R, N, d); c (K, d) or (R, K, d); w None, (N,) or (R, N)
     row weights that scale sums/counts/energy (labels and min_sqdist stay
-    unweighted).  Returns (labels int32, min_sqdist f32, sums (K, d) f32,
-    counts (K,) f32, energy () f32), each with a leading R axis when c is
-    (R, K, d).  Repeated calls on the same inputs are bitwise equal.
+    unweighted).  x and c are each float32 or bfloat16: the kernel reads
+    them as they are and computes in f32, so a bf16 call equals the f32
+    call on the upcast operands bit for bit.  Returns (labels int32,
+    min_sqdist f32, sums (K, d) f32, counts (K,) f32, energy () f32), each
+    with a leading R axis when c is (R, K, d).  Repeated calls on the same
+    inputs are bitwise equal.
 
     ``bounds=(lab0, lb_sq, ub_sq)`` with a group size ``gs`` switches to
     the tile-skipping kernel: lab0 (N,) int32 the standing labels, lb_sq
@@ -105,7 +112,7 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
         return _fused_bounds(x, c, w, bounds, gs)
     if gs is not None:
         raise ValueError("gs= goes with bounds=")
-    global launches
+    global launches, bf16_launches
     batched, r, n, k, d = tiles.problem_shape(x, c, w)
     if x.device.type == "cpu" and c.device.type == "cpu" \
             and (w is None or w.device.type == "cpu"):
@@ -114,6 +121,7 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"R={r} exceeds {tiles.MAX_PROBLEMS} problems")
     lib = _bind(build.load("fused_lloyd"))
     tiles.check_cuda_operands(lib.fused_lloyd_max_features, x, c, w)
+    w = tiles.kernel_weights(w)
     lay, lay_arr = _stats_layout(lib, n, r, k, d)
     f32 = dict(dtype=torch.float32, device=x.device)
     labels = torch.empty((r, n), dtype=torch.int32, device=x.device)
@@ -128,8 +136,9 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.fused_lloyd_launch(
-            x.data_ptr(), x_rstride, c.data_ptr(),
-            None if w is None else w.data_ptr(), w_rstride,
+            x.data_ptr(), tiles.type_code(x), x_rstride, c.data_ptr(),
+            tiles.type_code(c), None if w is None else w.data_ptr(),
+            w_rstride,
             r, n, k, d, lay_arr, scratch.data_ptr(),
             labels.data_ptr(), mind.data_ptr(), part.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), energy.data_ptr(), stream)
@@ -137,6 +146,7 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
         raise RuntimeError(f"fused_lloyd launch failed: CUDA error {rc} "
                            f"({lib.fused_lloyd_error_string(rc).decode()})")
     launches += 1
+    bf16_launches += x.dtype == torch.bfloat16
     out = (labels, mind, sums, counts, energy)
     return out if batched else tuple(o[0] for o in out)
 
@@ -189,7 +199,7 @@ def _bind_bounds(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.fused_bounds_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, ll, p, p, ll, p, p, p, i, i, i, i, i, i, p,
+        fn.argtypes = [p, i, ll, p, i, p, ll, p, p, p, i, i, i, i, i, i, p,
                        p, p, p, p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.fused_bounds_error_string.argtypes = [ctypes.c_int]
@@ -206,7 +216,7 @@ def _bind_bounds(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _fused_bounds(x, c, w, bounds, gs):
-    global bounds_launches
+    global bounds_launches, bounds_bf16_launches
     batched, r, n, k, d = tiles.problem_shape(x, c, w)
     g = _bounds_shape(c, bounds, gs, batched, r, n, k)
     lab0, lb_sq, ub_sq = bounds
@@ -221,6 +231,7 @@ def _fused_bounds(x, c, w, bounds, gs):
         lambda dev: lib.fused_bounds_max_features(dev, g), x, c, w, lab0,
         lb_sq, ub_sq)
     tile_rows = lib.fused_bounds_tile_rows()
+    w = tiles.kernel_weights(w)
     lay, lay_arr = _stats_layout(lib, n, r, k, d)
     n_tiles = tiles.cdiv(n, tile_rows)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -239,8 +250,9 @@ def _fused_bounds(x, c, w, bounds, gs):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.fused_bounds_launch(
-            x.data_ptr(), x_rstride, c.data_ptr(),
-            None if w is None else w.data_ptr(), w_rstride,
+            x.data_ptr(), tiles.type_code(x), x_rstride, c.data_ptr(),
+            tiles.type_code(c), None if w is None else w.data_ptr(),
+            w_rstride,
             lab0.data_ptr(), lb_sq.data_ptr(), ub_sq.data_ptr(),
             r, n, k, d, int(gs), g, lay_arr, scratch.data_ptr(),
             labels.data_ptr(), mind.data_ptr(), gmin_sq.data_ptr(),
@@ -252,6 +264,7 @@ def _fused_bounds(x, c, w, bounds, gs):
             f"fused_bounds launch failed: CUDA error {rc} "
             f"({lib.fused_bounds_error_string(rc).decode()})")
     bounds_launches += 1
+    bounds_bf16_launches += x.dtype == torch.bfloat16
     # the cell count made on the card: a host tensor would be a copy that
     # keeps the next launch waiting, a Python divisor a multiplication by
     # its reciprocal, not the plain version's division

@@ -122,17 +122,40 @@ def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand(rows - m, *x.shape[1:])])
 
 
+# the operand types of X and C: csrc/nearest.cuh's type codes
+OPERAND_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def type_code(t: torch.Tensor) -> int:
+    """X's or C's type code for a launcher (0 float32, 1 bfloat16)."""
+    return OPERAND_TYPES[t.dtype]
+
+
+def check_operand_types(*tensors: Optional[torch.Tensor]) -> None:
+    """X, C and the row weights are each float32 or bfloat16; another
+    dtype raises TypeError."""
+    for t in tensors:
+        if t is not None and t.dtype not in OPERAND_TYPES:
+            raise TypeError(f"the kernels take float32 or bfloat16 "
+                            f"operands; got {t.dtype}")
+
+
+def kernel_weights(w: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Row weights as the kernels read them: float32 (a bf16 weight
+    converts exactly, as repro/kernels/update.py:123 casts it)."""
+    return None if w is None else w.to(torch.float32)
+
+
 def problem_shape(x: torch.Tensor, c: torch.Tensor,
                   w: Optional[torch.Tensor] = None):
     """Validate the kernels' operand shapes; -> (batched, R, N, K, d).
 
-    x (N, d) or (R, N, d); c (K, d) or (R, K, d); w None, (N,) or (R, N),
-    all float32 (bf16 is still to be ported).  A per-problem x or w needs
-    a per-problem c, as in the TPU wrappers."""
-    for t in (x, c, w):
-        if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"the kernels take float32 only in this slice "
-                            f"(bf16 is still to be ported); got {t.dtype}")
+    x (N, d) or (R, N, d); c (K, d) or (R, K, d); w None, (N,) or (R, N).
+    X and C are each float32 or bfloat16 (a bf16 X against f32 centroids
+    is what a bf16-policy model's predict sees), w float32 or bfloat16
+    (``kernel_weights``).  A per-problem x or w needs a per-problem c, as
+    in the TPU wrappers."""
+    check_operand_types(x, c, w)
     if c.dim() not in (2, 3) or x.dim() not in (2, 3):
         raise ValueError(f"x must be (N, d) or (R, N, d) and c (K, d) or "
                          f"(R, K, d); got {tuple(x.shape)}, {tuple(c.shape)}")

@@ -5,7 +5,8 @@ Counterpart of ``repro.kernels.update.update_pallas`` (the TPU kernel
 ``_update_kernel``), the second kernel of the ``pallas`` engine and the
 ``stats_fn`` of every kernel backend.  On a CUDA tensor ``update``
 launches the kernel or raises; on a CPU tensor it runs ``update_plain``.
-``launches`` / ``plain_calls`` count each.
+``launches`` / ``plain_calls`` count each, ``bf16_launches`` the launches
+on a bf16 X (the kernel's bf16 variant).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from repro_torch.kernels import build, ref, tiles
 
 launches = 0
+bf16_launches = 0
 plain_calls = 0
 
 
@@ -25,11 +27,9 @@ def _shape(x: torch.Tensor, labels: torch.Tensor,
            w: Optional[torch.Tensor]):
     """Validate the operands; -> (batched, R, N, d).  labels (N,) or
     (R, N) int32 over x (N, d) shared or (R, N, d) per problem; w None or
-    (N,); float32 only (bf16 is still to be ported)."""
-    for t in (x, w):
-        if t is not None and t.dtype != torch.float32:
-            raise TypeError(f"the kernels take float32 only in this slice "
-                            f"(bf16 is still to be ported); got {t.dtype}")
+    (N,); x and w each float32 or bfloat16 (the kernel adds a bf16 X's
+    values in f32, and reads a bf16 w converted to f32)."""
+    tiles.check_operand_types(x, w)
     if labels.dtype != torch.int32:
         raise TypeError(f"labels must be int32; got {labels.dtype}")
     if labels.dim() not in (1, 2) or x.dim() not in (2, 3):
@@ -69,8 +69,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.update_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, i, i, i, i,
-                       i, i, i, i, p, p, p, p]
+        fn.argtypes = [p, i, ctypes.c_longlong, p, p, i, i, i, i, i, i, i,
+                       i, i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.update_error_string.argtypes = [ctypes.c_int]
         lib.update_error_string.restype = ctypes.c_char_p
@@ -97,7 +97,7 @@ def update(x: torch.Tensor, labels: torch.Tensor, k: int,
     per-problem (R, N, d) rows, adding a leading R axis to the outputs.  A
     label outside [0, K) adds nothing.  Repeated calls on the same inputs
     are bitwise equal."""
-    global launches
+    global launches, bf16_launches
     batched, r, n, d = _shape(x, labels, w)
     if x.device.type == "cpu" and labels.device.type == "cpu" \
             and (w is None or w.device.type == "cpu"):
@@ -107,6 +107,7 @@ def update(x: torch.Tensor, labels: torch.Tensor, k: int,
     if k < 1:
         raise ValueError(f"k must be at least 1; got {k}")
     lib = _bind(build.load("update"))
+    w = tiles.kernel_weights(w)
     tiles.check_cuda_operands(None, x, labels, w)
     lay = layout(lib, n, r, k, d)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -116,7 +117,8 @@ def update(x: torch.Tensor, labels: torch.Tensor, k: int,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         rc = lib.update_launch(
-            x.data_ptr(), n * d if x.dim() == 3 else 0, labels.data_ptr(),
+            x.data_ptr(), tiles.type_code(x), n * d if x.dim() == 3 else 0,
+            labels.data_ptr(),
             None if w is None else w.data_ptr(), r, n, k, d, lay.groups,
             lay.width, lay.warps, lay.ranges, lay.range_k, lay.slabs,
             lay.tiles_per_slab, lay.smem_bytes, part.data_ptr(),
@@ -125,4 +127,5 @@ def update(x: torch.Tensor, labels: torch.Tensor, k: int,
         raise RuntimeError(f"update launch failed: CUDA error {rc} "
                            f"({lib.update_error_string(rc).decode()})")
     launches += 1
+    bf16_launches += x.dtype == torch.bfloat16
     return (sums, counts) if batched else (sums[0], counts[0])

@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import lloyd
-from repro_torch.core.backends import bounds
+from repro_torch.core.backends import bounds, refuse_bf16
 from repro_torch.core.locality import counting_sort_perm
 from repro_torch.core.lloyd import pairwise_sqdist
 
@@ -120,6 +120,7 @@ def build_closure_index(centroids: torch.Tensor,
     [1, K]; the candidate matrix is as wide as the largest count and
     ``n_valid`` holds the counts.  A uniform build returns
     ``n_valid=None``."""
+    refuse_bf16("the serving index", None, centroids)
     k = centroids.shape[0]
     g = n_groups if n_groups is not None else default_n_groups(k)
     g = max(1, min(int(g), k))
@@ -198,6 +199,7 @@ def candidate_table(centroids: torch.Tensor,
                     candidates: torch.Tensor) -> torch.Tensor:
     """(G, C, d) centroid rows of every router's closure: the operand the
     query functions scan.  Build it once per model version."""
+    refuse_bf16("the serving index", None, centroids)
     g, c = candidates.shape
     return centroids[candidates.reshape(-1).long()].reshape(g, c, -1)
 
@@ -249,6 +251,7 @@ def closure_assign(x, centroids, routers, candidates, table=None,
     when None); ``bucketed`` sorts the batch by router id (equal outputs,
     bit for bit); ``n_valid`` is an adaptive index's per-router live
     count: a masked column prices +inf and never wins."""
+    refuse_bf16("the serving index", None, x, centroids)
     if table is None:
         table = candidate_table(centroids, candidates)
     g, d2 = _candidate_sqdist(x, routers, table, bucketed=bucketed,
@@ -265,6 +268,7 @@ def closure_sqdist(x, centroids, routers, candidates, table=None,
     elsewhere, so an argmin over a row reproduces ``closure_assign``.
     ``bucketed`` / ``n_valid`` as there; a masked adaptive column holds
     ``fill``, like a non-candidate."""
+    refuse_bf16("the serving index", None, x, centroids)
     k = centroids.shape[0]
     if table is None:
         table = candidate_table(centroids, candidates)

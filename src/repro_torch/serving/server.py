@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import NotFittedError
+from repro_torch.core.backends import refuse_bf16
 from repro_torch.core.lloyd import pairwise_sqdist
 from repro_torch.runtime.metrics import as_metrics
 from repro_torch.runtime.writer import read_manifest
@@ -97,6 +98,7 @@ class ServingModel:
     def __init__(self, centroids: torch.Tensor,
                  index: Optional[ClosureIndex] = None, *, version=None,
                  approx: bool = True):
+        refuse_bf16("the serving tier", None, centroids)
         self.centroids = torch.as_tensor(centroids)
         self.index = index
         self.version = version
@@ -116,6 +118,7 @@ class ServingModel:
             raise NotFittedError(
                 "cannot serve an unfitted estimator; call fit() or load "
                 "a fitted artifact first")
+        refuse_bf16("the serving tier", model.backend, model.centroids_)
         index = getattr(model, "closure_index_", None)
         if index is None and n_candidates is not None:
             index = build_closure_index(model.centroids_,

@@ -134,10 +134,20 @@ def test_interop_estimator_from_arrays(fitted, tmp_path):
 
 @pytest.mark.parametrize("params,exc", [
     ({"n_clusters": 3, "backend": {"name": "dense", "compute": "bfloat16"}},
-     NotImplementedError),
+     None),
     ({"n_clusters": 3, "block_n": 64}, ValueError),
+    ({"n_clusters": 3, "backend": {"name": "dense", "compute": "float16"}},
+     NotImplementedError),
 ])
 def test_interop_rejects_what_is_not_ported(params, exc):
+    """A bf16 policy is ported (the engine is rebuilt with it); float16
+    and an unknown field are not."""
+    arrays = {"centroids_": np.eye(3, 2)}
+    if exc is None:
+        model = estimator_from_arrays(params, arrays, device="cpu")
+        assert model.backend.precision.compute == torch.bfloat16
+        np.testing.assert_array_equal(
+            model.predict(np.eye(3, 2, dtype=np.float32)), [0, 1, 2])
+        return
     with pytest.raises(exc):
-        estimator_from_arrays(params, {"centroids_": np.zeros((3, 2))},
-                              device="cpu")
+        estimator_from_arrays(params, arrays, device="cpu")

@@ -340,5 +340,9 @@ def test_registry_and_precision():
     assert get_backend("fused") is get_backend("fused")
     with pytest.raises(KeyError):
         get_backend("no_such_engine")
-    with pytest.raises(NotImplementedError):
-        Precision(compute=torch.bfloat16)
+    bf16 = Precision(compute=torch.bfloat16, accum=torch.bfloat16)
+    assert bf16.compute_cast(torch.ones(2)).dtype == torch.bfloat16
+    assert bf16.accum_dtype == torch.float32         # floored at f32
+    assert Precision().compute_cast(torch.ones(2)).dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Precision(compute=torch.float16)

@@ -15,6 +15,11 @@ blocks, csrc/sweep_fp32.cuh), so its labels and distances are the
 assignment's by construction; the bounded sweep computes each distance
 with the same FMA chain.  On exact small-integer data every distance is
 exact, so a tie goes to the lowest index.  Relaunches are bitwise equal.
+
+On bfloat16 operands each kernel is held to its plain version with the
+same gates, and to its own float32 launch on the upcast operands bit for
+bit in every output: the kernels convert a bf16 value to f32 where they
+load it and compute as before.
 """
 
 import numpy as np
@@ -22,6 +27,7 @@ import pytest
 import torch
 
 from repro_torch.core import AAKMeans, get_backend
+from repro_torch.core.backends import Precision
 from repro_torch.core.backends.fused_bounds import (engine_group_size,
                                                   squared_bounds)
 from repro_torch.data.synthetic import make_blobs
@@ -1288,3 +1294,176 @@ def test_mesh_steps_two_ranks_gloo_on_the_card(cuda, tmp_path):
             n = r[name]["launches"]
             assert n["plain"] == 0 and sum(
                 v for key, v in n.items() if key != "plain") > 0
+
+
+# bf16 shapes: d = 1, 69 and 821 (the widest tile); K not a multiple of
+# 256; N not a multiple of 64; per-problem X with (R, N) weights
+BF16_CASES = [(1000, 1, 37, None, False, None),
+              (4097, 69, 1000, None, False, "n"),
+              (2001, 69, 45, 3, True, "rn"),
+              (777, 821, 300, None, False, None)]
+
+
+def _assert_equal(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def _bf16_operands(cuda, n, d, k, r, x_batched, weights, seed=5):
+    x, c, w = _inputs(cuda, n, d, k, r, x_batched, weights, seed)
+    return x.bfloat16(), c.bfloat16(), w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,r,x_batched,weights", BF16_CASES)
+def test_bf16_fused_and_assignment(cuda, n, d, k, r, x_batched, weights):
+    """bf16 X and C: the fused step and the assignment against their
+    plain versions (the f32 gates), and bit for bit against their own f32
+    launches on the upcast operands."""
+    xb, cb, w = _bf16_operands(cuda, n, d, k, r, x_batched, weights)
+    launched = F.launches
+    got = F.fused_lloyd(xb, cb, w)
+    assert F.launches == launched + 1
+    _assert_equal(got, F.fused_lloyd(xb.float(), cb.float(), w))
+    got = [g.cpu() for g in got]
+    want = [v.cpu() for v in F.fused_lloyd_plain(xb, cb, w)]
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
+    launched = A.launches
+    lab, mind = A.assignment(xb, cb)
+    assert A.launches == launched + 1
+    _assert_equal((lab, mind), A.assignment(xb.float(), cb.float()))
+    assert torch.equal(lab.cpu(), got[0]) and torch.equal(mind.cpu(), got[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,r,x_batched,weights", BF16_CASES)
+def test_bf16_update(cuda, n, d, k, r, x_batched, weights):
+    """A bf16 X's segment sum (labels -1 and K land nowhere) against the
+    plain version and bit for bit against the f32 launch on the upcast X:
+    the layout follows N, K, d and R, not the element size."""
+    x, labels, w = _update_inputs(cuda, n, d, k, r, x_batched, weights)
+    xb = x.bfloat16()
+    launched = U.launches
+    got = U.update(xb, labels, k, w)
+    assert U.launches == launched + 1
+    _assert_equal(got, U.update(xb.float(), labels, k, w))
+    want = U.update_plain(xb, labels, k, w)
+    np.testing.assert_allclose(got[0].cpu(), want[0].cpu(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got[1].cpu(), want[1].cpu(), rtol=1e-5,
+                               atol=1e-5)
+    if xb.dim() == 2:
+        # a view whose first row is not 16-byte aligned: the staged
+        # vectors start before it
+        _assert_equal(U.update(xb[1:], labels[..., 1:], k),
+                      U.update(xb[1:].float(), labels[..., 1:], k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gs", [8, 64])
+@pytest.mark.parametrize("n,d,k,r,x_batched,weights", BF16_CASES)
+def test_bf16_fused_bounds(cuda, n, d, k, r, x_batched, weights, gs):
+    """The bounded step on bf16 X and C, from drifted bounds: against the
+    plain version (the f32 gates) and bit for bit against its f32 launch
+    on the upcast operands, group minima and skipped share included."""
+    x, c, w = _inputs(cuda, n, d, k, r, x_batched, weights, seed=5)
+    g = -(-k // engine_group_size(k, gs))
+    widest = F._bind_bounds(build.load("fused_bounds")) \
+        .fused_bounds_max_features(0, g)
+    x, c = x[..., :widest].contiguous(), c[..., :widest].contiguous()
+    c, gsr, bnds = _drifted_bounds(x.bfloat16().float(),
+                                   c.bfloat16().float(), w, gs)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    launched = F.bounds_launches
+    got = F.fused_lloyd(xb, cb, w, bounds=bnds, gs=gsr)
+    assert F.bounds_launches == launched + 1
+    _assert_equal(got, F.fused_lloyd(xb.float(), cb.float(), w, bounds=bnds,
+                                     gs=gsr))
+    got = [g.cpu() for g in got]
+    want = [v.cpu() for v in F.fused_bounds_plain(
+        xb, cb, w, *bnds, gsr, build.tile_rows())]
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    # after two Lloyd steps at K = 300 on 777 rows a centroid sits on a
+    # row, where the expansion cancels to ulps of |x|^2 (about 800 at
+    # d = 821): distances within 1e-5 of |x|^2, chip_smoke.py's
+    # compare_bounds rule
+    xu = xb.float()
+    atol = 1e-5 * float(torch.sum(xu * xu, dim=-1).max())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
+    np.testing.assert_allclose(got[5], want[5], rtol=1e-5, atol=atol)
+    assert torch.equal(got[6], want[6])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_bf16", [True, False])
+def test_mixed_operand_types_compute_in_f32(cuda, x_bf16):
+    """bf16 X against f32 C (a bf16-policy model's predict of bf16 rows)
+    and f32 X against bf16 C: each kernel equals its f32 launch on the
+    upcast operand bit for bit."""
+    x, c, w = _inputs(cuda, 4097, 69, 1000, None, False, "n", seed=6)
+    if x_bf16:
+        x = x.bfloat16()
+    else:
+        c = c.bfloat16()
+    xu, cu = x.float(), c.float()
+    _assert_equal(A.assignment(x, c), A.assignment(xu, cu))
+    _assert_equal(F.fused_lloyd(x, c, w), F.fused_lloyd(xu, cu, w))
+    lab = A.assignment_plain(x, c)[0]
+    assert torch.equal(A.assignment(x, c)[0], lab)
+
+
+@pytest.mark.gpu
+def test_bf16_weighted_batched_step_drops_weight_zero_rows(cuda):
+    """R = 3 bf16 problems with 700 padding rows of weight 0 against the
+    unpadded step: labels and distances of the real rows equal bit for
+    bit, counts equal, sums and energies within 1e-6 of their scale (the
+    segment sum's slabs follow N)."""
+    x, c, _ = _inputs(cuda, 3000, 69, 45, 3, False, None, seed=7)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    pad = torch.randn(700, 69, device=cuda).bfloat16()
+    w = torch.ones(3, 3700, device=cuda)
+    w[:, 3000:] = 0.0
+    got = F.fused_lloyd(torch.cat([xb, pad]), cb, w)
+    want = F.fused_lloyd(xb, cb)
+    assert torch.equal(got[0][:, :3000], want[0])
+    assert torch.equal(got[1][:, :3000], want[1])
+    assert torch.equal(got[3], want[3])
+    scale = float(want[2].abs().max())
+    assert float((got[2] - want[2]).abs().max()) <= 1e-6 * scale
+    np.testing.assert_allclose(got[4].cpu(), want[4].cpu(), rtol=1e-6)
+
+
+@pytest.mark.gpu
+def test_bf16_fits_run_on_the_kernels(cuda, tmp_path):
+    """Both ways into bf16 on the card: a bf16-policy fused fit keeps f32
+    centroids and predicts as an f32 assignment of them; a bf16-X fit keeps
+    bf16 centroids and repeats bit for bit; the policy survives save and
+    load."""
+    x = make_blobs(20000, 16, 40, seed=3)
+    c0s = x[np.random.default_rng(4).choice(20000, (1, 40), replace=False)]
+    bk = get_backend("fused", precision=Precision(compute=torch.bfloat16))
+    F.launches = F.plain_calls = 0
+    m = AAKMeans(n_clusters=40, backend=bk).fit(x, c0s=c0s)
+    assert F.launches > 1 and F.plain_calls == 0
+    assert m.centroids_.dtype == torch.float32
+    lab = m.predict(x)
+    want = A.assignment(torch.from_numpy(x).to(cuda), m.centroids_)[0]
+    np.testing.assert_array_equal(lab, want.cpu().numpy())
+    f32 = AAKMeans(n_clusters=40, backend="fused").fit(x, c0s=c0s)
+    assert abs(m.inertia_ - f32.inertia_) <= 0.02 * f32.inertia_
+    m2 = AAKMeans.load(m.save(tmp_path / "bf16"))
+    assert m2.backend.precision.compute == torch.bfloat16
+    np.testing.assert_array_equal(m2.predict(x), lab)
+    xb = torch.from_numpy(x).to(cuda).bfloat16()
+    fits = [AAKMeans(n_clusters=40, backend="fused").fit(xb, c0s=c0s)
+            for _ in range(2)]
+    assert fits[0].centroids_.dtype == torch.bfloat16
+    assert np.isfinite(fits[0].inertia_)
+    assert torch.equal(fits[0].centroids_, fits[1].centroids_)

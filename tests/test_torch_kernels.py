@@ -130,9 +130,12 @@ def test_cpu_tensors_take_the_plain_version():
     ("per-problem w, unbatched c", ValueError),
     ("w of the wrong length", ValueError),
     ("d mismatch", ValueError),
-    ("bf16 x", TypeError),
+    ("bf16 x", None),
+    ("fp16 x", TypeError),
 ])
 def test_operand_checks(case, exc):
+    """Shape errors raise; bf16 operands are taken (the plain version on
+    the upcast values), float16 ones are not."""
     x = torch.zeros(3, 10, 4)
     c = torch.zeros(5, 4)
     w = torch.ones(10)
@@ -141,11 +144,22 @@ def test_operand_checks(case, exc):
         "per-problem w, unbatched c": (x[0], c, torch.ones(3, 10)),
         "w of the wrong length": (x[0], c, torch.ones(9)),
         "d mismatch": (x[0], torch.zeros(5, 3), w),
-        "bf16 x": (x[0].bfloat16(), c, w),
+        "bf16 x": (torch.randn(10, 4).bfloat16(), torch.randn(5, 4), w),
+        "fp16 x": (x[0].half(), c, w),
     }[case]
+    if exc is None:
+        xb, cf, wf = args
+        for got, want in zip(F.fused_lloyd(xb, cf, wf),
+                             F.fused_lloyd(xb.float(), cf, wf)):
+            assert torch.equal(got, want)
+        for got, want in zip(A.assignment(xb, cf.bfloat16()),
+                             A.assignment(xb.float(),
+                                          cf.bfloat16().float())):
+            assert torch.equal(got, want)
+        return
     with pytest.raises(exc):
         F.fused_lloyd(*args)
-    if args[2] is None or case in ("d mismatch", "bf16 x"):
+    if args[2] is None or case in ("d mismatch", "fp16 x"):
         with pytest.raises(exc):
             A.assignment(*args[:2])
 

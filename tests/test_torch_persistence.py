@@ -401,15 +401,36 @@ def test_backend_instances_round_trip(tmp_path, ref_artifacts, data):
 
 @pytest.mark.parametrize("backend,exc,match", [
     pytest.param(jdense_backend(JPrecision(compute=jnp.bfloat16)),
-                 NotImplementedError, "only float32", id="bf16-compute"),
+                 None, None, id="bf16-compute"),
     pytest.param(jdense_backend(JPrecision(accum=jnp.bfloat16)),
-                 NotImplementedError, "only float32", id="bf16-accum"),
+                 None, None, id="bf16-accum"),
+    pytest.param(jdense_backend(JPrecision(compute=jnp.float16)),
+                 NotImplementedError, "float32 and bfloat16",
+                 id="f16-compute"),
 ])
 def test_unported_precision_is_refused(tmp_path, data, backend, exc, match):
+    """A reference artifact with a bf16 policy loads with that policy and
+    predicts as the reference does, and the port's save of it loads back
+    in the reference with the same policy; float16 is refused."""
     jm = JAAKMeans(n_clusters=K, max_iter=5, backend=backend).fit(data)
     p = jm.save(tmp_path / "model")
-    with pytest.raises(exc, match=match):
-        AAKMeans.load(p, device="cpu")
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            AAKMeans.load(p, device="cpu")
+        return
+    model = AAKMeans.load(p, device="cpu")
+    want = backend.precision
+    got = model.backend.precision
+    assert (got.compute, got.accum) == tuple(
+        None if dt is None else torch.bfloat16
+        for dt in (want.compute, want.accum))
+    np.testing.assert_array_equal(model.predict(data),
+                                  np.asarray(jm.predict(data)))
+    back = JAAKMeans.load(model.save(tmp_path / "port"))
+    assert (back.backend.precision.compute, back.backend.precision.accum) \
+        == (want.compute, want.accum)
+    np.testing.assert_array_equal(np.asarray(back.predict(data)),
+                                  np.asarray(jm.predict(data)))
 
 
 @pytest.mark.parametrize("name", ["fused+count", "elkan+reorder",

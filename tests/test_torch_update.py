@@ -100,16 +100,28 @@ def test_cpu_tensors_take_the_plain_update():
     ("labels of the wrong length", ValueError),
     ("(R, N) weights", ValueError),
     ("int64 labels", TypeError),
-    ("bf16 x", TypeError),
+    ("bf16 x", None),
+    ("fp16 x", TypeError),
 ])
 def test_update_operand_checks(case, exc):
+    """Shape and label-type errors raise; a bf16 X is taken (its sums
+    are the upcast X's, in f32), a float16 one is not."""
     x = torch.zeros(3, 10, 4)
     lab = torch.zeros(10, dtype=torch.int32)
     args = {"per-problem x, unbatched labels": (x, lab, None),
             "labels of the wrong length": (x[0], lab[:9], None),
             "(R, N) weights": (x[0], lab, torch.ones(3, 10)),
             "int64 labels": (x[0], lab.long(), None),
-            "bf16 x": (x[0].bfloat16(), lab, None)}[case]
+            "bf16 x": (torch.randn(10, 4).bfloat16(),
+                       torch.arange(10, dtype=torch.int32) % 5,
+                       torch.rand(10).bfloat16()),
+            "fp16 x": (x[0].half(), lab, None)}[case]
+    if exc is None:
+        got = U.update(args[0], args[1], 5, args[2])
+        want = U.update(args[0].float(), args[1], 5, args[2].float())
+        assert got[0].dtype == got[1].dtype == torch.float32
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        return
     with pytest.raises(exc):
         U.update(args[0], args[1], 5, args[2])
 
