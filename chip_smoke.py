@@ -240,12 +240,40 @@ Phases, each fatal on failure:
      labels; (d) phase 11's MiniBatchAAKMeans configuration on the
      bf16-policy engine, its repeat bit-equal; every bf16 variant was
      launched on these paths.
-Phases 9 to 17 run between phases 7 and 8, so that phase 8's kernel
+  18. wide rows at Meta-Llama-3-8B's embedding table's shape (128,256 x
+     4096 f32, 2.10 GB), a 256-component Gaussian mixture drawn on the
+     card from seed 0 (data/synthetic.py's _gaussian_mixture recipe):
+     (a) the assignment, fused and bounded kernels at d = 822, 1023, 1024
+     and 4096, where X streams through the sweep in feature slabs,
+     against their plain versions (K = 256 and 1000, shared X at R = 3,
+     per-problem X with (R, N) weights; the bounded step from drifted
+     bounds at gs 8 and 64), f32 and bf16 (each bf16 launch bit-equal to
+     the f32 launch on the upcast operands), relaunches bit-equal, every
+     launch streamed; each kernel forced to stream at d = 69 and at the
+     resident path's widest d, bit-equal to its resident launch; the
+     update at (128,256, 4096, 256); (b) AAKMeans(n_clusters=256,
+     backend="fused").fit(table), max_iter 500, and predict on every row
+     (fit wall, seeding apart, ms a step, peak device memory): every
+     launch streamed, predict's labels the fused step's, the first step
+     against the dense engine's, the final energy within 1e-4 of the
+     dense fit's from the same seeds; (c) the four 1024-wide subspaces as
+     one batched fused solve against dense; two steps each of pallas,
+     fused_bounds (gs 16) and fused_bounds_reorder against dense; one
+     MiniBatchAAKMeans epoch of 65,536-row chunks; a bf16-policy fused
+     fit, its centroids' f32 energy within 2 % of (b)'s; (d) each kernel
+     and bf16 variant at (128,256, 4096, 256) and on the subspaces in
+     turns, the assignment on a predict chunk, beside plain versions,
+     addmm + argmin and the bounds.  Min distances are held within 1e-5
+     of max(|x|^2, 1); a bf16 energy within 1e-5 of sum(w max(|x|^2, 1)).
+Phases 9 to 18 run between phases 7 and 8, so that phase 8's kernel
 line counts their launches (phase 16's are the ranks'); phase 8 also
 times each kernel's bf16 variant in turns beside it, and the kernel line
 lists the four bf16 variants as entries of their own ("<kernel>_bf16":
 the launches on a bf16 X, bounds at 2-byte X and bf16 tensor-core
-rates, library calls on the upcast operands).
+rates, library calls on the upcast operands).  Each entry also carries
+phase 18's "wide_launches" (its launches on phase 18's main paths, every
+one streamed), "wide_ms" (at 128,256 x 4096, K = 256) and "wide" (the
+rest of that row).
 Every path is driven with the launch counts set to 0 just before it and
 read just after; the {"kernels": ...} line sums them over the paths.
 Prints one {"kernels": [...]} line, the card's name and power limit, and
@@ -334,6 +362,13 @@ LLAMA_CODES, LLAMA_HIER_K = 256, 4096
 # limit (s)
 DIST_BATCH_MAX_ITER, DIST_EVERY, DIST_STREAM_EPOCHS = 60, 100, 2
 DIST_TIMEOUT = 600
+# phase 18: wide rows at the Llama table's shape (LLAMA_VOCAB x
+# LLAMA_HIDDEN): the mixture's components, the fit's K, the kernel checks'
+# widths (822 is one past the resident X tile's widest on an H100, 1023
+# leaves f32 rows unaligned), the subspaces of the batched solve
+WIDE_COMPONENTS, WIDE_K = 256, 256
+WIDE_DS = (822, 1023, 1024, 4096)
+WIDE_SUBSPACES = 4
 
 
 class PhaseError(RuntimeError):
@@ -436,6 +471,8 @@ def fmt(res):
     if "mind_rel_raw" in res:
         s += (f" relative to |x|^2 + |c|^2 ({res['mind_rel_raw']:.2e} "
               f"relative to the distance)")
+    if "mind_rel_x" in res:
+        s += f" ({res['mind_rel_x']:.2e} of |x|^2)"
     if "sums_rel" in res:
         s += (f", sums {res['sums_rel']:.2e}, counts "
               f"{res['counts_rel']:.2e}, energy rel {res['energy_rel']:.2e}")
@@ -3116,6 +3153,641 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
     return xb, cb, errs
 
 
+def wide_table(torch, dev, n, d, n_comp, seed=0):
+    """(n, d) f32 on the card: data/synthetic.py::_gaussian_mixture's
+    recipe drawn by a CUDA generator from ``seed`` (centers 1.5 x N(0, 1);
+    each row a uniform component's center plus N(0, 1) noise scaled by the
+    component's U(0.6, 1.8)), made in place so that no host copy exists."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn((n_comp, d), generator=gen, device=dev) * 1.5
+    comp = torch.randint(0, n_comp, (n,), generator=gen, device=dev)
+    scales = torch.rand((n_comp, 1), generator=gen, device=dev) * 1.2 + 0.6
+    x = torch.randn((n, d), generator=gen, device=dev)
+    for i in range(0, n, 16384):
+        part = comp[i:i + 16384]
+        x[i:i + 16384].mul_(scales[part]).add_(centers[part])
+    return x
+
+
+def compare_wide(torch, got, want, x, c, w, bounds=None, tile_rows=None,
+                 seeded=False):
+    """``compare`` (``compare_bounds`` with ``bounds=(lb_sq, ub_sq)``) with
+    the wide rules.  min_sqdist and computed group minima: within 1e-5 of
+    max(|x|^2, 1) of the row on f32 rows; on bf16 rows of max(|x|^2 +
+    max |c|^2, 1), the scale of the expansion's rounding
+    (``rescale_to_norms``' rule), since the FMA chains round bf16 products
+    with a bias that grows with d (PERF.md §6); the error relative to
+    |x|^2 alone is kept in ``mind_rel_x``.  The energy: within 1e-6
+    relative, or, where each row's distance errs with a bias, within 1e-5
+    of sum(w max(|x|^2, 1)), the per-row rule summed: on bf16 rows, and in
+    a step seeded by drifted bounds (``bounds`` or ``seeded``: a settled
+    row keeps the smaller of its seed, the kernel's last distance, and a
+    rounding of the same distance).  ``res["energy_tol"]`` is the bound
+    the energy is held to."""
+    from repro_torch.kernels import ref
+    res = (compare(torch, got, want, x, c, w) if bounds is None else
+           compare_bounds(torch, got, want, x, c, w, *bounds, tile_rows))
+    xf = x.float()
+    xs = xf if xf.dim() == 3 else xf.expand(c.shape[0], *xf.shape)
+    xsq = torch.sum(xs * xs, dim=-1)                             # (R, N)
+    rows = xsq.clamp_min(1.0)
+    err = (got[1] - want[1]).abs()
+    res["mind_rel_x"] = float((err / rows).max())
+    if x.dtype == torch.bfloat16:
+        cf = c.float()
+        rows = (xsq + torch.sum(cf * cf, dim=-1).max(dim=-1).values[:, None]
+                ).clamp_min(1.0)
+    res["mind_rel"] = float((err / rows).max())
+    if len(got) > 4:
+        de = (got[4] - want[4]).abs()
+        if x.dtype == torch.bfloat16 or bounds is not None or seeded:
+            xrows = xsq.clamp_min(1.0)
+            scale = torch.sum(xrows if w is None else xrows * w, dim=-1)
+            res["energy_rel"] = float((de / scale).max())
+            res["energy_tol"] = 1e-5
+        else:
+            res["energy_rel"] = float((de / want[4].abs().clamp_min(
+                1e-30)).max())
+            res["energy_tol"] = 1e-6
+    if bounds is not None and "gmin_rel" in res:
+        computed = torch.stack([ref.computed_cells(lb, ub, tile_rows)
+                                for lb, ub in zip(*bounds)])
+        res["gmin_rel"] = float(((got[5] - want[5]).abs()
+                                 / rows[..., None])[computed].max()) \
+            if bool(computed.any()) else 0.0
+    return res
+
+
+def accept_wide(res, what):
+    """``accept`` / ``accept_bounds`` (labels on near ties as phase 5
+    holds them) with ``compare_wide``'s energy bound."""
+    check(res["agree"] == 1.0 or res["gap"] <= 1e-5,
+          f"{what}: labels differ beyond a near tie (gap {res['gap']:.2e})")
+    check(res["mind_rel"] <= 1e-5, f"{what}: min_sqdist off by "
+          f"{res['mind_rel']:.2e} of |x|^2")
+    if "sums_rel" in res:
+        check(res["sums_rel"] <= 1e-4, f"{what}: sums off by "
+              f"{res['sums_rel']:.2e} of their scale")
+        check(res["counts_rel"] <= 1e-6, f"{what}: counts off by "
+              f"{res['counts_rel']:.2e}")
+        check(res["energy_rel"] <= res["energy_tol"], f"{what}: energy off "
+              f"by {res['energy_rel']:.2e} (bound {res['energy_tol']:.0e})")
+    if "skip_equal" in res:
+        check(res["skip_equal"], f"{what}: skipped shares differ")
+        check(res["gmin_skipped_equal"],
+              f"{what}: a skipped group's minimum is not its bound")
+        check(res["gmin_rel"] <= 1e-5, f"{what}: computed group minima off "
+              f"by {res['gmin_rel']:.2e} of |x|^2")
+
+
+def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
+    """Wide rows at Meta-Llama-3-8B's embedding table's shape (LLAMA_VOCAB x
+    LLAMA_HIDDEN f32, a WIDE_COMPONENTS-component Gaussian mixture drawn on
+    the card from seed 0): (a) the assignment, fused and bounded kernels at
+    WIDE_DS against their plain versions (K = 256 and 1000, shared X at
+    R = 3, per-problem X with (R, N) weights; the bounded step from drifted
+    bounds at gs 8 and 64), f32 and bf16, each bf16 launch equal to the f32
+    launch on the upcast operands, relaunches equal, and the launch forced
+    to stream equal to the resident one at d = 69 and at the resident
+    path's widest d; (b) AAKMeans(n_clusters=WIDE_K, backend="fused") on
+    the table with predict on every row, against the dense engine's fit
+    from the same seeds; (c) the four 1024-wide subspaces as one batched
+    fused solve against dense, two steps each of pallas, fused_bounds
+    (gs 16) and fused_bounds_reorder against dense, a MiniBatchAAKMeans
+    epoch and a bf16-policy fused fit; (d) each kernel's times at the
+    table's shape, on a predict chunk and on the subspaces (CUDA events,
+    in turns), beside its plain version, addmm + argmin and its bounds.
+    -> (per kernel name and its "_bf16" variant: its launches on (b)'s
+    and (c)'s paths, all streamed, its launches in (a)'s checks and its
+    wide timings; each kernel's largest absolute error against its plain
+    version)."""
+    from repro_torch.core import AAKMeans, MiniBatchAAKMeans, get_backend
+    from repro_torch.core import applications as app
+    from repro_torch.core.api import PREDICT_CHUNK
+    from repro_torch.core.backends import Precision, bounds
+    from repro_torch.core.backends.fused_bounds import (engine_group_size,
+                                                        squared_bounds)
+    from repro_torch.core.init_schemes import batched_init
+    from repro_torch.core.kmeans import KMeansConfig, aa_kmeans_batched
+    from repro_torch.kernels import assignment as A
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_lloyd as F
+    from repro_torch.kernels import update as U
+    bf16 = torch.bfloat16
+    n, d, k = LLAMA_VOCAB, LLAMA_HIDDEN, WIDE_K
+    t_phase = time.perf_counter()
+    streams = {"fused_lloyd": (F, "stream_launches"),
+               "assignment": (A, "stream_launches"),
+               "fused_bounds": (F, "bounds_stream_launches")}
+    kernel_names = ("fused_lloyd", "assignment", "update", "fused_bounds")
+    # launches on the main paths of (b) and (c), every one at d = 4096 or
+    # 1024, and in (a)'s checks at WIDE_DS; a kernel's own count less its
+    # bf16 variant's
+    wide_launches = {f"{kn}{tag}": 0 for kn in kernel_names
+                     for tag in ("", "_bf16")}
+    check_launches = dict(wide_launches)
+
+    def zero_all():
+        zero_counts()
+        for mod, attr in streams.values():
+            setattr(mod, attr, 0)
+
+    def read_all(path=None, into=None):
+        """The launches since zero_all, the plain-version calls and the
+        streamed launches.  A main path (``path``) is recorded for the
+        script's totals; ``into`` adds each variant's launches."""
+        counts, plain = read_counts()
+        streamed = {kn: getattr(mod, attr)
+                    for kn, (mod, attr) in streams.items()}
+        if path:
+            path_launches[path] = counts
+        if into is not None:
+            for kn in kernel_names:
+                into[kn] += counts[kn] - counts[f"{kn}_bf16"]
+                into[f"{kn}_bf16"] += counts[f"{kn}_bf16"]
+        return counts, plain, streamed
+
+    def sync():
+        torch.cuda.synchronize()
+
+    def same(a, b):
+        return all(torch.equal(p, q) for p, q in zip(a, b))
+
+    t0 = time.perf_counter()
+    table = wide_table(torch, dev, n, d, WIDE_COMPONENTS)
+    sync()
+    print(f"phase 18: wide rows at Meta-Llama-3-8B's embedding table "
+          f"({n} x {d} f32, {table.numel() * 4 / 1e9:.2f} GB, a "
+          f"{WIDE_COMPONENTS}-component Gaussian mixture drawn on the card "
+          f"from seed 0 in {time.perf_counter() - t0!r} s)", flush=True)
+    widest = {"assignment": A._bind(build.load("assignment"))
+              .assignment_max_features(0),
+              "fused_lloyd": F._bind(build.load("fused_lloyd"))
+              .fused_lloyd_max_features(0)}
+    print(f"  the resident path's widest d: assignment "
+          f"{widest['assignment']}, fused {widest['fused_lloyd']}, bounded "
+          f"(G = 32 groups) "
+          f"{F._bind_bounds(build.load('fused_bounds')).fused_bounds_max_features(0, 32)}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def rows_of(m):
+        """The indices of m distinct table rows (centroids), drawn by gen."""
+        return torch.randperm(n, generator=gen, device=dev)[:m]
+
+    errs = {}
+    # (a) the kernels against their plain versions
+    t0 = time.perf_counter()
+    zero_all()
+    n_cases = 0
+    for dd in WIDE_DS:
+        xd = table[:, :dd]
+        # (label, X, C (R, K, d), weights, batched)
+        n1, n2, n3 = min(16384, n), min(8192, n), min(4096, n // 4)
+        x4 = torch.stack([xd[i * (n // 4):i * (n // 4) + n3]
+                          for i in (1, 2, 3)])
+        w4 = torch.rand((3, n3), generator=gen, device=dev) * 2
+        w4[:, :n3 // 5] = 0.0
+        cases = [
+            (f"K=256, N={n1}", xd[:n1].contiguous(),
+             xd[rows_of(256)][None].contiguous(), None, False),
+            (f"K=1000, N={n2}", xd[:n2].contiguous(),
+             xd[rows_of(1000)][None].contiguous(), None, False),
+            (f"R=3 shared X, K=300, N={n3}", xd[:n3].contiguous(),
+             xd[rows_of(900)].reshape(3, 300, dd).contiguous(), None, True),
+            (f"R=3 per-problem X, (R,N) weights, K=256, N={n3}",
+             x4.contiguous(), xd[rows_of(768)].reshape(3, 256, dd)
+             .contiguous(), w4, True)]
+        for label, xc, cc, wc, batched in cases:
+            for dt in (torch.float32, bf16):
+                xk, ck = xc.to(dt), cc.to(dt)
+                args = (xk, ck if batched else ck[0], wc)
+                lift = (lambda out: out) if batched else \
+                    (lambda out: tuple(o[None] for o in out))
+                got = lift(F.fused_lloyd(*args))
+                got_a = lift(A.assignment(*args[:2]))
+                res = compare_wide(torch, got,
+                                   lift(F.fused_lloyd_plain(*args)), xk, ck,
+                                   wc)
+                eq = same(got_a, got[:2]) and same(
+                    lift(F.fused_lloyd(*args)), got)
+                if dt == bf16:
+                    eq = eq and same(got, lift(F.fused_lloyd(
+                        xk.float(), args[1].float(), wc)))
+                tag = "bf16" if dt == bf16 else "f32"
+                what = f"d={dd} {label} {tag}"
+                print(f"  (a) [{what}] fused: {fmt(res)}; assignment = the "
+                      f"step's sweep, relaunch equal"
+                      f"{', = the f32 launch' if dt == bf16 else ''}: {eq}")
+                accept_wide(res, f"wide fused [{what}]")
+                check(eq, f"wide [{what}]: a launch is not bit-equal")
+                key = "fused_lloyd" + ("_bf16" if dt == bf16 else "")
+                errs[key] = max(errs.get(key, 0.0), res["mind_abs"])
+                akey = "assignment" + ("_bf16" if dt == bf16 else "")
+                errs[akey] = max(errs.get(akey, 0.0), res["mind_abs"])
+                n_cases += 1
+        # the bounded step from drifted bounds, gs 8 and 64
+        xb3 = xd[:n2].contiguous()
+        cb3 = xd[rows_of(256)][None].contiguous()
+        for gs in (8, 64):
+            cbd, gsr, bnds = drifted_bounds(gs, xb3, cb3, None, steps=2)
+            for dt in (torch.float32, bf16):
+                xk, ck = xb3.to(dt), cbd.to(dt)
+                got = F.fused_lloyd(xk, ck, bounds=bnds, gs=gsr)
+                res = compare_wide(torch, got, F.fused_bounds_plain(
+                    xk, ck, None, *bnds, gsr, tile_rows), xk, ck, None,
+                    bounds=(bnds[1], bnds[2]), tile_rows=tile_rows)
+                eq = same(F.fused_lloyd(xk, ck, bounds=bnds, gs=gsr), got)
+                if dt == bf16:
+                    eq = eq and same(got, F.fused_lloyd(
+                        xk.float(), ck.float(), bounds=bnds, gs=gsr))
+                tag = "bf16" if dt == bf16 else "f32"
+                what = f"d={dd} K=256 N={n2} gs={gsr} {tag}"
+                print(f"  (a) [{what}] fused_bounds: {fmt_bounds(res)}; "
+                      f"relaunch equal"
+                      f"{', = the f32 launch' if dt == bf16 else ''}: {eq}")
+                accept_wide(res, f"wide fused_bounds [{what}]")
+                check(eq, f"wide fused_bounds [{what}]: a launch is not "
+                      f"bit-equal")
+                key = "fused_bounds" + ("_bf16" if dt == bf16 else "")
+                errs[key] = max(errs.get(key, 0.0), res["mind_abs"])
+                n_cases += 1
+        del cases, x4, xb3
+    counts, plain, streamed = read_all(into=check_launches)
+    print(f"  (a) {n_cases} cases in {time.perf_counter() - t0!r} s; "
+          f"launches {counts}; streamed {streamed}; plain-version calls "
+          f"{plain} (the comparisons')", flush=True)
+    check(streamed["fused_lloyd"] == counts["fused_lloyd"]
+          and streamed["assignment"] == counts["assignment"]
+          and streamed["fused_bounds"] == counts["fused_bounds"],
+          "a wide launch did not stream X")
+    # forced streaming equals the resident launch where both fit
+    widest["fused_bounds"] = F._bind_bounds(build.load(
+        "fused_bounds")).fused_bounds_max_features(0, -(-300 // 16))
+    for kname in ("assignment", "fused_lloyd", "fused_bounds"):
+        for dd in (69, widest[kname]):
+            xs = table[:4096, :dd].contiguous()
+            cs = table[rows_of(300), :dd][None].contiguous()
+            if kname == "fused_bounds":
+                cs, gsr, bnds = drifted_bounds(16, xs, cs, None, steps=2)
+            for dt in (torch.float32, bf16):
+                xk, ck = xs.to(dt), cs.to(dt)
+                if kname == "assignment":
+                    def run(st):
+                        return A.assignment(xk, ck, _stream=st)
+                elif kname == "fused_lloyd":
+                    def run(st):
+                        return F.fused_lloyd(xk, ck, _stream=st)
+                else:
+                    def run(st):
+                        return F.fused_lloyd(xk, ck, bounds=bnds, gs=gsr,
+                                             _stream=st)
+                zero_all()
+                resident = run(False)
+                _, _, s0 = read_all()
+                streamed_out = run(True)
+                _, _, s1 = read_all()
+                eq = same(streamed_out, resident)
+                tag = "bf16" if dt == bf16 else "f32"
+                print(f"  (a) {kname} at d={dd} {tag}: forced streaming "
+                      f"equals the resident launch bit for bit {eq} "
+                      f"(streamed launches {s0[kname]}, then "
+                      f"{s1[kname]})")
+                check(eq and s0[kname] == 0 and s1[kname] == 1,
+                      f"{kname} at d={dd} {tag}: streamed != resident")
+    sys.stdout.flush()
+
+    # (b) the fused main path at d = 4096
+    t0 = time.perf_counter()
+    c0 = batched_init("kmeans++", torch.Generator(device=dev).manual_seed(0),
+                      table, k, 1)[0]
+    sync()
+    seed_s = time.perf_counter() - t0
+    model = AAKMeans(n_clusters=k, backend="fused", n_init=1)
+    zero_all()
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(table)
+    sync()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    labels = model.predict(table)
+    predict_s = time.perf_counter() - t0
+    counts, plain, streamed = read_all("wide fused fit + predict (18b)",
+                                       wide_launches)
+    trips = trips_of(model)
+    chunks = -(-n // PREDICT_CHUNK)
+    step_ms = (fit_s - seed_s) / counts["fused_lloyd"] * 1e3
+    print(f"  (b) AAKMeans(n_clusters={k}, backend='fused').fit on the "
+          f"table: {fit_s!r} s (seeding included; seeding alone "
+          f"{seed_s!r} s, so {fit_s - seed_s!r} s apart), n_iter_ "
+          f"{model.n_iter_}, n_accepted_ {model.n_accepted_}, inertia_ "
+          f"{model.inertia_!r}; {step_ms!r} ms a step (fit wall less "
+          f"seeding over the fused launches); peak device memory "
+          f"{peak / 1e9!r} GB above the table; predict {predict_s!r} s "
+          f"({n / predict_s!r} rows/s)")
+    print(f"  fused launches {counts['fused_lloyd']} vs 1 + trips = "
+          f"{1 + trips}, streamed {streamed['fused_lloyd']}; assignment "
+          f"launches {counts['assignment']} vs {chunks} predict chunks, "
+          f"streamed {streamed['assignment']}; plain-version calls {plain}",
+          flush=True)
+    check(counts["fused_lloyd"] == streamed["fused_lloyd"] == 1 + trips,
+          "the wide fit's fused launches != 1 + trips, or not streamed")
+    check(counts["assignment"] == streamed["assignment"] == chunks,
+          "the wide predict's launches != chunks, or not streamed")
+    check(counts["update"] == counts["fused_bounds"] == 0 and plain == 0,
+          "the wide fused path launched another kernel or a plain version")
+    check(math.isfinite(model.inertia_) and model.inertia_ > 0, "inertia_")
+    c_fin = model.centroids_
+    fin = F.fused_lloyd(table, c_fin)
+    same_pred = bool((torch.from_numpy(labels).to(dev) == fin[0]).all())
+    print(f"  predict's labels equal to the fused step's on the final "
+          f"centroids at every row: {same_pred}")
+    check(same_pred, "the wide predict disagrees with the fused step")
+    # the first step against the dense engine's, then the dense fit
+    dense = get_backend("dense")
+    first = F.fused_lloyd(table, c0)
+    want = dense.step(table, c0, k)[0]
+    res = compare_wide(torch, tuple(o[None] for o in first),
+                       tuple(o[None] for o in want), table, c0[None], None)
+    print(f"  the first step, fused vs dense from the seeds: {fmt(res)}")
+    accept_wide(res, "the wide first step")
+    errs["fused_lloyd"] = max(errs["fused_lloyd"], res["mind_abs"])
+    del first, want
+    t0 = time.perf_counter()
+    model_d = AAKMeans(n_clusters=k, backend="dense", n_init=1).fit(
+        table, c0s=c0[None])
+    sync()
+    dense_s = time.perf_counter() - t0
+    e_rel = abs(model.inertia_ - model_d.inertia_) / model_d.inertia_
+    print(f"  the dense fit from the same seeds: {dense_s!r} s, n_iter_ "
+          f"{model_d.n_iter_}, n_accepted_ {model_d.n_accepted_}, inertia_ "
+          f"{model_d.inertia_!r}; the fused fit's energy {e_rel!r} "
+          f"relative from it", flush=True)
+    check(e_rel <= 1e-4, "the wide fused and dense fits' energies differ "
+          "beyond 1e-4")
+    del model_d
+
+    # (c) the 1024-wide subspaces as one batched fused solve
+    blocks = app._subspace_blocks(table, WIDE_SUBSPACES)
+    dsub = blocks.shape[-1]
+    c0s = batched_init("kmeans++", torch.Generator(device=dev).manual_seed(0),
+                       blocks, k, WIDE_SUBSPACES)
+    cfg = KMeansConfig(k=k)
+    zero_all()
+    sync()
+    t0 = time.perf_counter()
+    res_s = aa_kmeans_batched(blocks, c0s, cfg, backend="fused")
+    sync()
+    sub_s = time.perf_counter() - t0
+    counts, plain, streamed = read_all("wide subspaces, batched fused (18c)",
+                                       wide_launches)
+    first = F.fused_lloyd(blocks, c0s)
+    want = dense.batched_step(blocks, c0s, k,
+                              dense.batched_init_carry(blocks, c0s, k))[0]
+    res1 = compare_wide(torch, first, tuple(want), blocks, c0s, None)
+    t0 = time.perf_counter()
+    res_sd = aa_kmeans_batched(blocks, c0s, cfg, backend="dense")
+    sync()
+    sub_d_s = time.perf_counter() - t0
+    e_rel_s = float(((res_s.energy - res_sd.energy).abs()
+                     / res_sd.energy).max())
+    print(f"  (c) the {WIDE_SUBSPACES} subspaces {tuple(blocks.shape)}, one "
+          f"batched fused solve: {sub_s!r} s, n_iter {res_s.n_iter.tolist()}"
+          f", n_accepted {res_s.n_accepted.tolist()}, energies "
+          f"{res_s.energy.tolist()}; fused launches {counts['fused_lloyd']}"
+          f" (streamed {streamed['fused_lloyd']}), plain {plain}; first "
+          f"step vs dense: {fmt(res1)}; dense: {sub_d_s!r} s, n_iter "
+          f"{res_sd.n_iter.tolist()}, energies within {e_rel_s!r} relative",
+          flush=True)
+    accept_wide(res1, "the subspaces' first step")
+    check(counts["fused_lloyd"] == streamed["fused_lloyd"] > 0
+          and plain == 0, "the subspace solve's launches")
+    check(e_rel_s <= 1e-4, "the subspace fused and dense solves' energies "
+          "differ beyond 1e-4")
+    lab_sub, cs_sub = res_s.labels, res_s.centroids
+    del res_sd, first, want
+
+    # two steps of each other kernel engine at d = 4096 against dense
+    gs16 = engine_group_size(k, 16)
+    for name, opts in (("pallas", {}), ("fused_bounds", {"group_size": 16}),
+                       ("fused_bounds_reorder", {"group_size": 16})):
+        bk = get_backend(name, **opts)
+        cs = c0[None]
+        carry = bk.batched_init_carry(table, cs, k)
+        zero_all()
+        rows = []
+        for step in range(2):
+            res_e, carry = bk.batched_step(table, cs, k, carry)
+            want = dense.batched_step(table, cs, k, dense.batched_init_carry(
+                table, cs, k))[0]
+            r_e = compare_wide(torch, tuple(res_e[:5]), tuple(want), table,
+                               cs, None, seeded=name != "pallas")
+            accept_wide(r_e, f"{name} step {step + 1} at d={d}")
+            rows.append(r_e)
+            cs = bk.centroids_from_step(table, res_e, k, cs)
+        counts, plain, streamed = read_all(f"wide {name}, two steps (18c)",
+                                           wide_launches)
+        print(f"  (c) {name} (gs {gs16 if opts else '-'}), two steps at "
+              f"d={d} vs dense: " + "; ".join(fmt(r) for r in rows)
+              + f"; launches {counts}, streamed {streamed}, plain {plain}",
+              flush=True)
+        kn = "assignment" if name == "pallas" else "fused_bounds"
+        check(counts[kn] == streamed[kn] == 2 and plain == 0,
+              f"{name}'s wide steps did not stream through their kernel")
+    del carry, res_e, want
+    # MiniBatchAAKMeans, one epoch of 65,536-row chunks
+    mb = MiniBatchAAKMeans(n_clusters=k, chunk_size=STREAM_CHUNK, epochs=1,
+                           val_size=STREAM_VAL, backend="fused", seed=0)
+    zero_all()
+    sync()
+    t0 = time.perf_counter()
+    mb.fit(table)
+    sync()
+    mb_s = time.perf_counter() - t0
+    counts, plain, streamed = read_all("wide MiniBatchAAKMeans (18c)",
+                                       wide_launches)
+    print(f"  (c) MiniBatchAAKMeans(chunk {STREAM_CHUNK}, 1 epoch, "
+          f"{STREAM_VAL} validation rows, fused): {mb_s!r} s, n_steps_ "
+          f"{mb.n_steps_}, n_accepted_ {mb.n_accepted_}, validation energy "
+          f"{mb.energy_!r}; fused launches {counts['fused_lloyd']} vs 2 x "
+          f"n_steps_ + 1 = {2 * mb.n_steps_ + 1} (streamed "
+          f"{streamed['fused_lloyd']}), assignment {counts['assignment']}, "
+          f"plain {plain}", flush=True)
+    check(counts["fused_lloyd"] == streamed["fused_lloyd"]
+          == 2 * mb.n_steps_ + 1 and plain == 0, "the wide stream's launches")
+    check(math.isfinite(mb.energy_) and mb.energy_ > 0, "wide stream energy")
+    del mb
+    # a bf16-policy fused fit from (b)'s seeds
+    fused_bf = get_backend("fused", precision=Precision(compute=bf16))
+    zero_all()
+    sync()
+    t0 = time.perf_counter()
+    model_b = AAKMeans(n_clusters=k, backend=fused_bf, n_init=1).fit(
+        table, c0s=c0[None])
+    sync()
+    bf_s = time.perf_counter() - t0
+    counts, plain, streamed = read_all("wide bf16-policy fused fit (18c)",
+                                       wide_launches)
+    e32 = float(F.fused_lloyd(table, model_b.centroids_)[4])
+    gap = (e32 - model.inertia_) / model.inertia_
+    print(f"  (c) bf16-policy fused fit from (b)'s seeds: {bf_s!r} s, n_iter_"
+          f" {model_b.n_iter_}, n_accepted_ {model_b.n_accepted_}, inertia_ "
+          f"{model_b.inertia_!r}; its centroids' f32 energy {e32!r}, "
+          f"{gap!r} relative to (b)'s {model.inertia_!r}; bf16 fused "
+          f"launches {counts['fused_lloyd_bf16']} of {counts['fused_lloyd']}"
+          f", streamed {streamed['fused_lloyd']}, plain {plain}", flush=True)
+    check(counts["fused_lloyd"] == counts["fused_lloyd_bf16"]
+          == streamed["fused_lloyd"] == 1 + trips_of(model_b) and plain == 0,
+          "the wide bf16-policy fit's launches")
+    check(abs(gap) <= 0.02, "the wide bf16-policy fit's f32 energy is more "
+          "than 2 % from the f32 fit's")
+    del model_b
+    # the update kernel at d = 4096 on the fit's labels against its plain
+    # version (its column groups take any d)
+    lab_fin = fin[0]
+    lay = U.layout(U._bind(build.load("update")), n, 1, k, d)
+    zero_all()
+    res_u = compare_stats(U.update(table, lab_fin, k),
+                          U.update_plain(table, lab_fin, k))
+    read_all(into=check_launches)
+    print(f"  the update at ({n}, {d}, {k}): {lay.groups} column groups of "
+          f"{lay.width}, {lay.slabs} slabs; vs plain: sums "
+          f"{res_u['sums_rel']:.2e}, counts {res_u['counts_rel']:.2e}")
+    accept_stats(res_u, "the wide update")
+    errs["update"] = res_u["sums_abs"]
+
+    # (d) times (CUDA events, in turns)
+    table_b, c_fin_b = table.to(bf16), c_fin.to(bf16)
+    blocks_b, cs_sub_b = blocks.to(bf16), cs_sub.to(bf16)
+    c_p, c_pb = c_fin[None], c_fin_b[None]
+    bnd = squared_bounds(bounds.init_carry(table, c_p, k, gs16), c_p, k, gs16)
+    bnd_s = squared_bounds(bounds.init_carry(blocks, cs_sub, k, gs16), cs_sub,
+                           k, gs16)
+    turned = {
+        "fused_lloyd": lambda i: F.fused_lloyd(table, c_fin),
+        "assignment": lambda i: A.assignment(table, c_fin),
+        "update": lambda i: U.update(table, lab_fin, k),
+        "fused_bounds": lambda i: F.fused_lloyd(table, c_p, bounds=bnd,
+                                                gs=gs16),
+        "fused_lloyd_bf16": lambda i: F.fused_lloyd(table_b, c_fin_b),
+        "assignment_bf16": lambda i: A.assignment(table_b, c_fin_b),
+        "update_bf16": lambda i: U.update(table_b, lab_fin, k),
+        "fused_bounds_bf16": lambda i: F.fused_lloyd(table_b, c_pb,
+                                                     bounds=bnd, gs=gs16),
+        "fused_lloyd subspaces": lambda i: F.fused_lloyd(blocks, cs_sub),
+        "assignment subspaces": lambda i: A.assignment(blocks, cs_sub),
+        "update subspaces": lambda i: U.update(blocks, lab_sub, k),
+        "fused_bounds subspaces": lambda i: F.fused_lloyd(
+            blocks, cs_sub, bounds=bnd_s, gs=gs16),
+        "fused_lloyd_bf16 subspaces": lambda i: F.fused_lloyd(blocks_b,
+                                                              cs_sub_b),
+        "assignment_bf16 subspaces": lambda i: A.assignment(blocks_b,
+                                                            cs_sub_b),
+        "update_bf16 subspaces": lambda i: U.update(blocks_b, lab_sub, k),
+        "fused_bounds_bf16 subspaces": lambda i: F.fused_lloyd(
+            blocks_b, cs_sub_b, bounds=bnd_s, gs=gs16)}
+    turns = {what: [] for what in turned}
+    for order in (list(turned), list(reversed(turned))):
+        for what in order:
+            turns[what].append(event_ms(torch, turned[what], 5))
+    turn_ms = {what: sum(ts) / len(ts) for what, ts in turns.items()}
+    print("  (d) in turns: " + "; ".join(
+        f"{what} {ts!r} ms" for what, ts in turns.items()))
+    step = PREDICT_CHUNK
+    n_chunks = n // step
+
+    def chunk(xx, i):
+        return xx[(i % n_chunks) * step:(i % n_chunks + 1) * step]
+
+    c_sq = torch.sum(c_fin * c_fin, dim=-1)
+    cbf = c_fin_b.float()
+    c_sq_b = torch.sum(cbf * cbf, dim=-1)
+    g = bnd[1].shape[-1]
+    wide = {}
+    for kn in ("fused_lloyd", "assignment", "update", "fused_bounds"):
+        for tag, xx, cc, csq_, nb in (("", table, c_fin, c_sq, 4),
+                                      ("_bf16", table_b, c_fin_b, c_sq_b,
+                                       2)):
+            name = kn + tag
+            row = {"ms": turn_ms[name],
+                   "subspace_ms": turn_ms[f"{name} subspaces"],
+                   "library_ms": None}
+            bound = bf16_bound_ms if tag else \
+                (lambda b, c_, o: distance_bound_ms(b, c_, o)[:3])
+            if kn == "fused_lloyd":
+                row["plain_ms"] = event_ms(
+                    torch, lambda i: F.fused_lloyd_plain(xx, cc), 3, warmup=1)
+                row["bounds"] = bound(nb * (n * d + k * d)
+                                      + 4 * (2 * n + k * d + k + 1),
+                                      2 * n * k * d, 3 * n * k + 2 * n * d)
+            elif kn == "assignment":
+                xc32 = (lambda i: chunk(xx, i).float()) if tag else \
+                    (lambda i: chunk(xx, i))
+                row["chunk_ms"] = event_ms(
+                    torch, lambda i: A.assignment(chunk(xx, i), cc), 20)
+                row["plain_ms"] = event_ms(
+                    torch, lambda i: A.assignment_plain(chunk(xx, i), cc), 20)
+                row["chunk_library_ms"] = event_ms(
+                    torch, lambda i: torch.argmin(torch.addmm(
+                        csq_, xc32(i), cc.float().T, alpha=-2.0), dim=1), 20)
+                row["library_ms"] = event_ms(
+                    torch, lambda i: torch.argmin(torch.addmm(
+                        csq_, xx.float(), cc.float().T, alpha=-2.0), dim=1),
+                    3, warmup=1)
+                row["bounds"] = bound(nb * (n * d + k * d) + 4 * 2 * n,
+                                      2 * n * k * d, 3 * n * k)
+                row["chunk_bounds"] = bound(nb * (step * d + k * d)
+                                            + 4 * 2 * step,
+                                            2 * step * k * d, 3 * step * k)
+            elif kn == "update":
+                row["plain_ms"] = event_ms(
+                    torch, lambda i: U.update_plain(xx, lab_fin, k), 3,
+                    warmup=1)
+                sums_buf = torch.zeros(k, d, device=dev)
+                lab_l = lab_fin.long()
+                row["library_ms"] = event_ms(
+                    torch, lambda i: sums_buf.index_add_(0, lab_l,
+                                                         xx.float()), 5)
+                u_ms, u_by = bound_ms(nb * n * d + 4 * n + 4 * (k * d + k),
+                                      n * d + n)
+                row["bounds"] = (u_ms, u_by, u_ms)
+            else:
+                row["plain_ms"] = event_ms(
+                    torch, lambda i: F.fused_bounds_plain(
+                        xx, cc[None], None, *bnd, gs16, tile_rows), 3,
+                    warmup=1)
+                row["bounds"] = bound(
+                    nb * (n * d + k * d) + 4 * (2 * n + n * g)
+                    + 4 * (2 * n + n * g + k * d + k + 1) + 8,
+                    2 * n * k * d, 3 * n * k + 2 * n * d)
+            row["launches"] = wide_launches[name]
+            row["check_launches"] = check_launches[name]
+            wide[name] = row
+            b_ms, b_by, b_fp32 = row["bounds"]
+            print(f"  (d) {name} at ({n}, {d}, {k}): {row['ms']!r} ms "
+                  f"(subspaces {WIDE_SUBSPACES} x ({n}, {dsub}): "
+                  f"{row['subspace_ms']!r} ms), bound {b_ms!r} ms ({b_by}; "
+                  f"FP32-core bound {b_fp32!r} ms), plain "
+                  f"{row['plain_ms']!r} ms"
+                  + ("" if row["library_ms"] is None else
+                     f", library {row['library_ms']!r} ms")
+                  + (f"; a {step}-row predict chunk {row['chunk_ms']!r} ms, "
+                     f"bound {row['chunk_bounds'][0]!r} ms (FP32-core "
+                     f"{row['chunk_bounds'][2]!r} ms), addmm + argmin "
+                     f"{row['chunk_library_ms']!r} ms"
+                     if "chunk_ms" in row else "")
+                  + f"; launches on (b) and (c) {row['launches']}, in (a)"
+                  f" {row['check_launches']}")
+    print(f"  X is read once per 256-centroid chunk: {-(-k // 256)} time(s) "
+          f"a step at K = {k}, {-(-1000 // 256)} at K = 1000; phase 18 took "
+          f"{time.perf_counter() - t_phase!r} s", flush=True)
+    del table, table_b, blocks, blocks_b, fin
+    return wide, errs
+
+
 def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
             tile_rows):
     """The paper's protocols on the card at full size on the USCensus1990
@@ -4055,6 +4727,8 @@ def run():
     x_bf, c_bf, errs17 = phase17(torch, x, c0_main, model, fit_s, mb11,
                                     zero_counts, read_counts, path_launches,
                                     tile_rows)
+    wide18, errs18 = phase18(torch, dev, zero_counts, read_counts,
+                             path_launches, tile_rows)
     main_abs_err = max(main_abs_err, errs15["fused_lloyd"])
     assign_abs_err = max(assign_abs_err, errs15["assignment"])
     update_abs_err = max(update_abs_err, errs15["update"])
@@ -4409,6 +5083,26 @@ def run():
                                  "fp32_bound_ms": a_fp32,
                                  "library_ms": row["all_rows"]["library_ms"]}
         kernels.append(entry)
+    # phase 18's wide rows: every entry's launches on the wide main paths
+    # and its time at the Llama table's shape, with the rest of the row
+    for entry in kernels:
+        row = wide18[entry["name"]]
+        b_ms, b_by, b_fp32 = row["bounds"]
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   errs18.get(entry["name"], 0.0))
+        entry["wide_launches"] = row["launches"]
+        entry["wide_ms"] = row["ms"]
+        entry["wide"] = {
+            "shape": [LLAMA_VOCAB, LLAMA_HIDDEN, WIDE_K],
+            "check_launches": row["check_launches"],
+            "subspace_ms": row["subspace_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by, "fp32_bound_ms": b_fp32,
+            "library_ms": row["library_ms"]}
+        if "chunk_ms" in row:
+            entry["wide"]["chunk"] = {
+                "ms": row["chunk_ms"], "bound_ms": row["chunk_bounds"][0],
+                "fp32_bound_ms": row["chunk_bounds"][2],
+                "library_ms": row["chunk_library_ms"]}
     print(json.dumps({"kernels": kernels}))
     return smi, name
 

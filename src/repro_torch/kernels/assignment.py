@@ -3,9 +3,11 @@ its plain PyTorch version.
 
 Counterpart of ``repro.kernels.assignment.assignment_pallas`` (the TPU
 kernel ``_assignment_kernel``), the kernel behind ``predict``.  On a CUDA
-tensor ``assignment`` launches the kernel or raises; on a CPU tensor it
-runs ``assignment_plain``.  ``launches`` / ``plain_calls`` count each,
-``bf16_launches`` the launches on a bf16 X (the kernel's bf16 variant).
+tensor ``assignment`` launches the kernel or raises, at any d (rows wider
+than the shared-memory X tile stream through it in feature slabs); on a
+CPU tensor it runs ``assignment_plain``.  ``launches`` / ``plain_calls``
+count each, ``bf16_launches`` the launches on a bf16 X (the kernel's bf16
+variant) and ``stream_launches`` those that streamed X.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from repro_torch.kernels import build, ref, tiles
 
 launches = 0
 bf16_launches = 0
+stream_launches = 0
 plain_calls = 0
 
 
@@ -39,8 +42,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.assignment_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, ctypes.c_longlong, p, i, i, i, i, i, p, p, p,
-                       p]
+        fn.argtypes = [p, i, ctypes.c_longlong, p, i, i, i, i, i, i, p, p,
+                       p, p]
         fn.restype = ctypes.c_int
         lib.assignment_error_string.argtypes = [ctypes.c_int]
         lib.assignment_error_string.restype = ctypes.c_char_p
@@ -51,19 +54,23 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def assignment(x: torch.Tensor, c: torch.Tensor):
+def assignment(x: torch.Tensor, c: torch.Tensor, *, _stream: bool = False):
     """Nearest centroid of every row.  x (N, d) or (R, N, d); c (K, d) or
     (R, K, d), each float32 or bfloat16 (computed in f32 on the upcast
-    values, mixed types too).  Returns (labels int32, min_sqdist f32),
-    each with a leading R axis when c is (R, K, d)."""
-    global launches, bf16_launches
+    values, mixed types too), any d.  Returns (labels int32, min_sqdist
+    f32), each with a leading R axis when c is (R, K, d).  ``_stream``
+    streams X on the card at any d, which the card tests compare with the
+    resident launch bit for bit."""
+    global launches, bf16_launches, stream_launches
     batched, r, n, k, d = tiles.problem_shape(x, c)
     if x.device.type == "cpu" and c.device.type == "cpu":
         return assignment_plain(x, c)
     if r > tiles.MAX_PROBLEMS:
         raise ValueError(f"R={r} exceeds {tiles.MAX_PROBLEMS} problems")
     lib = _bind(build.load("assignment"))
-    tiles.check_cuda_operands(lib.assignment_max_features, x, c)
+    tiles.check_cuda_operands(x, c)
+    streamed = tiles.streams_x(lib.assignment_max_features, x.device, d,
+                               _stream)
     labels = torch.empty((r, n), dtype=torch.int32, device=x.device)
     mind = torch.empty((r, n), dtype=torch.float32, device=x.device)
     scratch = torch.empty(lib.assignment_scratch_floats(r, k, d),
@@ -72,7 +79,7 @@ def assignment(x: torch.Tensor, c: torch.Tensor):
     with torch.cuda.device(x.device):
         rc = lib.assignment_launch(
             x.data_ptr(), tiles.type_code(x), n * d if x.dim() == 3 else 0,
-            c.data_ptr(), tiles.type_code(c), r, n, k, d,
+            c.data_ptr(), tiles.type_code(c), r, n, k, d, int(_stream),
             scratch.data_ptr(), labels.data_ptr(),
             mind.data_ptr(), stream)
     if rc != 0:
@@ -80,4 +87,5 @@ def assignment(x: torch.Tensor, c: torch.Tensor):
                            f"({lib.assignment_error_string(rc).decode()})")
     launches += 1
     bf16_launches += x.dtype == torch.bfloat16
+    stream_launches += streamed
     return (labels, mind) if batched else (labels[0], mind[0])

@@ -35,7 +35,10 @@
 // skipped groups are padding and never compete.  Each computed group's
 // minimum is merged across the warp at the end of each chunk it meets (a
 // group that goes on keeps its minimum so far in shared memory, not in
-// registers).  No atomics but the need bits' atomicOr, whose result does
+// registers).  X is the sweep's: resident in shared memory where the whole
+// 64-row tile fits beside the lists (a little under 821 features on an
+// H100, less as G grows), else streamed beside C in slabs of 32 features,
+// so any d runs.  No atomics but the need bits' atomicOr, whose result does
 // not depend on the order.
 
 #include <type_traits>
@@ -57,8 +60,9 @@ constexpr int kLbRegs = 4;   // bounds a thread holds: 64 rows x 16 groups
 
 // kVecGroups: gs and K multiples of 4, so that each 4-centroid vector lies
 // in one group and below K (sweep_fp32.cuh then merges a chunk that lies in
-// one group without masks).  TX: X's element type.
-template <bool kVecGroups, typename TX>
+// one group without masks).  TX: X's element type.  kStream: X streams in
+// slabs (dc = kMaxDepth), else the whole tile is resident.
+template <bool kVecGroups, typename TX, bool kStream>
 __global__ void __launch_bounds__(f8::kThreads, 2)
 bounds_tiles(const TX* __restrict__ x, int64_t x_rstride,
              const float* __restrict__ ct, const float* __restrict__ csq,
@@ -68,7 +72,8 @@ bounds_tiles(const TX* __restrict__ x, int64_t x_rstride,
              float* __restrict__ mind, float* __restrict__ gmin,
              int* __restrict__ part_skip) {
   extern __shared__ float4 smem_raw[];
-  const f8::Tile sm(reinterpret_cast<float*>(smem_raw), d, dc, true);
+  const f8::Tile sm(reinterpret_cast<float*>(smem_raw), kStream ? 2 * dc : d,
+                    dc, true);
   unsigned* open = reinterpret_cast<unsigned*>(sm.extra);  // kRows
   int* live = reinterpret_cast<int*>(open + f8::kRows);    // 2 x kVecs
   int* scan = live + 2 * f8::kVecs;                        // kWarps + 1
@@ -162,13 +167,24 @@ bounds_tiles(const TX* __restrict__ x, int64_t x_rstride,
   const int n_first = skip.fill(0);
   if (n_first > 0) f8::start_stage<true>(sm, ctr, k, d, dc, 0, skip, n_first);
   const int n_second = n_first == f8::kVecs ? skip.fill(1) : 0;
-  f8::load_rows(sm, x + r * x_rstride, row0, rows, d);
-  if (n_first <= f8::kVecs / 2)   // one chunk, half full: half the FMAs
-    f8::sweep<true, true, kVecGroups, true>(sm, ctr, csqr, k, d, dc, skip,
-                                            n_first);
-  else
-    f8::sweep<true, true, kVecGroups>(sm, ctr, csqr, k, d, dc, skip, n_first,
-                                      n_second);
+  if constexpr (kStream) {
+    const f8::XRows<TX> xr{x + r * x_rstride + row0 * d, rows};
+    f8::load_first_slab(sm, xr, d);
+    if (n_first <= f8::kVecs / 2)
+      f8::sweep<true, true, kVecGroups, true, true>(sm, ctr, csqr, k, d, dc,
+                                                    skip, n_first, 0, xr);
+    else
+      f8::sweep<true, true, kVecGroups, false, true>(
+          sm, ctr, csqr, k, d, dc, skip, n_first, n_second, xr);
+  } else {
+    f8::load_rows(sm, x + r * x_rstride, row0, rows, d);
+    if (n_first <= f8::kVecs / 2)   // one chunk, half full: half the FMAs
+      f8::sweep<true, true, kVecGroups, true>(sm, ctr, csqr, k, d, dc, skip,
+                                              n_first);
+    else
+      f8::sweep<true, true, kVecGroups>(sm, ctr, csqr, k, d, dc, skip,
+                                        n_first, n_second);
+  }
   if (threadIdx.x < rows) {
     labels[at + threadIdx.x] = sm.lab[threadIdx.x];
     mind[at + threadIdx.x] = sm.mind[threadIdx.x];
@@ -190,23 +206,20 @@ extern "C" long long fused_bounds_scratch_floats(int r, int k, int d) {
 // lab0 (R, N) int32, lb (R, N, G) and ub (R, N) float32 are the squared
 // bounds; gmin (R, N, G) and skipped (R,) int64 are outputs besides the
 // fused step's.  part_skip (R * tiles int32) is scratch besides
-// fused_lloyd_launch's.  Returns the first CUDA error (0 on success);
-// nothing synchronises.
+// fused_lloyd_launch's; force_stream != 0 streams X at any d.  Returns the
+// first CUDA error (0 on success); nothing synchronises.
 extern "C" int fused_bounds_launch(
     const void* x, int x_type, long long x_rstride, const void* c,
     int c_type, const void* w, long long w_rstride, const void* lab0,
     const void* lb, const void* ub, int r, int n, int k, int d, int gs,
-    int g, const int* lay, void* scratch, void* labels, void* mind,
-    void* gmin, void* part, void* part_skip, void* sums, void* counts,
-    void* energy, void* skipped, void* stream) {
+    int g, int force_stream, const int* lay, void* scratch, void* labels,
+    void* mind, void* gmin, void* part, void* part_skip, void* sums,
+    void* counts, void* energy, void* skipped, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  f8::SweepPlan plan;
+  cudaError_t err =
+      f8::plan_sweep(d, bounds_extra(g), true, force_stream != 0, &plan);
   if (err != cudaSuccess) return (int)err;
-  const size_t extra = bounds_extra(g);
-  const int dc = f8::stage_depth(d, f8::optin_bytes(device), extra, true);
-  if (dc == 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = f8::smem_bytes(d, dc, extra, true);
   const int n_tiles = cdiv(n, f8::kRows);
   const float* wf = static_cast<const float*>(w);
   const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
@@ -220,18 +233,22 @@ extern "C" int fused_bounds_launch(
     // REPRO_BOUNDS_GENERAL_MERGE (scripts/bounds_merge_probe.py builds a
     // copy with it) takes the general merge at every group size
 #ifdef REPRO_BOUNDS_GENERAL_MERGE
-    auto kernel = bounds_tiles<false, TX>;
+    const bool vec_groups = false;
 #else
-    auto kernel = gs % 4 == 0 && k % 4 == 0 ? bounds_tiles<true, TX>
-                                            : bounds_tiles<false, TX>;
+    const bool vec_groups = gs % 4 == 0 && k % 4 == 0;
 #endif
-    err = set_smem(kernel, smem);
+    auto kernel = vec_groups ? (plan.stream ? bounds_tiles<true, TX, true>
+                                            : bounds_tiles<true, TX, false>)
+                             : (plan.stream ? bounds_tiles<false, TX, true>
+                                            : bounds_tiles<false, TX, false>);
+    err = set_smem(kernel, plan.smem);
     if (err != cudaSuccess) return err;
-    kernel<<<dim3(n_tiles, r), f8::kThreads, smem, s>>>(
+    kernel<<<dim3(n_tiles, r), f8::kThreads, plan.smem, s>>>(
         xt, x_rstride, ct, csq, static_cast<const int*>(lab0),
         static_cast<const float*>(lb), static_cast<const float*>(ub), n, k,
-        d, dc, gs, g, static_cast<int*>(labels), static_cast<float*>(mind),
-        static_cast<float*>(gmin), static_cast<int*>(part_skip));
+        d, plan.dc, gs, g, static_cast<int*>(labels),
+        static_cast<float*>(mind), static_cast<float*>(gmin),
+        static_cast<int*>(part_skip));
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     err = launch_segment_sum(s, xt, x_rstride,
@@ -248,9 +265,10 @@ extern "C" int fused_bounds_launch(
   });
 }
 
-// Widest d whose tile, lists of live vectors and G need bits fit the
-// shared memory a block may opt in to on `device`, for G groups (any K);
-// -1 when the device cannot be queried.
+// Widest d of the resident path: the widest whose tile, lists of live
+// vectors and G need bits fit the shared memory a block may opt in to on
+// `device`, for G groups (any K); -1 when the device cannot be queried.
+// Wider rows stream.
 extern "C" int fused_bounds_max_features(int device, int g) {
   return f8::max_features(device, bounds_extra(g), true);
 }

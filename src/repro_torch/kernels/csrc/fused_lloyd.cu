@@ -19,9 +19,10 @@
 // bound.  The design is two passes over X, not the TPU kernel's one:
 //   1. the assignment kernel's own launch (sweep_fp32.cuh's launch_assign:
 //      8 x 8 register blocks, C transposed once per launch and streamed by
-//      cp.async, one 64-row tile per block) writes each row's label and
-//      distance, so the step's labels and distances are the assignment's
-//      by construction;
+//      cp.async, one 64-row tile per block, X resident in shared memory up
+//      to 821 features on an H100 and streamed in 32-feature slabs past
+//      that, so any d runs) writes each row's label and distance, so the
+//      step's labels and distances are the assignment's by construction;
 //   2. the update kernel's segment sum (segment_sum.cuh) adds the stats
 //      of those labels, reading X a second time;
 //   3. the energy sum(w * min distance) is summed over the rows in two
@@ -52,14 +53,16 @@ extern "C" long long fused_lloyd_scratch_floats(int r, int k, int d) {
 // Pointers are device pointers; x_type / c_type are X's and C's type codes
 // (nearest.cuh: 0 float32, 1 bfloat16); w may be null (every weight 1).
 // x_rstride / w_rstride are the element offsets between problems (0 when
-// shared).  scratch (fused_lloyd_scratch_floats(r, k, d) floats, 16-byte
-// aligned) and part (R * slabs * K * (d+1)) are scratch.  Returns the
-// first CUDA error (0 on success); nothing synchronises.
+// shared).  force_stream != 0 streams X through the sweep at any d.
+// scratch (fused_lloyd_scratch_floats(r, k, d) floats, 16-byte aligned)
+// and part (R * slabs * K * (d+1)) are scratch.  Returns the first CUDA
+// error (0 on success); nothing synchronises.
 extern "C" int fused_lloyd_launch(
     const void* x, int x_type, long long x_rstride, const void* c,
     int c_type, const void* w, long long w_rstride, int r, int n, int k,
-    int d, const int* lay, void* scratch, void* labels, void* mind,
-    void* part, void* sums, void* counts, void* energy, void* stream) {
+    int d, int force_stream, const int* lay, void* scratch, void* labels,
+    void* mind, void* part, void* sums, void* counts, void* energy,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
   const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
@@ -67,7 +70,8 @@ extern "C" int fused_lloyd_launch(
   return (int)with_operand_types(x, x_type, c, c_type, [&](auto xt, auto ct) {
     float* csq;
     cudaError_t err = f8::launch_assign(
-        s, xt, x_rstride, ct, r, n, k, d, static_cast<float*>(scratch),
+        s, xt, x_rstride, ct, r, n, k, d, force_stream != 0,
+        static_cast<float*>(scratch),
         static_cast<int*>(labels), static_cast<float*>(mind), &csq);
     if (err != cudaSuccess) return err;
     err = launch_segment_sum(s, xt, x_rstride,
@@ -82,6 +86,7 @@ extern "C" int fused_lloyd_launch(
   });
 }
 
+// Widest d of the sweep's resident path; wider rows stream.
 extern "C" int fused_lloyd_max_features(int device) {
   return f8::max_features(device);
 }

@@ -1,8 +1,9 @@
 // Nearest-centroid sweep on the FP32 CUDA cores with 8 x 8 register
-// blocks: one block's sweep over a 64-row X tile in shared memory against
-// the K centroids, C streamed through a two-stage cp.async ring.  The one
-// sweep of the assignment kernel, the fused step and the bounded fused
-// step, so the three give the same distances bit for bit.
+// blocks: one block's sweep over a 64-row X tile against the K centroids,
+// C streamed through a two-stage cp.async ring, X held whole in shared
+// memory or, for rows wider than that holds, streamed beside C in feature
+// slabs.  The one sweep of the assignment kernel, the fused step and the
+// bounded fused step, so the three give the same distances bit for bit.
 //
 // Why FP32 and not the tensor cores.  Split TF32 (x.c as three TF32
 // products on mma.sync, C and X split into hi and lo) held f32 accuracy
@@ -23,12 +24,12 @@
 // Operand types.  X and C are each float32 or bfloat16 in device memory
 // (the reference's bf16 compute policy streams both in bf16).  A bf16 value
 // is converted to f32 where it is stored: X into the transposed tile
-// (load_rows), C into the transposed scratch (transpose_c) and |c|^2
-// (row_sqnorms).  The product of two bf16 values is exact in f32, so these
-// FMA chains compute what the TPU kernel's bf16 dot_general with f32
-// accumulation computes, and a bf16 launch equals the f32 launch on the
-// upcast operands bit for bit.  The tile stays f32, so the widest d does not
-// change.
+// (load_rows, or store_slab where X streams), C into the transposed
+// scratch (transpose_c) and |c|^2 (row_sqnorms).  The product of two bf16
+// values is exact in f32, so these FMA chains compute what the TPU kernel's
+// bf16 dot_general with f32 accumulation computes, and a bf16 launch equals
+// the f32 launch on the upcast operands bit for bit.  The X tile and slabs
+// hold f32, so a bf16 X takes the same path as an f32 X of its width.
 //
 // Layout.  256 threads; warp w owns rows 4w..4w+3 and 32+4w..32+4w+3 of the
 // tile, and lane l slots 4l..4l+3 and 128+4l..128+4l+3 of each 256-slot
@@ -39,9 +40,24 @@
 // (transpose_c) to (d, K padded to 256) in device memory, so a chunk is 64
 // vectors of 4 consecutive centroids per feature, copied as 16-byte
 // cp.async vectors while the previous stage is multiplied.  A stage is dc
-// features of a chunk; dc (stage_depth) is 32 where two blocks fit on an
-// SM (d = 69: 85 KB), less for wide rows, down to 4 at the widest tile
-// that fits the 227 KB of a block.
+// features of a chunk.
+//
+// Resident and streamed X.  The resident path keeps the whole tile,
+// xs[feature][row] for all d features, loaded once (load_rows); dc
+// (stage_depth) is 32 where two blocks fit on an SM (d = 69: 85 KB), less
+// for wider rows, down to 4 at the widest tile that fits the 227 KB of a
+// block (max_features: 821 on an H100 for the assignment).  Past that, or
+// when the launcher forces it, X streams: a slab of kMaxDepth features of
+// the tile's rows sits beside each C stage, double-buffered like C, so the
+// shared memory (84 KB, two blocks an SM) does not grow with d.  A slab is
+// read by plain loads into registers before the stage's FMAs and stored,
+// transposed and converted to f32, after them (rows start at any element:
+// f32 rows of odd width and bf16 rows are not 16- or 4-byte aligned).  The
+// tile is read once per C chunk: cdiv(K, 256) times, or once per listed
+// chunk in the bounded sweep.  The FMA chains are the resident path's, in
+// the same order (|x|^2 carried across the first chunk's slabs), so a
+// streamed launch equals the resident launch bit for bit wherever both
+// fit.
 //
 // The unbounded sweep's chunk c is centroids 256c .. 256c+255.  The bounded
 // sweep (kBounded) computes only the centroid groups its tile needs: chunk
@@ -70,6 +86,11 @@ constexpr int kXLd = kRows + 4;     // pitch of the transposed X tile
 constexpr int kCLd = kCents + 4;    // pitch of a staged C feature row
 constexpr int kMaxDepth = 32;       // most features per C stage
 constexpr int kTwoPerSm = 115712;   // shared bytes with room for two blocks
+// X elements each thread loads of a streamed slab (kRows x kMaxDepth)
+constexpr int kSlabLoads = kRows * kMaxDepth / kThreads;
+static_assert(kThreads % kMaxDepth == 0 &&
+              kSlabLoads * kThreads == kRows * kMaxDepth,
+              "a slab splits evenly over the threads");
 
 __host__ __device__ inline int pad_centroids(int k) {
   return cdiv(k, kCents) * kCents;
@@ -123,18 +144,20 @@ __host__ inline cudaError_t prepare_c(cudaStream_t s, const TC* c, int r,
 // bounded sweep does, so that its group minima have the registers.
 constexpr int kBestFloats = 2 * 8 * kThreads;
 
-// Shared floats: the C ring (2 x dc x kCLd), the transposed X tile
-// (d x kXLd), |x|^2, each row's label and min distance, then (shared_best)
-// the threads' running minima, and `extra` floats of the kernel's own.
-__host__ __device__ inline size_t smem_bytes(int d, int dc, size_t extra = 0,
+// Shared floats: the C ring (2 x dc x kCLd), the transposed X tile of
+// x_feats features (x_feats x kXLd: d resident, 2 x kMaxDepth streamed),
+// |x|^2, each row's label and min distance, then (shared_best) the
+// threads' running minima, and `extra` floats of the kernel's own.
+__host__ __device__ inline size_t smem_bytes(int x_feats, int dc,
+                                             size_t extra = 0,
                                              bool shared_best = false) {
-  return sizeof(float) * ((size_t)2 * dc * kCLd + (size_t)d * kXLd +
+  return sizeof(float) * ((size_t)2 * dc * kCLd + (size_t)x_feats * kXLd +
                           3 * kRows + (shared_best ? kBestFloats : 0) + extra);
 }
 
-// Features per C stage for width d: kMaxDepth, 16, 8 or 4, the deepest with
-// which two blocks fit on an SM, else the deepest that fits the `optin`
-// bytes of one block; 0 when none does.
+// Features per C stage of the resident path for width d: kMaxDepth, 16, 8
+// or 4, the deepest with which two blocks fit on an SM, else the deepest
+// that fits the `optin` bytes of one block; 0 when none does (X streams).
 __host__ inline int stage_depth(int d, int optin, size_t extra = 0,
                                 bool shared_best = false) {
   const size_t room[2] = {(size_t)kTwoPerSm, (size_t)optin};
@@ -154,9 +177,10 @@ __host__ inline int optin_bytes(int device) {
   return optin;
 }
 
-// Widest d whose tile and `extra` floats fit the shared memory a block may
-// opt in to on `device` (821 on an H100 for the assignment); -1 when it
-// cannot be queried.
+// Widest d of the resident path: the widest whose whole tile and `extra`
+// floats fit the shared memory a block may opt in to on `device` (821 on an
+// H100 for the assignment); -1 when it cannot be queried.  Wider rows
+// stream.
 __host__ inline int max_features(int device, size_t extra = 0,
                                  bool shared_best = false) {
   const int optin = optin_bytes(device);
@@ -166,19 +190,46 @@ __host__ inline int max_features(int device, size_t extra = 0,
   return d;
 }
 
+// How one launch sweeps width d: the resident tile with stage depth dc
+// wherever it fits and streaming is not forced, else X streamed in slabs
+// of kMaxDepth features (dc = kMaxDepth); smem its shared bytes.  Depends
+// on (d, extra, device) only, so a relaunch takes the same path.
+struct SweepPlan {
+  int dc;
+  bool stream;
+  size_t smem;
+};
+
+__host__ inline cudaError_t plan_sweep(int d, size_t extra, bool shared_best,
+                                       bool force_stream, SweepPlan* plan) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const int optin = optin_bytes(device);
+  if (optin < 0) return cudaErrorInvalidValue;
+  const int dc = force_stream ? 0 : stage_depth(d, optin, extra, shared_best);
+  plan->stream = dc == 0;
+  plan->dc = plan->stream ? kMaxDepth : dc;
+  plan->smem = smem_bytes(plan->stream ? 2 * kMaxDepth : d, plan->dc, extra,
+                          shared_best);
+  return plan->smem <= (size_t)optin ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 struct Tile {
   float* ring;      // 2 x dc x kCLd, first: 16-byte copies land here
-  float* xs;        // d x kXLd: xs[feature * kXLd + row], zero past the rows
+  float* xs;        // x_feats x kXLd: xs[feature * kXLd + row], zero past
+                    // the rows (streamed: two slabs of dc features)
   float* xsq;       // kRows
   float* mind;      // kRows
   int* lab;         // kRows
   float* best;      // (shared_best) 8 x kThreads: [i * kThreads + thread]
   int* arg;         // (shared_best) 8 x kThreads
   float* extra;     // the kernel's own floats
-  __device__ Tile(float* base, int d, int dc, bool shared_best = false) {
+  __device__ Tile(float* base, int x_feats, int dc,
+                  bool shared_best = false) {
     ring = base;
     xs = ring + 2 * dc * kCLd;
-    xsq = xs + (size_t)d * kXLd;
+    xsq = xs + (size_t)x_feats * kXLd;
     mind = xsq + kRows;
     lab = reinterpret_cast<int*>(mind + kRows);
     best = reinterpret_cast<float*>(lab + kRows);
@@ -215,6 +266,63 @@ __device__ void load_rows(const Tile& sm, const TX* __restrict__ x,
     sm.xsq[threadIdx.x] = s;
   }
   __syncthreads();
+}
+
+// The streamed path's X: the tile's rows, read a slab of kMaxDepth
+// features a stage.
+template <typename TX>
+struct XRows {
+  const TX* src = nullptr;   // the tile's first row (row-major, d columns)
+  int rows = 0;              // rows of the tile that hold data
+};
+
+// Thread t's share of the slab at features [d0, d0 + kMaxDepth): feature
+// t % kMaxDepth of rows t / kMaxDepth + q * (kThreads / kMaxDepth), so a
+// warp reads consecutive features of one row.  Plain loads at any
+// alignment, left in registers as they are (a conversion would wait for
+// them); returns bit q set where element q holds data.
+template <typename TX>
+__device__ __forceinline__ unsigned fetch_slab(const XRows<TX>& xr, int d,
+                                               int d0, TX (&v)[kSlabLoads]) {
+  const int f = threadIdx.x % kMaxDepth;
+  const bool in_d = d0 + f < d;
+  unsigned ok = 0;
+#pragma unroll
+  for (int q = 0; q < kSlabLoads; ++q) {
+    const int r = q * (kThreads / kMaxDepth) + threadIdx.x / kMaxDepth;
+    if (in_d && r < xr.rows) {
+      v[q] = xr.src[(int64_t)r * d + d0 + f];
+      ok |= 1u << q;
+    } else {
+      v[q] = TX();
+    }
+  }
+  return ok;
+}
+
+// fetch_slab's elements into a slab slot (xs[feature * kXLd + row]),
+// converted to f32; zero where no data is (rows past the data, features
+// past d).
+template <typename TX>
+__device__ __forceinline__ void store_slab(float* slot,
+                                           const TX (&v)[kSlabLoads],
+                                           unsigned ok) {
+  const int f = threadIdx.x % kMaxDepth;
+#pragma unroll
+  for (int q = 0; q < kSlabLoads; ++q) {
+    const int r = q * (kThreads / kMaxDepth) + threadIdx.x / kMaxDepth;
+    slot[f * kXLd + r] = (ok >> q) & 1u ? to_f32(v[q]) : 0.f;
+  }
+}
+
+// The streamed path's first slab (features [0, kMaxDepth)) into slot 0;
+// the sweep's first barrier makes it visible.
+template <typename TX>
+__device__ __forceinline__ void load_first_slab(const Tile& sm,
+                                                const XRows<TX>& xr, int d) {
+  TX v[kSlabLoads];
+  const unsigned ok = fetch_slab(xr, d, 0, v);
+  store_slab(sm.xs, v, ok);
 }
 
 constexpr int kWarps = kThreads / 32;
@@ -382,12 +490,18 @@ __device__ __forceinline__ int row_of(int ty, int i) {
 // of 4: a vector lies in one group) takes each slot's group from its
 // vector and merges a chunk that lies in one group without masks; kHalf
 // (at most 32 live vectors: one chunk, half full) does half the FMAs.
+//
+// kStream: X streams (dc = kMaxDepth): the caller has stored the first
+// slab into slot 0 (load_first_slab) and not computed |x|^2; stage s
+// reads slab slot s & 1, and fetches stage s + 1's slab from xr while it
+// multiplies.  Threads 0-63 carry their row's |x|^2 chain across the first
+// chunk's slabs and store it before the chunk's distances.
 template <bool kBounded, bool kSharedBest = kBounded, bool kVecGroups = false,
-          bool kHalf = false>
+          bool kHalf = false, bool kStream = false, typename TX = float>
 __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
                       const float* __restrict__ csq, int k, int d, int dc,
                       const Skip& skip, int n_first = 0,
-                      int n_second = 0) {
+                      int n_second = 0, XRows<TX> xr = XRows<TX>{}) {
   const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
   const int n_ds = cdiv(d, dc);
   // the bounded sweep adds a chunk's stages when fill finds it
@@ -425,6 +539,7 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
   }
   save_best();
   float acc[8][8];
+  float xsq = 0.f;   // (kStream, threads 0-63) the row's |x|^2 so far
   if (!kBounded && n_stages > 0) start_stage<false>(sm, ct, k, d, dc, 0, skip);
   for (int kc = 0; kc * n_ds < n_stages; ++kc) {
 #pragma unroll
@@ -433,18 +548,32 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     for (int ds = 0; ds < n_ds; ++ds) {
       const int s = kc * n_ds + ds, d0 = ds * dc;
+      TX xv[kStream ? kSlabLoads : 1];   // (kStream) stage s + 1's slab
+      unsigned x_ok = 0;
       if (s + 1 < n_stages) {
         // slot (s + 1) & 1 was consumed at s - 1
         start_stage<kBounded>(sm, ct, k, d, dc, s + 1, skip,
                               ds == n_ds - 1 ? n_next : n_cur);
+        if constexpr (kStream)
+          x_ok = fetch_slab(xr, d, ds == n_ds - 1 ? 0 : d0 + dc, xv);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const float* xcol = sm.xs + (size_t)d0 * kXLd + ty * 4;
+      const float* xslab =
+          kStream ? sm.xs + (s & 1) * dc * kXLd : sm.xs + (size_t)d0 * kXLd;
+      const float* xcol = xslab + ty * 4;
       const float* ccol = sm.ring + (s & 1) * dc * kCLd + tx * 4;
       const int depth = min(dc, d - d0);
+      if (kStream && kc == 0 && threadIdx.x < kRows) {
+        // load_rows' chain, in the same order, a slab at a time
+        for (int kk = 0; kk < depth; ++kk) {
+          const float v = xslab[kk * kXLd + threadIdx.x];
+          xsq = fmaf(v, v, xsq);
+        }
+        if (ds == n_ds - 1) sm.xsq[threadIdx.x] = xsq;
+      }
       if (kHalf) {
         // the live vectors fit the first 128 slots: half the FMAs
 #pragma unroll 4
@@ -478,6 +607,10 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
             for (int j = 0; j < 8; ++j)
               acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
         }
+      }
+      if constexpr (kStream) {
+        if (s + 1 < n_stages)
+          store_slab(sm.xs + ((s + 1) & 1) * dc * kXLd, xv, x_ok);
       }
       __syncthreads();            // slot s & 1 is consumed
     }
@@ -644,21 +777,31 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
 
 // One 64-row tile of X a block (blockIdx.x), one problem a grid row
 // (blockIdx.y): each row's label and min distance.  The assignment kernel,
-// and the fused step's sweep.
-template <typename TX>
+// and the fused step's sweep.  kStream: X streams in slabs (dc =
+// kMaxDepth), else the whole tile is resident.
+template <typename TX, bool kStream>
 __global__ void __launch_bounds__(kThreads, 2)
 assign_tiles(const TX* __restrict__ x, int64_t x_rstride,
              const float* __restrict__ ct, const float* __restrict__ csq,
              int n, int k, int d, int dc, int* __restrict__ labels,
              float* __restrict__ mind) {
   extern __shared__ float4 smem_raw[];
-  const Tile sm(reinterpret_cast<float*>(smem_raw), d, dc);
+  const Tile sm(reinterpret_cast<float*>(smem_raw), kStream ? 2 * dc : d,
+                dc);
   const int r = blockIdx.y;
   const int64_t row0 = (int64_t)blockIdx.x * kRows;
   const int rows = n - row0 < kRows ? (int)(n - row0) : kRows;
-  load_rows(sm, x + r * x_rstride, row0, rows, d);
-  sweep<false, false>(sm, ct + (int64_t)r * d * pad_centroids(k),
-                      csq + (int64_t)r * k, k, d, dc, Skip{});
+  if constexpr (kStream) {
+    const XRows<TX> xr{x + r * x_rstride + row0 * d, rows};
+    load_first_slab(sm, xr, d);
+    sweep<false, false, false, false, true>(
+        sm, ct + (int64_t)r * d * pad_centroids(k), csq + (int64_t)r * k, k,
+        d, dc, Skip{}, 0, 0, xr);
+  } else {
+    load_rows(sm, x + r * x_rstride, row0, rows, d);
+    sweep<false, false>(sm, ct + (int64_t)r * d * pad_centroids(k),
+                        csq + (int64_t)r * k, k, d, dc, Skip{});
+  }
   if (threadIdx.x < rows) {
     labels[(int64_t)r * n + row0 + threadIdx.x] = sm.lab[threadIdx.x];
     mind[(int64_t)r * n + row0 + threadIdx.x] = sm.mind[threadIdx.x];
@@ -666,32 +809,31 @@ assign_tiles(const TX* __restrict__ x, int64_t x_rstride,
 }
 
 // The assignment on stream s: |c|^2 and C's transpose into scratch
-// (scratch_floats(r, k, d) floats, 16-byte aligned), then assign_tiles.
-// The assignment kernel's launch and the fused step's sweep, so the two
-// give the same labels and distances by construction.  *csq (may be null)
-// receives |c|^2's address in scratch.  X and C are each float32 or
-// bfloat16; the sweep runs on their f32 values.
+// (scratch_floats(r, k, d) floats, 16-byte aligned), then assign_tiles,
+// resident or streamed as plan_sweep decides (force_stream: streamed at
+// any d).  The assignment kernel's launch and the fused step's sweep, so
+// the two give the same labels and distances by construction.  *csq (may
+// be null) receives |c|^2's address in scratch.  X and C are each float32
+// or bfloat16; the sweep runs on their f32 values.
 template <typename TX, typename TC>
 __host__ inline cudaError_t launch_assign(cudaStream_t s, const TX* x,
                                           int64_t x_rstride, const TC* c,
                                           int r, int n, int k, int d,
-                                          float* scratch, int* labels,
-                                          float* mind,
+                                          bool force_stream, float* scratch,
+                                          int* labels, float* mind,
                                           float** csq_out = nullptr) {
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  SweepPlan plan;
+  cudaError_t err = plan_sweep(d, 0, false, force_stream, &plan);
   if (err != cudaSuccess) return err;
-  const int dc = stage_depth(d, optin_bytes(device));
-  if (dc == 0) return cudaErrorInvalidValue;
   float *ct, *csq;
   err = prepare_c(s, c, r, k, d, scratch, &ct, &csq);
   if (err != cudaSuccess) return err;
   if (csq_out) *csq_out = csq;
-  const size_t smem = smem_bytes(d, dc);
-  err = set_smem(assign_tiles<TX>, smem);
+  auto kernel = plan.stream ? assign_tiles<TX, true> : assign_tiles<TX, false>;
+  err = set_smem(kernel, plan.smem);
   if (err != cudaSuccess) return err;
-  assign_tiles<TX><<<dim3(cdiv(n, kRows), r), kThreads, smem, s>>>(
-      x, x_rstride, ct, csq, n, k, d, dc, labels, mind);
+  kernel<<<dim3(cdiv(n, kRows), r), kThreads, plan.smem, s>>>(
+      x, x_rstride, ct, csq, n, k, d, plan.dc, labels, mind);
   return cudaGetLastError();
 }
 

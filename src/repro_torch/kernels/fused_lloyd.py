@@ -9,13 +9,15 @@ Counterpart of ``repro.kernels.fused_lloyd.fused_lloyd_pallas``: the TPU
 kernel ``_fused_kernel``, and with ``bounds=`` the tile-skipping
 ``_fused_bounds_kernel``.  On a CUDA tensor ``fused_lloyd`` launches the
 kernel or raises; on a CPU tensor it runs ``fused_lloyd_plain`` or
-``fused_bounds_plain``.
+``fused_bounds_plain``.  Both kernels take any d: rows wider than the
+shared-memory X tile stream through the sweep in feature slabs.
 
 ``launches`` / ``bounds_launches`` count the launches of the two kernels
 (``bf16_launches`` / ``bounds_bf16_launches`` those of them on a bf16 X,
-the kernels' bf16 variants) and ``plain_calls`` / ``bounds_plain_calls``
-the calls of their plain versions, so a run can show which of them it
-went through.
+the kernels' bf16 variants; ``stream_launches`` /
+``bounds_stream_launches`` those that streamed X) and ``plain_calls`` /
+``bounds_plain_calls`` the calls of their plain versions, so a run can
+show which of them it went through.
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ from repro_torch.kernels import build, ref, tiles, update
 
 launches = 0
 bf16_launches = 0
+stream_launches = 0
 plain_calls = 0
 bounds_launches = 0
 bounds_bf16_launches = 0
+bounds_stream_launches = 0
 bounds_plain_calls = 0
 
 
@@ -69,7 +73,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.fused_lloyd_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, ll, p, i, p, ll, i, i, i, i, p,
+        fn.argtypes = [p, i, ll, p, i, p, ll, i, i, i, i, i, p,
                        p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.fused_lloyd_error_string.argtypes = [ctypes.c_int]
@@ -87,17 +91,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
                 w: Optional[torch.Tensor] = None, *, bounds=None,
-                gs: Optional[int] = None):
+                gs: Optional[int] = None, _stream: bool = False):
     """Assignment + weighted cluster stats + energy in one call.
 
     x (N, d) or (R, N, d); c (K, d) or (R, K, d); w None, (N,) or (R, N)
     row weights that scale sums/counts/energy (labels and min_sqdist stay
     unweighted).  x and c are each float32 or bfloat16: the kernel reads
     them as they are and computes in f32, so a bf16 call equals the f32
-    call on the upcast operands bit for bit.  Returns (labels int32,
-    min_sqdist f32, sums (K, d) f32, counts (K,) f32, energy () f32), each
-    with a leading R axis when c is (R, K, d).  Repeated calls on the same
-    inputs are bitwise equal.
+    call on the upcast operands bit for bit.  Any d.  Returns (labels
+    int32, min_sqdist f32, sums (K, d) f32, counts (K,) f32, energy ()
+    f32), each with a leading R axis when c is (R, K, d).  Repeated calls
+    on the same inputs are bitwise equal.
 
     ``bounds=(lab0, lb_sq, ub_sq)`` with a group size ``gs`` switches to
     the tile-skipping kernel: lab0 (N,) int32 the standing labels, lb_sq
@@ -107,12 +111,15 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
     gmin_sq (N, G), the squared group minima, and skipped_frac () f32,
     the share of (row tile, group) cells skipped (see
     ``fused_bounds_plain``).
+
+    ``_stream`` streams X through the sweep on the card at any d, which the
+    card tests compare with the resident launch bit for bit.
     """
     if bounds is not None:
-        return _fused_bounds(x, c, w, bounds, gs)
+        return _fused_bounds(x, c, w, bounds, gs, _stream)
     if gs is not None:
         raise ValueError("gs= goes with bounds=")
-    global launches, bf16_launches
+    global launches, bf16_launches, stream_launches
     batched, r, n, k, d = tiles.problem_shape(x, c, w)
     if x.device.type == "cpu" and c.device.type == "cpu" \
             and (w is None or w.device.type == "cpu"):
@@ -120,7 +127,9 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
     if r > tiles.MAX_PROBLEMS:
         raise ValueError(f"R={r} exceeds {tiles.MAX_PROBLEMS} problems")
     lib = _bind(build.load("fused_lloyd"))
-    tiles.check_cuda_operands(lib.fused_lloyd_max_features, x, c, w)
+    tiles.check_cuda_operands(x, c, w)
+    streamed = tiles.streams_x(lib.fused_lloyd_max_features, x.device, d,
+                               _stream)
     w = tiles.kernel_weights(w)
     lay, lay_arr = _stats_layout(lib, n, r, k, d)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -139,7 +148,7 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
             x.data_ptr(), tiles.type_code(x), x_rstride, c.data_ptr(),
             tiles.type_code(c), None if w is None else w.data_ptr(),
             w_rstride,
-            r, n, k, d, lay_arr, scratch.data_ptr(),
+            r, n, k, d, int(_stream), lay_arr, scratch.data_ptr(),
             labels.data_ptr(), mind.data_ptr(), part.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), energy.data_ptr(), stream)
     if rc != 0:
@@ -147,6 +156,7 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
                            f"({lib.fused_lloyd_error_string(rc).decode()})")
     launches += 1
     bf16_launches += x.dtype == torch.bfloat16
+    stream_launches += streamed
     out = (labels, mind, sums, counts, energy)
     return out if batched else tuple(o[0] for o in out)
 
@@ -199,8 +209,8 @@ def _bind_bounds(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.fused_bounds_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, ll, p, i, p, ll, p, p, p, i, i, i, i, i, i, p,
-                       p, p, p, p, p, p, p, p, p, p, p]
+        fn.argtypes = [p, i, ll, p, i, p, ll, p, p, p, i, i, i, i, i, i, i,
+                       p, p, p, p, p, p, p, p, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.fused_bounds_error_string.argtypes = [ctypes.c_int]
         lib.fused_bounds_error_string.restype = ctypes.c_char_p
@@ -215,8 +225,8 @@ def _bind_bounds(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _fused_bounds(x, c, w, bounds, gs):
-    global bounds_launches, bounds_bf16_launches
+def _fused_bounds(x, c, w, bounds, gs, force_stream):
+    global bounds_launches, bounds_bf16_launches, bounds_stream_launches
     batched, r, n, k, d = tiles.problem_shape(x, c, w)
     g = _bounds_shape(c, bounds, gs, batched, r, n, k)
     lab0, lb_sq, ub_sq = bounds
@@ -227,9 +237,10 @@ def _fused_bounds(x, c, w, bounds, gs):
     if r > tiles.MAX_PROBLEMS:
         raise ValueError(f"R={r} exceeds {tiles.MAX_PROBLEMS} problems")
     lib = _bind_bounds(build.load("fused_bounds"))
-    tiles.check_cuda_operands(
-        lambda dev: lib.fused_bounds_max_features(dev, g), x, c, w, lab0,
-        lb_sq, ub_sq)
+    tiles.check_cuda_operands(x, c, w, lab0, lb_sq, ub_sq)
+    streamed = tiles.streams_x(
+        lambda dev: lib.fused_bounds_max_features(dev, g), x.device, d,
+        force_stream)
     tile_rows = lib.fused_bounds_tile_rows()
     w = tiles.kernel_weights(w)
     lay, lay_arr = _stats_layout(lib, n, r, k, d)
@@ -254,7 +265,8 @@ def _fused_bounds(x, c, w, bounds, gs):
             tiles.type_code(c), None if w is None else w.data_ptr(),
             w_rstride,
             lab0.data_ptr(), lb_sq.data_ptr(), ub_sq.data_ptr(),
-            r, n, k, d, int(gs), g, lay_arr, scratch.data_ptr(),
+            r, n, k, d, int(gs), g, int(force_stream), lay_arr,
+            scratch.data_ptr(),
             labels.data_ptr(), mind.data_ptr(), gmin_sq.data_ptr(),
             part.data_ptr(), part_skip.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), energy.data_ptr(),
@@ -265,6 +277,7 @@ def _fused_bounds(x, c, w, bounds, gs):
             f"({lib.fused_bounds_error_string(rc).decode()})")
     bounds_launches += 1
     bounds_bf16_launches += x.dtype == torch.bfloat16
+    bounds_stream_launches += streamed
     # the cell count made on the card: a host tensor would be a copy that
     # keeps the next launch waiting, a Python divisor a multiplication by
     # its reciprocal, not the plain version's division

@@ -11,8 +11,10 @@ a centroid past K never competes for the argmin (the TPU pads it with
 gives it weight 0).
 
 The tile geometry is the CUDA sources' alone (csrc/sweep_fp32.cuh): the
-wrappers ask the built library for the widest d a tile takes and for the
-rows per tile, and pass them in here.
+wrappers ask the built library for the rows per tile and pass them in
+here.  The sweep takes any d: it keeps the 64-row X tile in shared memory
+up to the widest d that fits (the library's ``*_max_features``: 821 on an
+H100 for the assignment) and streams X in feature slabs past it.
 """
 
 from __future__ import annotations
@@ -180,12 +182,10 @@ def problem_shape(x: torch.Tensor, c: torch.Tensor,
     return batched, r, n, k, d
 
 
-def check_cuda_operands(max_features, *tensors: Optional[torch.Tensor]
-                        ) -> None:
+def check_cuda_operands(*tensors: Optional[torch.Tensor]) -> None:
     """What a kernel takes beyond ``problem_shape``: contiguous tensors on
-    one CUDA device, no empty axis, and d within the shared-memory tile,
-    whose width ``max_features(device index)`` reports (the library's
-    ``*_max_features``; None for a kernel that takes any d)."""
+    one CUDA device and no empty axis.  Any d: the kernels stream rows
+    wider than their shared-memory tile."""
     present = [t for t in tensors if t is not None]
     dev = present[0].device
     for t in present:
@@ -196,12 +196,17 @@ def check_cuda_operands(max_features, *tensors: Optional[torch.Tensor]
             raise ValueError("kernel operands must be contiguous")
         if t.numel() == 0:
             raise ValueError(f"empty operand of shape {tuple(t.shape)}")
-    if max_features is None:
-        return
-    d = present[0].shape[-1]
-    widest = max_features(dev.index)
+
+
+def streams_x(max_features, device: torch.device, d: int,
+              force: bool) -> bool:
+    """Whether a sweep launch at width d streams X: when forced, or past
+    the resident tile's widest d, ``max_features(device index)`` (the
+    library's ``*_max_features``); the launchers' own rule
+    (csrc/sweep_fp32.cuh ``plan_sweep``)."""
+    if force:
+        return True
+    widest = max_features(device.index)
     if widest < 0:
-        raise RuntimeError(f"could not query the shared memory of {dev}")
-    if d > widest:
-        raise ValueError(f"d={d} exceeds the {widest} features one X tile "
-                         f"can hold in the shared memory of {dev}")
+        raise RuntimeError(f"could not query the shared memory of {device}")
+    return d > widest

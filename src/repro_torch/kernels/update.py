@@ -108,7 +108,7 @@ def update(x: torch.Tensor, labels: torch.Tensor, k: int,
         raise ValueError(f"k must be at least 1; got {k}")
     lib = _bind(build.load("update"))
     w = tiles.kernel_weights(w)
-    tiles.check_cuda_operands(None, x, labels, w)
+    tiles.check_cuda_operands(x, labels, w)
     lay = layout(lib, n, r, k, d)
     f32 = dict(dtype=torch.float32, device=x.device)
     sums = torch.empty((r, k, d), **f32)

@@ -102,9 +102,13 @@ def test_operand_checks_on_cuda(cuda):
         F.fused_lloyd(x.t().contiguous().t(), c)        # not contiguous
     with pytest.raises(ValueError):
         A.assignment(x, c.cpu())                        # mixed devices
-    with pytest.raises(ValueError):
-        A.assignment(torch.zeros(10, 900, device=cuda),
-                     torch.zeros(3, 900, device=cuda))  # d too wide
+    # past the resident tile's widest d the launch streams X: all-zero
+    # rows tie on every centroid, so the lowest index wins at distance 0
+    streamed, plain = A.stream_launches, A.plain_calls
+    lab, mind = A.assignment(torch.zeros(10, 900, device=cuda),
+                             torch.zeros(3, 900, device=cuda))
+    assert (A.stream_launches, A.plain_calls) == (streamed + 1, plain)
+    assert not bool(lab.any()) and not bool(mind.any())
 
 
 @pytest.mark.gpu
@@ -202,22 +206,32 @@ def test_assignment_nan_row(cuda):
 
 @pytest.mark.gpu
 def test_assignment_at_its_widest_d(cuda):
-    """The widest d the kernel takes (its X tile and shallowest C stage
-    fill a block's shared memory), with fewer and more rows than fill the
-    card."""
+    """The widest d of the resident path (its X tile and shallowest C
+    stage fill a block's shared memory), with fewer and more rows than fill
+    the card: the streamed launch there equals the resident one bit for
+    bit, and one feature more streams."""
     widest = A._bind(build.load("assignment")).assignment_max_features(0)
     assert widest >= 818
     for n in (300, 20000):
         x, c, _ = _inputs(cuda, n, widest, 70, None, False, None, seed=n)
+        streamed = A.stream_launches
         lab, mind = A.assignment(x, c)
+        assert A.stream_launches == streamed
         want = A.assignment_plain(x, c)
         np.testing.assert_array_equal(lab.cpu().numpy(),
                                       want[0].cpu().numpy())
         np.testing.assert_allclose(mind.cpu(), want[1].cpu(), rtol=1e-5,
                                    atol=1e-5)
-    with pytest.raises(ValueError):
-        A.assignment(torch.zeros(10, widest + 1, device=cuda),
-                     torch.zeros(3, widest + 1, device=cuda))
+        _assert_equal(A.assignment(x, c, _stream=True), (lab, mind))
+        assert A.stream_launches == streamed + 1
+    x, c, _ = _inputs(cuda, 300, widest + 1, 70, None, False, None, seed=1)
+    streamed = A.stream_launches
+    lab, mind = A.assignment(x, c)
+    assert A.stream_launches == streamed + 1
+    want = A.assignment_plain(x, c)
+    np.testing.assert_array_equal(lab.cpu().numpy(), want[0].cpu().numpy())
+    np.testing.assert_allclose(mind.cpu(), want[1].cpu(), rtol=1e-5,
+                               atol=1e-5)
 
 
 def _drifted_bounds(x, c, w, gs, steps=2):
@@ -350,9 +364,10 @@ def test_fused_at_k_20000(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bounded", [False, True])
 def test_fused_at_its_widest_d(cuda, bounded):
-    """The widest d each fused kernel takes (its X tile, shallowest C stage
-    and own shared words fill a block's shared memory), and one more
-    raising ValueError."""
+    """The widest d of each fused kernel's resident path (its X tile,
+    shallowest C stage and own shared words fill a block's shared memory),
+    where the streamed launch equals the resident one bit for bit, and one
+    more, which streams."""
     k, gs = 70, 16
     g = -(-k // gs)
     if bounded:
@@ -362,27 +377,32 @@ def test_fused_at_its_widest_d(cuda, bounded):
         widest = F._bind(build.load("fused_lloyd")).fused_lloyd_max_features(0)
     assert widest >= 700
 
-    def run(x, c):
+    def run(x, c, stream=False):
         if not bounded:
-            return F.fused_lloyd(x, c)
+            return F.fused_lloyd(x, c, _stream=stream)
         n = x.shape[0]
         bnds = (torch.zeros(n, dtype=torch.int32, device=cuda),
                 torch.zeros(n, g, device=cuda),
                 torch.full((n,), float("inf"), device=cuda))
-        return F.fused_lloyd(x, c, bounds=bnds, gs=gs)
+        return F.fused_lloyd(x, c, bounds=bnds, gs=gs, _stream=stream)
 
+    def streamed():
+        return F.bounds_stream_launches if bounded else F.stream_launches
+
+    for d in (widest, widest + 1):
+        x, c, _ = _inputs(cuda, 300, d, k, None, False, None, seed=3)
+        before = streamed()
+        got = run(x, c)
+        assert streamed() == before + (d > widest)
+        want = F.fused_lloyd_plain(x, c)
+        np.testing.assert_array_equal(got[0].cpu().numpy(),
+                                      want[0].cpu().numpy())
+        np.testing.assert_allclose(got[1].cpu(), want[1].cpu(), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got[2].cpu(), want[2].cpu(), rtol=1e-4,
+                                   atol=1e-4)
     x, c, _ = _inputs(cuda, 300, widest, k, None, False, None, seed=3)
-    got = run(x, c)
-    want = F.fused_lloyd_plain(x, c)
-    np.testing.assert_array_equal(got[0].cpu().numpy(),
-                                  want[0].cpu().numpy())
-    np.testing.assert_allclose(got[1].cpu(), want[1].cpu(), rtol=1e-5,
-                               atol=1e-5)
-    np.testing.assert_allclose(got[2].cpu(), want[2].cpu(), rtol=1e-4,
-                               atol=1e-4)
-    with pytest.raises(ValueError):
-        run(torch.zeros(10, widest + 1, device=cuda),
-            torch.zeros(k, widest + 1, device=cuda))
+    _assert_equal(run(x, c, stream=True), run(x, c))
 
 
 def _loose_bounds(x, c, gs, seed):
@@ -1467,3 +1487,219 @@ def test_bf16_fits_run_on_the_kernels(cuda, tmp_path):
     assert fits[0].centroids_.dtype == torch.bfloat16
     assert np.isfinite(fits[0].inertia_)
     assert torch.equal(fits[0].centroids_, fits[1].centroids_)
+
+
+# Wide rows: past the resident X tile's widest d (821 for the assignment on
+# an H100) the three sweep kernels stream X in 32-feature slabs.  Widths
+# around and far past it (d = 1023: f32 rows not 16-byte aligned); K = 256
+# (one C chunk) and 1000 (four); shared X at R = 3; per-problem X with
+# (R, N) weights.
+WIDE_DS = (822, 1023, 1024, 4096)
+WIDE_SHAPES = [(700, 256, None, False, None),
+               (600, 1000, None, False, "n"),
+               (500, 300, 3, False, None),
+               (400, 256, 3, True, "rn")]
+
+
+def _mixture(device, n, d, k, r, x_batched, weights, seed=0):
+    """Rows of a k-component Gaussian mixture (centers 1.5 x N(0, 1), unit
+    noise) and centroids 0.1 from its centers: each row's own component's
+    centroid is nearest by a wide margin, so labels are exact at any d
+    (random centroids at d = 4096 leave near ties within the rounding of
+    |c|^2).  Weights as ``_inputs`` draws them."""
+    rng = np.random.default_rng(seed)
+    rr = r or 1
+    centers = rng.standard_normal((k, d), dtype=np.float32) * 1.5
+    lead = (rr, n) if x_batched else (n,)
+    x = centers[rng.integers(0, k, lead)] \
+        + rng.standard_normal(lead + (d,), dtype=np.float32)
+    c = centers + 0.1 * rng.standard_normal((rr, k, d), dtype=np.float32)
+    _, _, w = _inputs(device, n, 1, 1, r, False, weights, seed)
+    return (torch.from_numpy(x).to(device),
+            torch.from_numpy(c if r else c[0]).to(device), w)
+
+
+def _wide_atol(x):
+    """min_sqdist's tolerance: 1e-5 of max(|x|^2, 1)."""
+    xf = x.float()
+    return 1e-5 * max(float(torch.sum(xf * xf, dim=-1).max()), 1.0)
+
+
+def _assert_energy_close(got, want, x, w, seeded=False):
+    """The energy: within 1e-6 relative where each row's distance errs
+    without a bias.  Two cases err with one, and are held to the per-row
+    min_sqdist rule summed, 1e-5 of sum(w max(|x|^2, 1)):
+    - bf16 rows: the |x|^2 and x.c FMA chains round with a bias (the
+      products carry 16 significant bits, so the sums meet exact halfway
+      cases), about -1.4e-6 of |x|^2 a row at d = 822 on this mixture
+      against the plain version's summation trees;
+    - a bounded step from drifted bounds (``seeded``): a settled row's
+      seed ub^2 is its last distance, so the kernel and the plain version
+      each keep the smaller of the seed and their own rounding of the
+      same distance, and the plain version's is below the seed (the
+      kernel's own) about half the time: about 1.5e-6 of the energy at
+      d = 822."""
+    if x.dtype != torch.bfloat16 and not seeded:
+        np.testing.assert_allclose(got, want, rtol=1e-6)
+        return
+    xf = x.float()
+    rows = torch.sum(xf * xf, dim=-1).clamp_min(1.0)
+    scale = torch.sum(rows if w is None else rows * w, dim=-1)
+    assert bool(((got - want).abs() <= 1e-5 * scale.cpu()).all())
+
+
+def _counts():
+    return (F.launches, F.stream_launches, F.bounds_launches,
+            F.bounds_stream_launches, A.launches, A.stream_launches,
+            F.plain_calls + F.bounds_plain_calls + A.plain_calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n,k,r,x_batched,weights", WIDE_SHAPES)
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_wide_kernels_match_plain(cuda, d, n, k, r, x_batched, weights,
+                                  bf16):
+    """The fused step and the assignment at wide d launch the streamed
+    sweep: against the plain version (labels exact, min_sqdist within 1e-5
+    of |x|^2, sums 1e-4, counts 1e-5, energy 1e-6), the assignment's
+    labels and distances equal to the step's, a relaunch equal, and a bf16
+    launch equal to the f32 launch on the upcast operands, bit for bit.
+    bf16 energies as ``_assert_energy_close`` holds them."""
+    x, c, w = _mixture(cuda, n, d, k, r, x_batched, weights, seed=d)
+    if bf16:
+        x, c = x.bfloat16(), c.bfloat16()
+    before = _counts()
+    got = F.fused_lloyd(x, c, w)
+    lab, mind = A.assignment(x, c)
+    after = _counts()
+    assert [b - a for a, b in zip(before, after)] == [1, 1, 0, 0, 1, 1, 0]
+    assert torch.equal(lab, got[0]) and torch.equal(mind, got[1])
+    _assert_equal(F.fused_lloyd(x, c, w), got)
+    if bf16:
+        _assert_equal(got, F.fused_lloyd(x.float(), c.float(), w))
+    got = [g.cpu() for g in got]
+    want = [v.cpu() for v in F.fused_lloyd_plain(x, c, w)]
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5,
+                               atol=_wide_atol(x))
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    _assert_energy_close(got[4], want[4], x, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("gs", [8, 64])
+@pytest.mark.parametrize("n,k,r,x_batched,weights",
+                         [WIDE_SHAPES[0], WIDE_SHAPES[1], WIDE_SHAPES[3]])
+@pytest.mark.parametrize("d", WIDE_DS)
+def test_wide_fused_bounds_matches_plain(cuda, d, n, k, r, x_batched,
+                                         weights, gs, bf16):
+    """The bounded step at wide d from drifted bounds launches the
+    streamed bounded sweep: against the plain version as
+    ``test_fused_bounds_matches_plain`` holds it (min_sqdist and group
+    minima within 1e-5 of |x|^2; the energy as ``_assert_energy_close``
+    holds a seeded step), a relaunch equal, a bf16 launch equal to the f32
+    launch on the upcast operands."""
+    x, c, w = _mixture(cuda, n, d, k, r, x_batched, weights, seed=d + gs)
+    if bf16:
+        x, c = x.bfloat16(), c.bfloat16()
+    c, gsr, bnds = _drifted_bounds(x.float(), c.float(), w, gs)
+    if bf16:
+        c = c.bfloat16()
+    before = _counts()
+    got = F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr)
+    after = _counts()
+    assert [b - a for a, b in zip(before, after)] == [0, 0, 1, 1, 0, 0, 0]
+    _assert_equal(F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr), got)
+    if bf16:
+        _assert_equal(got, F.fused_lloyd(x.float(), c.float(), w,
+                                         bounds=bnds, gs=gsr))
+    got = [g.cpu() for g in got]
+    want = [v.cpu() for v in F.fused_bounds_plain(
+        x, c, w, *bnds, gsr, build.tile_rows())]
+    atol = _wide_atol(x)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    _assert_energy_close(got[4], want[4], x, w, seeded=True)
+    np.testing.assert_allclose(got[5], want[5], rtol=1e-5, atol=atol)
+    assert torch.equal(got[6], want[6])
+    lb_sq, ub_sq = bnds[1].cpu(), bnds[2].cpu()
+    lift = (lambda t: t) if r else (lambda t: t[None])
+    skipped = ~torch.stack([ref.computed_cells(lb, ub, build.tile_rows())
+                            for lb, ub in zip(lift(lb_sq), lift(ub_sq))])
+    assert torch.equal(lift(got[5])[skipped], lift(lb_sq)[skipped])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kernel", ["assignment", "fused", "bounded"])
+@pytest.mark.parametrize("at", ["d=69", "widest"])
+def test_streamed_equals_resident(cuda, at, kernel, bf16):
+    """Where both paths fit (d = 69, and the resident path's widest d),
+    the launch forced to stream X equals the resident launch bit for bit
+    in every output: the same FMA chains in the same order.  Random data,
+    two C chunks, a ragged row tile, (R, N) weights; the bounded step from
+    drifted bounds at G = 19."""
+    n, k, r = 777, 300, 2
+    gs = 16
+    g = -(-k // gs)
+    if at == "widest":
+        if kernel == "assignment":
+            d = A._bind(build.load("assignment")).assignment_max_features(0)
+        elif kernel == "fused":
+            d = F._bind(build.load("fused_lloyd")).fused_lloyd_max_features(0)
+        else:
+            d = F._bind_bounds(build.load("fused_bounds")) \
+                .fused_bounds_max_features(0, g)
+    else:
+        d = 69
+    x, c, w = _inputs(cuda, n, d, k, r, False, "rn", seed=11)
+    if kernel == "bounded":
+        c, gsr, bnds = _drifted_bounds(x, c, w, gs)
+        assert gsr == gs
+    if bf16:
+        x, c = x.bfloat16(), c.bfloat16()
+
+    def run(stream):
+        if kernel == "assignment":
+            return A.assignment(x, c, _stream=stream)
+        if kernel == "fused":
+            return F.fused_lloyd(x, c, w, _stream=stream)
+        return F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr, _stream=stream)
+
+    before = _counts()
+    resident = run(False)
+    middle = _counts()
+    streamed = run(True)
+    after = _counts()
+    assert middle[1] + middle[3] + middle[5] \
+        == before[1] + before[3] + before[5]
+    assert after[1] + after[3] + after[5] \
+        == middle[1] + middle[3] + middle[5] + 1
+    _assert_equal(streamed, resident)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [1023, 4096])
+def test_wide_fits_run_on_the_kernels(cuda, d):
+    """Every kernel engine fits at wide d on the streamed kernels, from the
+    dense engine's seeds to its energy (within 1e-4), and predict's labels
+    are the last step's."""
+    x, _, _ = _mixture(cuda, 3000, d, 16, None, False, None, seed=5)
+    c0s = x[torch.from_numpy(np.random.default_rng(6).choice(
+        3000, (1, 16), replace=False)).to(cuda)]
+    dense = AAKMeans(n_clusters=16, backend="dense").fit(x, c0s=c0s)
+    for name in ("fused", "pallas", "fused_bounds"):
+        before = _counts()
+        m = AAKMeans(n_clusters=16, backend=name).fit(x, c0s=c0s)
+        lab = m.predict(x)
+        after = _counts()
+        assert after[-1] == before[-1]                 # no plain version
+        assert after[1] + after[3] + after[5] > before[1] + before[3] \
+            + before[5]
+        np.testing.assert_allclose(m.inertia_, dense.inertia_, rtol=1e-4)
+        np.testing.assert_array_equal(lab, m.labels_.cpu().numpy())
