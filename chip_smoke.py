@@ -262,8 +262,11 @@ Phases, each fatal on failure:
      MiniBatchAAKMeans epoch of 65,536-row chunks; a bf16-policy fused
      fit, its centroids' f32 energy within 2 % of (b)'s; (d) each kernel
      and bf16 variant at (128,256, 4096, 256) and on the subspaces in
-     turns, the assignment on a predict chunk, beside plain versions,
-     addmm + argmin and the bounds.  Min distances are held within 1e-5
+     turns, the assignment on a predict chunk, addmm + argmin and
+     index_add_ in the same turns, the assignment and the fused step at
+     K = 1000, the streamed sweep forced at d = 69 and 821 beside the
+     resident one, beside plain versions and the bounds, and the streamed
+     sweep's ptxas registers and spills.  Min distances are held within 1e-5
      of max(|x|^2, 1); a bf16 energy within 1e-5 of sum(w max(|x|^2, 1)).
 Phases 9 to 18 run between phases 7 and 8, so that phase 8's kernel
 line counts their launches (phase 16's are the ranks'); phase 8 also
@@ -650,6 +653,33 @@ def bf16_bound_ms(n_bytes, n_cross, n_other):
           "bf16 tensor-core operations" if t_tc >= t_other else "operations")
     return max(t_bytes, t_tc, t_other) * 1e3, by, \
         bound_ms(n_bytes, n_cross + n_other)[0]
+
+
+def ptxas_report(lib_path, pattern):
+    """{kernel: ptxas' registers and spill bytes} of the kernels of a built
+    library whose names match the regular expression ``pattern``, from the
+    compiler log that kernels/build.py keeps beside it (empty when there is
+    none)."""
+    log = Path(lib_path).with_suffix(".log")
+    out, name = {}, None
+    for line in (log.read_text().splitlines() if log.exists() else ()):
+        entry = re.search(r"entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1) if re.search(pattern, entry.group(1)) \
+                else None
+            continue
+        if name is None:
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if found:
+            out.setdefault(name, {}).update(
+                spill_stores=int(found.group(1)),
+                spill_loads=int(found.group(2)))
+        found = re.search(r"Used (\d+) registers", line)
+        if found:
+            out.setdefault(name, {})["registers"] = int(found.group(1))
+    return out
 
 
 def phase5c(torch, x, c0, model, zero_counts, read_counts, path_launches,
@@ -3240,7 +3270,8 @@ def accept_wide(res, what):
               f"by {res['gmin_rel']:.2e} of |x|^2")
 
 
-def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
+def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
+            tile_rows):
     """Wide rows at Meta-Llama-3-8B's embedding table's shape (LLAMA_VOCAB x
     LLAMA_HIDDEN f32, a WIDE_COMPONENTS-component Gaussian mixture drawn on
     the card from seed 0): (a) the assignment, fused and bounded kernels at
@@ -3256,7 +3287,13 @@ def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
     (gs 16) and fused_bounds_reorder against dense, a MiniBatchAAKMeans
     epoch and a bf16-policy fused fit; (d) each kernel's times at the
     table's shape, on a predict chunk and on the subspaces (CUDA events,
-    in turns), beside its plain version, addmm + argmin and its bounds.
+    in turns, with addmm + argmin and index_add_ in the same turns),
+    beside its plain version and its bounds; the assignment and the fused
+    step at K = 1000 on all rows beside addmm + argmin; the assignment
+    forced to stream beside its resident launch at d = 69 (x_main, the
+    USCensus1990 rows, K = 1000) and at the resident path's widest d (the
+    table's first columns, K = 1000); ptxas' registers and spills of the
+    streamed sweep.
     -> (per kernel name and its "_bf16" variant: its launches on (b)'s
     and (c)'s paths, all streamed, its launches in (a)'s checks and its
     wide timings; each kernel's largest absolute error against its plain
@@ -3659,13 +3696,43 @@ def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
     accept_stats(res_u, "the wide update")
     errs["update"] = res_u["sums_abs"]
 
-    # (d) times (CUDA events, in turns)
+    # (d) times (CUDA events, in turns), the library calls in the same
+    # turns: addmm + argmin beside the assignment (f32, and on the upcast
+    # operands beside bf16), index_add_ beside the update
     table_b, c_fin_b = table.to(bf16), c_fin.to(bf16)
     blocks_b, cs_sub_b = blocks.to(bf16), cs_sub.to(bf16)
     c_p, c_pb = c_fin[None], c_fin_b[None]
     bnd = squared_bounds(bounds.init_carry(table, c_p, k, gs16), c_p, k, gs16)
     bnd_s = squared_bounds(bounds.init_carry(blocks, cs_sub, k, gs16), cs_sub,
                            k, gs16)
+    step = PREDICT_CHUNK
+    n_chunks = n // step
+
+    def chunk(xx, i):
+        return xx[(i % n_chunks) * step:(i % n_chunks + 1) * step]
+
+    def nearest(xx, cc, csq_):
+        """addmm + argmin on f32 operands (X upcast inside the call)."""
+        return torch.argmin(torch.addmm(csq_, xx.float(), cc.float().T,
+                                        alpha=-2.0), dim=1)
+
+    c_sq = torch.sum(c_fin * c_fin, dim=-1)
+    cbf = c_fin_b.float()
+    c_sq_b = torch.sum(cbf * cbf, dim=-1)
+
+    # K = 1000 on the table: centroids drawn from its rows
+    k4 = 1000
+    c1000 = table[rows_of(k4)].contiguous()
+    c1000_sq = torch.sum(c1000 * c1000, dim=-1)
+    sums_buf = torch.zeros(k, d, device=dev)
+    lab_l = lab_fin.long()
+    # the streamed sweep forced where the resident one fits: USCensus1990
+    # (d = 69) and the table's first 821 columns, both at K = 1000
+    x69 = x_main
+    c69 = x69[torch.randperm(x69.shape[0], generator=gen,
+                             device=dev)[:k4]].contiguous()
+    x821 = table[:, :widest["assignment"]].contiguous()
+    c821 = c1000[:, :widest["assignment"]].contiguous()
     turned = {
         "fused_lloyd": lambda i: F.fused_lloyd(table, c_fin),
         "assignment": lambda i: A.assignment(table, c_fin),
@@ -3688,29 +3755,41 @@ def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
                                                             cs_sub_b),
         "update_bf16 subspaces": lambda i: U.update(blocks_b, lab_sub, k),
         "fused_bounds_bf16 subspaces": lambda i: F.fused_lloyd(
-            blocks_b, cs_sub_b, bounds=bnd_s, gs=gs16)}
+            blocks_b, cs_sub_b, bounds=bnd_s, gs=gs16),
+        "assignment chunk": lambda i: A.assignment(chunk(table, i), c_fin),
+        "assignment_bf16 chunk": lambda i: A.assignment(chunk(table_b, i),
+                                                        c_fin_b),
+        "addmm + argmin": lambda i: nearest(table, c_fin, c_sq),
+        "addmm + argmin bf16": lambda i: nearest(table_b, c_fin_b, c_sq_b),
+        "addmm + argmin chunk": lambda i: nearest(chunk(table, i), c_fin,
+                                                  c_sq),
+        "addmm + argmin bf16 chunk": lambda i: nearest(chunk(table_b, i),
+                                                       c_fin_b, c_sq_b),
+        "index_add_": lambda i: sums_buf.index_add_(0, lab_l, table),
+        "index_add_ bf16": lambda i: sums_buf.index_add_(0, lab_l,
+                                                         table_b.float()),
+        "assignment K=1000": lambda i: A.assignment(table, c1000),
+        "fused_lloyd K=1000": lambda i: F.fused_lloyd(table, c1000),
+        "addmm + argmin K=1000": lambda i: nearest(table, c1000, c1000_sq),
+        "assignment d=69 resident": lambda i: A.assignment(x69, c69),
+        "assignment d=69 streamed": lambda i: A.assignment(x69, c69,
+                                                           _stream=True),
+        "assignment d=821 resident": lambda i: A.assignment(x821, c821),
+        "assignment d=821 streamed": lambda i: A.assignment(x821, c821,
+                                                            _stream=True)}
     turns = {what: [] for what in turned}
     for order in (list(turned), list(reversed(turned))):
         for what in order:
-            turns[what].append(event_ms(torch, turned[what], 5))
+            turns[what].append(event_ms(torch, turned[what],
+                                        20 if "chunk" in what else 5))
     turn_ms = {what: sum(ts) / len(ts) for what, ts in turns.items()}
     print("  (d) in turns: " + "; ".join(
         f"{what} {ts!r} ms" for what, ts in turns.items()))
-    step = PREDICT_CHUNK
-    n_chunks = n // step
-
-    def chunk(xx, i):
-        return xx[(i % n_chunks) * step:(i % n_chunks + 1) * step]
-
-    c_sq = torch.sum(c_fin * c_fin, dim=-1)
-    cbf = c_fin_b.float()
-    c_sq_b = torch.sum(cbf * cbf, dim=-1)
     g = bnd[1].shape[-1]
     wide = {}
     for kn in ("fused_lloyd", "assignment", "update", "fused_bounds"):
-        for tag, xx, cc, csq_, nb in (("", table, c_fin, c_sq, 4),
-                                      ("_bf16", table_b, c_fin_b, c_sq_b,
-                                       2)):
+        for tag, xx, cc, nb in (("", table, c_fin, 4),
+                                ("_bf16", table_b, c_fin_b, 2)):
             name = kn + tag
             row = {"ms": turn_ms[name],
                    "subspace_ms": turn_ms[f"{name} subspaces"],
@@ -3724,19 +3803,12 @@ def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
                                       + 4 * (2 * n + k * d + k + 1),
                                       2 * n * k * d, 3 * n * k + 2 * n * d)
             elif kn == "assignment":
-                xc32 = (lambda i: chunk(xx, i).float()) if tag else \
-                    (lambda i: chunk(xx, i))
-                row["chunk_ms"] = event_ms(
-                    torch, lambda i: A.assignment(chunk(xx, i), cc), 20)
+                row["chunk_ms"] = turn_ms[f"{name} chunk"]
                 row["plain_ms"] = event_ms(
                     torch, lambda i: A.assignment_plain(chunk(xx, i), cc), 20)
-                row["chunk_library_ms"] = event_ms(
-                    torch, lambda i: torch.argmin(torch.addmm(
-                        csq_, xc32(i), cc.float().T, alpha=-2.0), dim=1), 20)
-                row["library_ms"] = event_ms(
-                    torch, lambda i: torch.argmin(torch.addmm(
-                        csq_, xx.float(), cc.float().T, alpha=-2.0), dim=1),
-                    3, warmup=1)
+                lib = "addmm + argmin" + (" bf16" if tag else "")
+                row["chunk_library_ms"] = turn_ms[f"{lib} chunk"]
+                row["library_ms"] = turn_ms[lib]
                 row["bounds"] = bound(nb * (n * d + k * d) + 4 * 2 * n,
                                       2 * n * k * d, 3 * n * k)
                 row["chunk_bounds"] = bound(nb * (step * d + k * d)
@@ -3746,11 +3818,8 @@ def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
                 row["plain_ms"] = event_ms(
                     torch, lambda i: U.update_plain(xx, lab_fin, k), 3,
                     warmup=1)
-                sums_buf = torch.zeros(k, d, device=dev)
-                lab_l = lab_fin.long()
-                row["library_ms"] = event_ms(
-                    torch, lambda i: sums_buf.index_add_(0, lab_l,
-                                                         xx.float()), 5)
+                row["library_ms"] = turn_ms["index_add_" + (" bf16" if tag
+                                                            else "")]
                 u_ms, u_by = bound_ms(nb * n * d + 4 * n + 4 * (k * d + k),
                                       n * d + n)
                 row["bounds"] = (u_ms, u_by, u_ms)
@@ -3763,6 +3832,16 @@ def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
                     nb * (n * d + k * d) + 4 * (2 * n + n * g)
                     + 4 * (2 * n + n * g + k * d + k + 1) + 8,
                     2 * n * k * d, 3 * n * k + 2 * n * d)
+            if kn in ("fused_lloyd", "assignment") and not tag:
+                # K = 1000 on all rows: four 256-centroid chunks
+                extra = 4 * (2 * n + k4 * d + k4 + 1) if kn == "fused_lloyd" \
+                    else 4 * 2 * n
+                other = 3 * n * k4 + (2 * n * d if kn == "fused_lloyd" else 0)
+                row["k1000"] = {
+                    "ms": turn_ms[f"{kn} K=1000"],
+                    "library_ms": turn_ms["addmm + argmin K=1000"],
+                    "bounds": bound(4 * (n * d + k4 * d) + extra,
+                                    2 * n * k4 * d, other)}
             row["launches"] = wide_launches[name]
             row["check_launches"] = check_launches[name]
             wide[name] = row
@@ -3779,12 +3858,32 @@ def phase18(torch, dev, zero_counts, read_counts, path_launches, tile_rows):
                      f"{row['chunk_bounds'][2]!r} ms), addmm + argmin "
                      f"{row['chunk_library_ms']!r} ms"
                      if "chunk_ms" in row else "")
+                  + (f"; at K = {k4} {row['k1000']['ms']!r} ms, bound "
+                     f"{row['k1000']['bounds'][0]!r} ms (FP32-core "
+                     f"{row['k1000']['bounds'][2]!r} ms), addmm + argmin "
+                     f"{row['k1000']['library_ms']!r} ms"
+                     if "k1000" in row else "")
                   + f"; launches on (b) and (c) {row['launches']}, in (a)"
                   f" {row['check_launches']}")
+    # the streamed sweep where the resident one fits (dispatch keeps the
+    # resident path there)
+    forced = {}
+    for dd in (69, widest["assignment"]):
+        res_ms = turn_ms[f"assignment d={dd} resident"]
+        str_ms = turn_ms[f"assignment d={dd} streamed"]
+        forced[f"d{dd}"] = {"resident_ms": res_ms, "streamed_ms": str_ms}
+        rows_dd = x69.shape[0] if dd == 69 else n
+        print(f"  (d) the assignment at ({rows_dd}, {dd}, {k4}): resident "
+              f"{res_ms!r} ms, forced to stream {str_ms!r} ms "
+              f"({str_ms / res_ms!r}x)")
+    wide["assignment"]["forced_stream"] = forced
+    ptxas = ptxas_report(build.library_path("assignment"), "assign_stream")
+    wide["assignment"]["stream_ptxas"] = ptxas
+    print(f"  (d) ptxas, the streamed sweep: {ptxas}")
     print(f"  X is read once per 256-centroid chunk: {-(-k // 256)} time(s) "
-          f"a step at K = {k}, {-(-1000 // 256)} at K = 1000; phase 18 took "
+          f"a step at K = {k}, {-(-k4 // 256)} at K = {k4}; phase 18 took "
           f"{time.perf_counter() - t_phase!r} s", flush=True)
-    del table, table_b, blocks, blocks_b, fin
+    del table, table_b, blocks, blocks_b, fin, x821, c1000
     return wide, errs
 
 
@@ -4727,7 +4826,7 @@ def run():
     x_bf, c_bf, errs17 = phase17(torch, x, c0_main, model, fit_s, mb11,
                                     zero_counts, read_counts, path_launches,
                                     tile_rows)
-    wide18, errs18 = phase18(torch, dev, zero_counts, read_counts,
+    wide18, errs18 = phase18(torch, dev, x, zero_counts, read_counts,
                              path_launches, tile_rows)
     main_abs_err = max(main_abs_err, errs15["fused_lloyd"])
     assign_abs_err = max(assign_abs_err, errs15["assignment"])
@@ -5103,6 +5202,15 @@ def run():
                 "ms": row["chunk_ms"], "bound_ms": row["chunk_bounds"][0],
                 "fp32_bound_ms": row["chunk_bounds"][2],
                 "library_ms": row["chunk_library_ms"]}
+        if "k1000" in row:
+            k_ms, k_by, k_fp32 = row["k1000"]["bounds"]
+            entry["wide"]["k1000"] = {
+                "ms": row["k1000"]["ms"], "bound_ms": k_ms, "bound_by": k_by,
+                "fp32_bound_ms": k_fp32,
+                "library_ms": row["k1000"]["library_ms"]}
+        for key in ("forced_stream", "stream_ptxas"):
+            if key in row:
+                entry["wide"][key] = row[key]
     print(json.dumps({"kernels": kernels}))
     return smi, name
 

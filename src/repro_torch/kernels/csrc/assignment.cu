@@ -10,18 +10,28 @@
 //
 // What bounds it on this card: operations, 2*N*K*d FMA operations at f32
 // accuracy, 67 TFLOP/s on the CUDA cores; the bytes (N*d*4 in, N*8 out)
-// are ~100x less.  The cross terms run on the CUDA cores in 8 x 8 register
-// blocks (sweep_fp32.cuh): 64 FMAs per four shared loads, with C
-// transposed once per launch and streamed through a cp.async ring, and X
-// held in shared memory whole or, past the widest tile (821 features on an
-// H100), streamed beside C in slabs of 32 features, so any d runs.  Each
-// block owns one 64-row tile and all K centroids, so nothing is reduced
+// are ~100x less (at 128,256 x 4096, K = 256: 4.02 ms of operations
+// against 0.63 ms of X).  Up to the widest resident tile (821 features on
+// an H100) the cross terms run in sweep_fp32.cuh's 8 x 8 register blocks
+// with X held in shared memory and C transposed once per launch and
+// streamed through a cp.async ring.  Past it X streams through
+// sweep_wide.cuh's kernel, an FP32 GEMM with the argmin as its epilogue:
+// 128-row x 256-slot blocks of 256 threads, one an SM, each lane holding
+// 8 x 16 cross terms (190-219 registers, no spill); 32-feature stages in a
+// three-slot ring, one barrier a stage, each stage's C box (and X box,
+// where rows start 16-byte aligned) copied by TMA onto an mbarrier, X
+// moved from that raw slab into a transposed one in 4 x 4 blocks (other
+// rows: plain loads a stage ahead); no running minimum in registers
+// across the FMA loop.  It replaced a streamed 8 x 8 sweep (492 bytes of
+// spills, 1.36x addmm + argmin; sweep_wide.cuh says where that one lost
+// time).
+// Each block owns its rows and all K centroids, so nothing is reduced
 // across blocks: a relaunch is bitwise equal.  The fused step launches the
 // same sweep (f8::launch_assign), and the bounded step's computes each
 // distance with the same FMA chain, so their distances are these bit for
 // bit.
 
-#include "sweep_fp32.cuh"
+#include "sweep_wide.cuh"
 
 using namespace repro;
 

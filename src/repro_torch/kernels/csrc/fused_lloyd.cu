@@ -17,12 +17,17 @@
 // without tensor cores (67 TFLOP/s), against N*d*4 bytes of X read once
 // (3.35 TB/s); at K = 1000, d = 69 the operations bound is ~150x the bytes
 // bound.  The design is two passes over X, not the TPU kernel's one:
-//   1. the assignment kernel's own launch (sweep_fp32.cuh's launch_assign:
-//      8 x 8 register blocks, C transposed once per launch and streamed by
-//      cp.async, one 64-row tile per block, X resident in shared memory up
-//      to 821 features on an H100 and streamed in 32-feature slabs past
-//      that, so any d runs) writes each row's label and distance, so the
-//      step's labels and distances are the assignment's by construction;
+//   1. the assignment kernel's own launch (sweep_wide.cuh's launch_assign)
+//      writes each row's label and distance, so the step's labels and
+//      distances are the assignment's by construction: up to 821 features
+//      on an H100 sweep_fp32.cuh's 8 x 8 register blocks with the X tile
+//      resident in shared memory and C streamed by cp.async; past that
+//      sweep_wide.cuh's streamed kernel (128-row x 256-slot blocks, 8 x 16
+//      cross terms a lane, 32-feature stages of C and X copied by TMA into
+//      a three-slot ring, X by plain loads where its rows are not 16-byte
+//      aligned), so any d runs.  At
+//      128,256 x 4096, K = 256 the sweep's bound is 4.02 ms of FP32
+//      operations (PERF.md has its times);
 //   2. the update kernel's segment sum (segment_sum.cuh) adds the stats
 //      of those labels, reading X a second time;
 //   3. the energy sum(w * min distance) is summed over the rows in two
@@ -37,7 +42,7 @@
 // inputs, same launch config -> bitwise the same outputs.
 
 #include "segment_sum.cuh"
-#include "sweep_fp32.cuh"
+#include "sweep_wide.cuh"
 
 using namespace repro;
 

@@ -1,9 +1,11 @@
 // Nearest-centroid sweep on the FP32 CUDA cores with 8 x 8 register
 // blocks: one block's sweep over a 64-row X tile against the K centroids,
 // C streamed through a two-stage cp.async ring, X held whole in shared
-// memory or, for rows wider than that holds, streamed beside C in feature
-// slabs.  The one sweep of the assignment kernel, the fused step and the
-// bounded fused step, so the three give the same distances bit for bit.
+// memory or (the bounded sweep), for rows wider than that holds, streamed
+// beside C in feature slabs.  The sweep of the assignment kernel and the
+// fused step up to the widest resident d (past it, sweep_wide.cuh's, with
+// the same FMA chains) and of the bounded fused step at any d, so the
+// three give the same distances bit for bit.
 //
 // Why FP32 and not the tensor cores.  Split TF32 (x.c as three TF32
 // products on mma.sync, C and X split into hi and lo) held f32 accuracy
@@ -47,17 +49,18 @@
 // (stage_depth) is 32 where two blocks fit on an SM (d = 69: 85 KB), less
 // for wider rows, down to 4 at the widest tile that fits the 227 KB of a
 // block (max_features: 821 on an H100 for the assignment).  Past that, or
-// when the launcher forces it, X streams: a slab of kMaxDepth features of
-// the tile's rows sits beside each C stage, double-buffered like C, so the
-// shared memory (84 KB, two blocks an SM) does not grow with d.  A slab is
-// read by plain loads into registers before the stage's FMAs and stored,
-// transposed and converted to f32, after them (rows start at any element:
-// f32 rows of odd width and bf16 rows are not 16- or 4-byte aligned).  The
-// tile is read once per C chunk: cdiv(K, 256) times, or once per listed
-// chunk in the bounded sweep.  The FMA chains are the resident path's, in
-// the same order (|x|^2 carried across the first chunk's slabs), so a
-// streamed launch equals the resident launch bit for bit wherever both
-// fit.
+// when the launcher forces it, X streams.  The unbounded sweep (the
+// assignment and the fused step) then runs sweep_wide.cuh's kernel, which
+// launch_assign picks; the bounded sweep streams here (kStream): a slab
+// of kMaxDepth features of the tile's rows sits beside each C stage,
+// double-buffered like C, so the shared memory (84 KB, two blocks an SM)
+// does not grow with d.  A slab is read by plain loads into registers
+// before the stage's FMAs and stored, transposed and converted to f32,
+// after them (rows start at any element: f32 rows of odd width and bf16
+// rows are not 16- or 4-byte aligned).  The tile is read once per listed
+// chunk.  The FMA chains are the resident path's, in the same order (|x|^2
+// carried across the first chunk's slabs), so a streamed launch equals the
+// resident launch bit for bit wherever both fit.
 //
 // The unbounded sweep's chunk c is centroids 256c .. 256c+255.  The bounded
 // sweep (kBounded) computes only the centroid groups its tile needs: chunk
@@ -776,65 +779,27 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
 }
 
 // One 64-row tile of X a block (blockIdx.x), one problem a grid row
-// (blockIdx.y): each row's label and min distance.  The assignment kernel,
-// and the fused step's sweep.  kStream: X streams in slabs (dc =
-// kMaxDepth), else the whole tile is resident.
-template <typename TX, bool kStream>
+// (blockIdx.y): each row's label and min distance, the whole tile resident.
+// The assignment kernel, and the fused step's sweep, up to the widest
+// resident d (sweep_wide.cuh's launch_assign picks it).
+template <typename TX>
 __global__ void __launch_bounds__(kThreads, 2)
 assign_tiles(const TX* __restrict__ x, int64_t x_rstride,
              const float* __restrict__ ct, const float* __restrict__ csq,
              int n, int k, int d, int dc, int* __restrict__ labels,
              float* __restrict__ mind) {
   extern __shared__ float4 smem_raw[];
-  const Tile sm(reinterpret_cast<float*>(smem_raw), kStream ? 2 * dc : d,
-                dc);
+  const Tile sm(reinterpret_cast<float*>(smem_raw), d, dc);
   const int r = blockIdx.y;
   const int64_t row0 = (int64_t)blockIdx.x * kRows;
   const int rows = n - row0 < kRows ? (int)(n - row0) : kRows;
-  if constexpr (kStream) {
-    const XRows<TX> xr{x + r * x_rstride + row0 * d, rows};
-    load_first_slab(sm, xr, d);
-    sweep<false, false, false, false, true>(
-        sm, ct + (int64_t)r * d * pad_centroids(k), csq + (int64_t)r * k, k,
-        d, dc, Skip{}, 0, 0, xr);
-  } else {
-    load_rows(sm, x + r * x_rstride, row0, rows, d);
-    sweep<false, false>(sm, ct + (int64_t)r * d * pad_centroids(k),
-                        csq + (int64_t)r * k, k, d, dc, Skip{});
-  }
+  load_rows(sm, x + r * x_rstride, row0, rows, d);
+  sweep<false, false>(sm, ct + (int64_t)r * d * pad_centroids(k),
+                      csq + (int64_t)r * k, k, d, dc, Skip{});
   if (threadIdx.x < rows) {
     labels[(int64_t)r * n + row0 + threadIdx.x] = sm.lab[threadIdx.x];
     mind[(int64_t)r * n + row0 + threadIdx.x] = sm.mind[threadIdx.x];
   }
-}
-
-// The assignment on stream s: |c|^2 and C's transpose into scratch
-// (scratch_floats(r, k, d) floats, 16-byte aligned), then assign_tiles,
-// resident or streamed as plan_sweep decides (force_stream: streamed at
-// any d).  The assignment kernel's launch and the fused step's sweep, so
-// the two give the same labels and distances by construction.  *csq (may
-// be null) receives |c|^2's address in scratch.  X and C are each float32
-// or bfloat16; the sweep runs on their f32 values.
-template <typename TX, typename TC>
-__host__ inline cudaError_t launch_assign(cudaStream_t s, const TX* x,
-                                          int64_t x_rstride, const TC* c,
-                                          int r, int n, int k, int d,
-                                          bool force_stream, float* scratch,
-                                          int* labels, float* mind,
-                                          float** csq_out = nullptr) {
-  SweepPlan plan;
-  cudaError_t err = plan_sweep(d, 0, false, force_stream, &plan);
-  if (err != cudaSuccess) return err;
-  float *ct, *csq;
-  err = prepare_c(s, c, r, k, d, scratch, &ct, &csq);
-  if (err != cudaSuccess) return err;
-  if (csq_out) *csq_out = csq;
-  auto kernel = plan.stream ? assign_tiles<TX, true> : assign_tiles<TX, false>;
-  err = set_smem(kernel, plan.smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(cdiv(n, kRows), r), kThreads, plan.smem, s>>>(
-      x, x_rstride, ct, csq, n, k, d, plan.dc, labels, mind);
-  return cudaGetLastError();
 }
 
 }  // namespace f8

@@ -11,7 +11,8 @@ order), energy within 1e-6 relative.  The fused-bounds kernel besides:
 the skipped share exact and every skipped group's minimum bit for bit
 (both pass the input bound through), computed group minima within 1e-5.
 The fused step launches the assignment kernel's own sweep (8 x 8 register
-blocks, csrc/sweep_fp32.cuh), so its labels and distances are the
+blocks, csrc/sweep_fp32.cuh; past the resident X tile the streamed sweep
+of csrc/sweep_wide.cuh), so its labels and distances are the
 assignment's by construction; the bounded sweep computes each distance
 with the same FMA chain.  On exact small-integer data every distance is
 exact, so a tie goes to the lowest index.  Relaunches are bitwise equal.
@@ -1681,6 +1682,122 @@ def test_streamed_equals_resident(cuda, at, kernel, bf16):
     assert after[1] + after[3] + after[5] \
         == middle[1] + middle[3] + middle[5] + 1
     _assert_equal(streamed, resident)
+
+
+# The streamed sweep of the assignment and the fused step
+# (csrc/sweep_wide.cuh): 128-row tiles, 256-centroid chunks, X slabs of 32
+# features read at any alignment.
+
+
+def _assert_streamed_assignment(x, c, lab, mind):
+    """One streamed assignment launch against the plain version: labels
+    exact, min distances within 1e-5 of max(|x|^2, 1)."""
+    want = [v.cpu() for v in A.assignment_plain(x, c)]
+    np.testing.assert_array_equal(lab.cpu().numpy(), want[0].numpy())
+    np.testing.assert_allclose(mind.cpu(), want[1], rtol=1e-5,
+                               atol=_wide_atol(x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_streamed_sweep_ragged_k_and_rows(cuda, bf16):
+    """d = 4096, K = 1000 (four centroid chunks, the last one ragged) and
+    N = 1000 (not a multiple of the 128-row tile): the streamed launch
+    against the plain version, a relaunch equal bit for bit, and a bf16
+    launch equal to the f32 launch on the upcast operands."""
+    x, c, _ = _mixture(cuda, 1000, 4096, 1000, None, False, None, seed=41)
+    if bf16:
+        x, c = x.bfloat16(), c.bfloat16()
+    before = A.stream_launches
+    lab, mind = A.assignment(x, c)
+    assert A.stream_launches == before + 1
+    _assert_streamed_assignment(x, c, lab, mind)
+    _assert_equal(A.assignment(x, c), (lab, mind))
+    if bf16:
+        _assert_equal(A.assignment(x.float(), c.float()), (lab, mind))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_streamed_sweep_per_problem_x(cuda, bf16):
+    """Per-problem X at R = 3 with (R, N) weights at d = 4096 and a ragged
+    N: the fused step against the plain version, its sweep equal to the
+    assignment's launch bit for bit."""
+    x, c, w = _mixture(cuda, 515, 4096, 256, 3, True, "rn", seed=43)
+    if bf16:
+        x, c = x.bfloat16(), c.bfloat16()
+    got = F.fused_lloyd(x, c, w)
+    _assert_equal(A.assignment(x, c), got[:2])
+    got = [g.cpu() for g in got]
+    want = [v.cpu() for v in F.fused_lloyd_plain(x, c, w)]
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5,
+                               atol=_wide_atol(x))
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    _assert_energy_close(got[4], want[4], x, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,offset", [(torch.float32, 1023, 0),
+                                            (torch.bfloat16, 822, 0),
+                                            (torch.float32, 4096, 1),
+                                            (torch.bfloat16, 4096, 1)])
+def test_streamed_sweep_unaligned_rows(cuda, dtype, d, offset):
+    """Rows that do not start 16-byte aligned: f32 rows of odd width, bf16
+    rows, and a base one element past an aligned one
+    (``torch.empty(n * d + 1)[1:].view(n, d)``).  Equal bit for bit to the
+    launch on an aligned copy of the same values, and to the plain
+    version."""
+    x, c, _ = _mixture(cuda, 700, d, 256, None, False, None, seed=d + 7)
+    x, c = x.to(dtype), c.to(dtype)
+    n = x.shape[0]
+    moved = torch.empty(n * d + offset, dtype=dtype,
+                        device=cuda)[offset:].view(n, d)
+    moved.copy_(x)
+    assert moved.is_contiguous()
+    assert moved.data_ptr() % 16 == offset * x.element_size()
+    lab, mind = A.assignment(moved, c)
+    _assert_equal((lab, mind), A.assignment(x, c))
+    _assert_streamed_assignment(x, c, lab, mind)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_streamed_sweep_ties_and_nan(cuda, bf16):
+    """Integer data at d = 4096, so every distance is exact: K = 1000 is
+    250 centroids four times over, so each one ties with copies in other
+    lanes, warps and chunks (the last ragged), and the lowest index wins;
+    rows with a NaN (in the first and in a later tile) get a NaN distance
+    and label 0.  Labels and distances equal the plain version's."""
+    rng = np.random.default_rng(53)
+    x = rng.integers(-4, 5, (600, 4096)).astype(np.float32)
+    c = np.tile(rng.integers(-4, 5, (250, 4096)).astype(np.float32), (4, 1))
+    x[[7, 300], [3, 4000]] = np.nan
+    xt, ct = torch.from_numpy(x).to(cuda), torch.from_numpy(c).to(cuda)
+    if bf16:
+        xt, ct = xt.bfloat16(), ct.bfloat16()
+    lab, mind = (t.cpu() for t in A.assignment(xt, ct))
+    want = A.assignment_plain(torch.from_numpy(x), torch.from_numpy(c))
+    assert int(lab.max()) < 250
+    assert int(lab[7]) == int(lab[300]) == 0
+    assert torch.isnan(mind[7]) and torch.isnan(mind[300])
+    np.testing.assert_array_equal(lab.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(mind.numpy(), want[1].numpy())
+
+
+@pytest.mark.gpu
+def test_streamed_sweep_predict_chunk(cuda):
+    """A 16,384-row predict chunk at d = 4096, K = 256 (128 tiles of 128
+    rows): against the plain version, each row equal bit for bit to the
+    same row in a launch over more rows, a relaunch equal."""
+    x, c, _ = _mixture(cuda, 20000, 4096, 256, None, False, None, seed=47)
+    part = x[:16384]
+    lab, mind = A.assignment(part, c)
+    _assert_streamed_assignment(part, c, lab, mind)
+    whole = A.assignment(x, c)
+    _assert_equal((lab, mind), (whole[0][:16384], whole[1][:16384]))
+    _assert_equal(A.assignment(part, c), (lab, mind))
 
 
 @pytest.mark.gpu
