@@ -220,38 +220,50 @@ Phases, each fatal on failure:
      within 1e-6, counts equal, the skipped share equal on both ranks and
      within 1e-6 of one rank's.  The card's compute mode is printed first;
      an exclusive mode fails the phase.
-  17. the bf16 compute path at full size on the same data: (a) each
-     kernel on bf16 X and C (phase 5's centroids; the bounded one at the
-     init carry with G = 2 and on one bf16-policy step's bounds with
-     64-centroid groups) against its plain version with the f32 gates
-     and bit for bit against its own f32 launch on the upcast operands;
-     the assignment of bf16 X against f32 centroids; one bf16 fused
-     step's peak device memory above its inputs under a quarter of X's
-     f32 bytes (no f32 copy of X); (b) AAKMeans(backend=get_backend(
-     "fused", precision=Precision(compute=torch.bfloat16))) from phase
-     5's seeds, max_iter 500: every fused launch bf16, the f32 energy of
-     its centroids within 2 % of phase 5's, the per-step cast's time;
-     pallas and fused_bounds at the policy one step each from its
-     centroids, labels equal to the bf16 fused step's; predict equal to
-     an f32 assignment of its centroids; save and load keep the policy
-     and the labels; (c) the bf16-X fit (bf16 centroids), finite, its
-     repeat bit-equal, and its predict of the bf16 rows (the assignment's
-     bf16 variant, one launch a chunk) equal to the bf16 fused step's
-     labels; (d) phase 11's MiniBatchAAKMeans configuration on the
-     bf16-policy engine, its repeat bit-equal; every bf16 variant was
+  17. the bf16 compute path at full size on the same data: (a) the
+     fused step and the assignment on bf16 X and C (phase 5's
+     centroids) launch the tensor-core sweep (csrc/sweep_tc.cuh; its
+     counters move, its kernels' SASS holds HGMMA): against the plain
+     version labels equal but at near ties, min distances within 1e-5
+     of |x|^2 + max |c|^2, the stats of the kernel's labels within the
+     f32 gates and the energy within 1e-6 relative; the assignment at
+     all rows equal to the fused step bit for bit, a relaunch equal; its
+     cross terms against an f64 product at d = 69; the update and the
+     bounded step (at the init carry with G = 2 and on one bf16-policy
+     step's bounds with 64-centroid groups) on bf16 operands against
+     their plain versions with the f32 gates and bit for bit against
+     their own f32 launch on the upcast operands, as the assignment of
+     bf16 X against f32 centroids is; one bf16 fused step's peak device
+     memory above its inputs under a quarter of X's f32 bytes (no f32
+     copy of X); (b) AAKMeans(backend=get_backend("fused",
+     precision=Precision(compute=torch.bfloat16))) from phase 5's seeds,
+     max_iter 500: every fused launch on the tensor cores, the f32
+     energy of its centroids within 2 % of phase 5's, the per-step
+     cast's time; pallas at the policy one step from its centroids,
+     labels equal to the bf16 fused step's (one sweep), fused_bounds
+     equal but at near ties; predict equal to an f32 assignment of its
+     centroids; save and load keep the policy and the labels; (c) the
+     bf16-X fit (bf16 centroids) on the tensor cores, finite, its repeat
+     bit-equal, and its predict of the bf16 rows (one tensor-core launch
+     a chunk) equal to the bf16 fused step's labels; (d) phase 11's
+     MiniBatchAAKMeans configuration on the bf16-policy engine, its
+     repeat bit-equal; every bf16 variant and the tensor-core sweep were
      launched on these paths.
   18. wide rows at Meta-Llama-3-8B's embedding table's shape (128,256 x
      4096 f32, 2.10 GB), a 256-component Gaussian mixture drawn on the
      card from seed 0 (data/synthetic.py's _gaussian_mixture recipe):
      (a) the assignment, fused and bounded kernels at d = 822, 1023, 1024
-     and 4096, where X streams through the sweep in feature slabs,
-     against their plain versions (K = 256 and 1000, shared X at R = 3,
-     per-problem X with (R, N) weights; the bounded step from drifted
-     bounds at gs 8 and 64), f32 and bf16 (each bf16 launch bit-equal to
-     the f32 launch on the upcast operands), relaunches bit-equal, every
-     launch streamed; each kernel forced to stream at d = 69 and at the
-     resident path's widest d, bit-equal to its resident launch; the
-     update at (128,256, 4096, 256); (b) AAKMeans(n_clusters=256,
+     and 4096 against their plain versions (K = 256 and 1000, shared X
+     at R = 3, per-problem X with (R, N) weights; the bounded step from
+     drifted bounds at gs 8 and 64), f32 and bf16, relaunches bit-equal:
+     every f32 launch and bf16 bounded one streams X through the FP32
+     sweep in feature slabs (each bf16 bounded launch bit-equal to the
+     f32 launch on the upcast operands), every bf16 assignment and fused
+     launch takes the tensor cores; the tensor-core sweep's cross terms
+     against an f64 product at d = 821 and 4096; each FP32 kernel forced
+     to stream at d = 69 and at the resident path's widest d, bit-equal
+     to its resident launch, and a forced stream of bf16 X and C refused;
+     the update at (128,256, 4096, 256); (b) AAKMeans(n_clusters=256,
      backend="fused").fit(table), max_iter 500, and predict on every row
      (fit wall, seeding apart, ms a step, peak device memory): every
      launch streamed, predict's labels the fused step's, the first step
@@ -260,21 +272,28 @@ Phases, each fatal on failure:
      one batched fused solve against dense; two steps each of pallas,
      fused_bounds (gs 16) and fused_bounds_reorder against dense; one
      MiniBatchAAKMeans epoch of 65,536-row chunks; a bf16-policy fused
-     fit, its centroids' f32 energy within 2 % of (b)'s; (d) each kernel
-     and bf16 variant at (128,256, 4096, 256) and on the subspaces in
-     turns, the assignment on a predict chunk, addmm + argmin and
+     fit on the tensor cores, its centroids' f32 energy within 2 % of
+     (b)'s; (d) each kernel and bf16 variant at (128,256, 4096, 256) and
+     on the subspaces in turns, the assignment on a predict chunk, addmm
+     + argmin (f32 on the upcast operands for bf16), torch.mm with f32
+     output on the bf16 operands with the epilogue and argmin, and
      index_add_ in the same turns, the assignment and the fused step at
-     K = 1000, the streamed sweep forced at d = 69 and 821 beside the
-     resident one, beside plain versions and the bounds, and the streamed
-     sweep's ptxas registers and spills.  Min distances are held within 1e-5
-     of max(|x|^2, 1); a bf16 energy within 1e-5 of sum(w max(|x|^2, 1)).
+     K = 1000 (f32 and bf16), the streamed sweep forced at d = 69 and 821
+     beside the resident one, beside plain versions and the bounds, and
+     the streamed sweep's ptxas registers and spills.  Min distances are
+     held within 1e-5 of max(|x|^2, 1) on f32 rows and of |x|^2 + max
+     |c|^2 on bf16 ones; a bf16 energy within 1e-5 of sum(w max(|x|^2,
+     1)).
 Phases 9 to 18 run between phases 7 and 8, so that phase 8's kernel
 line counts their launches (phase 16's are the ranks'); phase 8 also
 times each kernel's bf16 variant in turns beside it, and the kernel line
 lists the four bf16 variants as entries of their own ("<kernel>_bf16":
 the launches on a bf16 X, bounds at 2-byte X and bf16 tensor-core
-rates, library calls on the upcast operands).  Each entry also carries
-phase 18's "wide_launches" (its launches on phase 18's main paths, every
+rates beside the epilogue's instructions on the CUDA cores, the library
+call on the bf16 operands where torch has one and f32 on the upcast
+operands beside it; the fused and assignment ones carry their
+tensor-core launches, cross-term errors and HGMMA counts).  Each entry
+also carries phase 18's "wide_launches" (its launches on phase 18's main paths, every
 one streamed), "wide_ms" (at 128,256 x 4096, K = 256) and "wide" (the
 rest of that row).
 Every path is driven with the launch counts set to 0 just before it and
@@ -286,6 +305,7 @@ when there is no CUDA device or the port is not beside this script.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
@@ -391,21 +411,6 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def tie_gap(torch, lab, lab_p, x, c):
-    """(share of rows whose labels agree, the largest relative gap between
-    the f64 distances to the two labels where they differ)."""
-    xs = x if x.dim() == 3 else x.expand(c.shape[0], *x.shape)
-    diff = lab != lab_p
-    gap = 0.0
-    if bool(diff.any()):
-        rr, nn = torch.nonzero(diff, as_tuple=True)
-        xr = xs[rr, nn].double()
-        d_k = ((xr - c[rr, lab[rr, nn].long()].double()) ** 2).sum(-1)
-        d_p = ((xr - c[rr, lab_p[rr, nn].long()].double()) ** 2).sum(-1)
-        gap = float(((d_k - d_p).abs() / d_p.abs().clamp_min(1.0)).max())
-    return float(1.0 - diff.float().mean()), gap
-
-
 def compare(torch, got, want, x, c, w):
     """Kernel outputs against the plain version's on the same inputs.
     Labels may differ only where the two distances tie to within the
@@ -414,7 +419,7 @@ def compare(torch, got, want, x, c, w):
     lab, mind = got[0], got[1]
     lab_p, mind_p = want[0], want[1]
     xs = x if x.dim() == 3 else x.expand(c.shape[0], *x.shape)
-    agree, gap = tie_gap(torch, lab, lab_p, x, c)
+    agree, gap = ref.tie_gap(lab, lab_p, x, c)
     scale = mind_p.abs().clamp_min(1.0)
     mind_err = float(((mind - mind_p).abs() / scale).max())
     out = {"agree": agree, "gap": gap,
@@ -639,13 +644,21 @@ def distance_bound_ms(n_bytes, n_cross, n_other):
     return (tc, tc_by, fp32, tc) if tc < fp32 else (fp32, fp32_by, fp32, tc)
 
 
+# Instructions the tensor-core sweep's epilogue issues on the CUDA cores
+# per (row, centroid), csrc/sweep_tc.cuh's take(): FFMA, FADD, FMNMX, IADD3,
+# ISETP and two SEL (the SASS opcode mix of scripts/tc_sweep_probe.py).
+TC_EPILOGUE_INSTR = 7
+
+
 def bf16_bound_ms(n_bytes, n_cross, n_other):
     """Bounds of a distance kernel on bf16 operands: -> (bound ms, what
     bounds it, FP32-core bound ms).  The least time for the work is its
     bf16 products on the tensor cores (989 TFLOP/s, f32 accumulation)
-    beside the other operations on the FP32 cores, or the bytes; the
-    kernels run the products on the FP32 cores, whose bound is also
-    returned."""
+    beside the other operations on the CUDA cores (``n_other`` at the FP32
+    rate, 67 T a second, an instruction slot counting 2, as an FMA does),
+    or the bytes; the FP32-core bound runs the products there too.  The
+    tensor-core sweep's epilogue issues TC_EPILOGUE_INSTR instructions a
+    (row, centroid): ``tc_other``."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S
     t_tc = n_cross / PEAK_BF16_PER_S
     t_other = n_other / PEAK_FP32_PER_S
@@ -653,6 +666,63 @@ def bf16_bound_ms(n_bytes, n_cross, n_other):
           "bf16 tensor-core operations" if t_tc >= t_other else "operations")
     return max(t_bytes, t_tc, t_other) * 1e3, by, \
         bound_ms(n_bytes, n_cross + n_other)[0]
+
+
+def tc_other(n, k, d, chains=False):
+    """The CUDA-core operations of the tensor-core sweep over n rows and k
+    centroids of width d, at the FP32 rate (an instruction slot counting
+    2): the epilogue's TC_EPILOGUE_INSTR a (row, centroid), and with
+    ``chains`` the |x|^2 FMA chains (the fused step's bound has always
+    counted them)."""
+    return 2 * TC_EPILOGUE_INSTR * n * k + (2 * n * d if chains else 0)
+
+
+def mm_argmin(torch, x, c, csq):
+    """The library's one call on bf16 X and C: ``torch.mm`` with f32 output
+    (the aten::mm.dtype overload), the reference's epilogue and argmin;
+    None where this torch lacks the overload."""
+    try:
+        prod = torch.mm(x, c.T, out_dtype=torch.float32)
+    except (RuntimeError, TypeError):
+        return None
+    xf = x.float()
+    return torch.argmin(torch.clamp_min(torch.sum(xf * xf, -1, keepdim=True)
+                                        - 2.0 * prod + csq, 0.0), dim=1)
+
+
+def cross_error(torch, assignment, x, c):
+    """The tensor-core sweep's cross terms (``assignment.cross_terms``) for
+    bf16 rows x (N, d) and centroids c (K, d) against an f64 product of the
+    same values: {largest error relative to |x| |c|, to |x|^2 + |c|^2, mean
+    signed error relative to |x| |c|}, and the same of the plain version's
+    f32 product (``plain_*``)."""
+    xd, cd = x.double(), c.double()
+    want = xd @ cd.T
+    nx, nc = torch.sum(xd * xd, -1), torch.sum(cd * cd, -1)
+    norms = nx.sqrt()[:, None] * nc.sqrt()[None]
+    out = {}
+    for tag, got in (("", assignment.cross_terms(x, c[None])[0]),
+                     ("plain_", x.float() @ c.float().T)):
+        err = got.double() - want
+        out.update({f"{tag}of_norms": float((err.abs() / norms).max()),
+                    f"{tag}of_squares": float(
+                        (err.abs() / (nx[:, None] + nc[None])).max()),
+                    f"{tag}mean_signed": float((err / norms).mean())})
+    return out
+
+
+def tc_sass(build):
+    """The HGMMA instructions of the tensor-core sweep's kernels in the
+    built assignment and fused libraries (``cuobjdump -sass``): {library:
+    {kernel: count}}."""
+    cuobjdump = str(Path(build._nvcc()).parent / "cuobjdump")
+    out = {}
+    for lib in ("assignment", "fused_lloyd"):
+        funs = sass_functions(cuobjdump, build.library_path(lib))
+        out[lib] = {f: sum(n for op, n in opcode_counts(ins).items()
+                           if op.startswith("HGMMA"))
+                    for f, ins in funs.items() if "assign_tc" in f}
+    return out
 
 
 def ptxas_report(lib_path, pattern):
@@ -680,6 +750,36 @@ def ptxas_report(lib_path, pattern):
         if found:
             out.setdefault(name, {})["registers"] = int(found.group(1))
     return out
+
+
+def sass_functions(cuobjdump: str, lib_path: Path):
+    """{function name: its SASS instructions (no addresses, no
+    encodings)} of every kernel in the library."""
+    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
+                         capture_output=True, text=True, check=True).stdout
+    funs, cur = {}, None
+    for line in out.splitlines():
+        line = line.strip()
+        found = re.match(r"Function : (\S+)", line)
+        if found:
+            cur = funs.setdefault(found.group(1), [])
+        elif cur is not None and line.startswith("/*") and "*/" in line:
+            body = line.split("*/", 1)[1].strip()
+            if body and not body.startswith("/*"):
+                cur.append(body.split(";")[0].strip())
+    return funs
+
+
+def opcode_counts(ins):
+    """Opcodes (with their width suffix) of a function's instructions."""
+    counts = collections.Counter()
+    for i in ins:
+        words = i.split()
+        if words and words[0].startswith("@"):
+            words = words[1:]
+        if words:
+            counts[words[0]] += 1
+    return counts
 
 
 def phase5c(torch, x, c0, model, zero_counts, read_counts, path_launches,
@@ -1534,6 +1634,7 @@ def phase14(torch, x, x_np, model, labels, model_mb, zero_counts,
     import numpy as np
     from repro_torch.core.api import PREDICT_CHUNK
     from repro_torch.core.lloyd import pairwise_sqdist
+    from repro_torch.kernels.ref import tie_gap
     from repro_torch.kernels.tiles import pad_rows
     from repro_torch.runtime.metrics import CollectMetrics
     from repro_torch.serving import (KMeansServer, ServingModel,
@@ -1556,7 +1657,7 @@ def phase14(torch, x, x_np, model, labels, model_mb, zero_counts,
             return True, 0.0, 0
         g = torch.from_numpy(np.asarray(got, np.int32)).to(dev)[None]
         w = torch.from_numpy(np.asarray(want, np.int32)).to(dev)[None]
-        _, gap = tie_gap(torch, g, w, x[rows], cents[None])
+        _, gap = tie_gap(g, w, x[rows], cents[None])
         return False, gap, int((g != w).sum())
 
     zero_counts()
@@ -1603,7 +1704,7 @@ def phase14(torch, x, x_np, model, labels, model_mb, zero_counts,
     if n_in:
         sel = rows_d[in_closure]
         _, gap_in = tie_gap(
-            torch, torch.from_numpy(lab_apx[diff]).to(dev)[in_closure][None],
+            torch.from_numpy(lab_apx[diff]).to(dev)[in_closure][None],
             exact_d[in_closure].to(torch.int32)[None], x[sel], c[None])
     print(f"  (a) exact predict {exact_s!r} s ({n / exact_s!r} rows/s); "
           f"approx predict {approx_s!r} s ({n / approx_s!r} rows/s), peak "
@@ -2922,8 +3023,10 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
     from repro_torch.core.backends.fused_bounds import (engine_group_size,
                                                         squared_bounds)
     from repro_torch.kernels import assignment as A
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_lloyd as F
     from repro_torch.kernels import update as U
+    from repro_torch.kernels.ref import NEAR_TIE, tie_gap
     bf16 = torch.bfloat16
     policy = Precision(compute=bf16)
     n, d = x.shape
@@ -2941,32 +3044,39 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
     cb = c5.to(bf16)
     print(f"  (a) X in bf16: {xb.numel() * 2 / 1e6:.0f} MB (f32: "
           f"{x.numel() * 4 / 1e6:.0f} MB)")
+    zero_counts()
     got = F.fused_lloyd(xb, cb)
-    res_f = compare(torch, tuple(g[None] for g in got),
-                    tuple(v[None] for v in F.fused_lloyd_plain(xb, cb)),
-                    xb, cb[None], None)
-    up = F.fused_lloyd(xb.float(), cb.float())
-    eq_f = same(got, up)
-    print(f"  fused_lloyd bf16 vs plain: {fmt(res_f)}; vs its f32 launch on "
-          f"the upcast operands: bit-equal {eq_f}")
-    accept(res_f, "bf16 fused at full size")
-    check(eq_f, "the bf16 fused step is not its f32 launch on the upcast "
-          "operands")
-    del up
     lab_a, mind_a = A.assignment(xb, cb)
-    res_a = compare(torch, (lab_a[None], mind_a[None]),
-                    tuple(v[None] for v in A.assignment_plain(xb, cb)),
-                    xb, cb[None], None)
-    eq_a = same((lab_a, mind_a), A.assignment(xb.float(), cb.float()))
+    counts, _ = read_counts()
+    res_f = compare_wide(torch, tuple(g[None] for g in got),
+                         tuple(v[None] for v in F.fused_lloyd_plain(xb, cb)),
+                         xb, cb[None], None)
+    rep = same(F.fused_lloyd(xb, cb), got)
     eq_af = torch.equal(lab_a, got[0]) and torch.equal(mind_a, got[1])
     mixed = same(A.assignment(xb, c5), A.assignment(xb.float(), c5))
-    print(f"  assignment bf16 vs plain at all rows: {fmt(res_a)}; vs its f32 "
-          f"launch: bit-equal {eq_a}; vs the bf16 fused step: bit-equal "
-          f"{eq_af}; bf16 X against f32 centroids vs the f32 launch on the "
-          f"upcast X: bit-equal {mixed}")
-    accept(res_a, "bf16 assignment at full size")
-    check(eq_a and eq_af and mixed, "the bf16 assignment is not its f32 "
-          "launch on the upcast operands")
+    print(f"  tensor-core launches: fused {counts['fused_lloyd_tc']}, "
+          f"assignment {counts['assignment_tc']} (of 1 each)")
+    print(f"  fused_lloyd bf16 vs plain (min_sqdist relative to |x|^2 + max "
+          f"|c|^2): {fmt(res_f)}; relaunch bit-equal {rep}; the assignment "
+          f"at all rows vs the fused step: bit-equal {eq_af}; bf16 X "
+          f"against f32 centroids vs the f32 launch on the upcast X: "
+          f"bit-equal {mixed}")
+    accept_wide(res_f, "bf16 fused at full size")
+    check(res_f["energy_rel_plain"] <= 1e-6, "bf16 fused energy off by "
+          f"{res_f['energy_rel_plain']:.2e} relative")
+    check(counts["fused_lloyd_tc"] == counts["assignment_tc"] == 1,
+          "a bf16 launch did not take the tensor-core sweep")
+    check(rep and eq_af, "the bf16 assignment is not the fused step's "
+          "sweep, or a relaunch differs")
+    check(mixed, "bf16 X against f32 C is not its f32 launch on the upcast X")
+    cross = cross_error(torch, A, xb[:PREDICT_CHUNK], cb)
+    sass = tc_sass(build)
+    print(f"  the tensor-core sweep's cross terms at d={d} ({PREDICT_CHUNK} "
+          f"rows x {k}) against an f64 product: {cross}; HGMMA instructions "
+          f"of its kernels (cuobjdump -sass): {sass}", flush=True)
+    check(all(v > 0 for lib in sass.values() for v in lib.values())
+          and all(sass.values()), "a tensor-core sweep kernel has no HGMMA")
+    del mind_a
     lab = got[0]
     got_u = U.update(xb, lab, k)
     res_u = compare_stats(got_u, U.update_plain(xb, lab, k))
@@ -2976,9 +3086,10 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
           f"{res_u['counts_rel']:.2e}; vs its f32 launch: bit-equal {eq_u}")
     accept_stats(res_u, "bf16 update at full size")
     check(eq_u, "the bf16 update is not its f32 launch on the upcast X")
-    errs = {"fused_lloyd": res_f["mind_abs"], "assignment": res_a["mind_abs"],
+    errs = {"fused_lloyd": res_f["mind_abs"], "assignment": res_f["mind_abs"],
             "update": res_u["sums_abs"]}
-    del got_u, lab_a, mind_a
+    tc = {"cross_error": {d: cross}, "hgmma": sass}
+    del got_u, lab_a
     # the bounded step: at the init carry with the default groups (G = 2,
     # nothing skipped), and on the bounds of one bf16-policy step with
     # 64-centroid groups
@@ -3049,8 +3160,9 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
           f"{model5.inertia_!r}")
     print(f"  the f32 energy of its centroids {e32!r}: {gap!r} relative "
           f"from phase 5's; centroids {model.centroids_.dtype}")
-    check(counts["fused_lloyd"] == counts["fused_lloyd_bf16"] == 1 + trips,
-          "bf16-policy fused launches != 1 + trips, or not all bf16")
+    check(counts["fused_lloyd"] == counts["fused_lloyd_bf16"]
+          == counts["fused_lloyd_tc"] == 1 + trips, "bf16-policy fused "
+          "launches != 1 + trips, or not all on the tensor cores")
     check(plain == 0, "the bf16-policy fit called a plain version")
     check(model.centroids_.dtype == torch.float32, "policy centroids")
     check(gap <= 0.02, "the bf16-policy fit's f32 energy is more than 2 % "
@@ -3061,6 +3173,7 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
           f"({trips + 1} steps: {(trips + 1) * cast_ms / 1e3!r} s of the "
           f"fit), {xb.numel() * 2 / 1e6:.0f} MB transient")
     c_b = model.centroids_
+    cb_b = c_b.to(bf16)[None]   # the centroids as the policy casts them
     step_f = fused_bf.step(x, c_b, k)[0].labels
     for name in ("pallas", "fused_bounds"):
         bk = get_backend(name, precision=policy)
@@ -3069,13 +3182,24 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
         counts, plain = read_counts()
         path_launches[f"bf16-policy {name} step"] = counts
         kname = "assignment" if name == "pallas" else "fused_bounds"
-        agree = torch.equal(lab_o, step_f)
+        # pallas's assignment is the fused step's tensor-core sweep; the
+        # bounded step sums in f32 on the FP32 cores, so its labels part
+        # from the fused step's only at near ties
+        agree, gap = tie_gap(lab_o[None], step_f[None], xb, cb_b)
         print(f"  {name} at the bf16 policy, one step from the fit's "
-              f"centroids: labels equal to the bf16 fused step's {agree}; "
-              f"{kname} bf16 launches {counts[kname + '_bf16']}")
-        check(agree, f"{name} at the bf16 policy disagrees with fused")
+              f"centroids: labels agree with the bf16 fused step's on "
+              f"{agree!r} of rows (near-tie gap {gap!r}); {kname} bf16 "
+              f"launches {counts[kname + '_bf16']}, on the tensor cores "
+              f"{counts.get(kname + '_tc', 0)}")
+        if name == "pallas":
+            check(agree == 1.0 and counts["assignment_tc"] == 1,
+                  "pallas at the bf16 policy is not the fused step's sweep")
+        check(agree == 1.0 or gap <= NEAR_TIE,
+              f"{name} at the bf16 policy disagrees with fused beyond a "
+              f"near tie")
         check(counts[kname + "_bf16"] == 1 and plain == 0,
               f"{name} at the bf16 policy did not launch its bf16 kernel")
+    del cb_b
     zero_counts()
     labels = model.predict(x)
     counts, _ = read_counts()
@@ -3122,8 +3246,9 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
     check(math.isfinite(m.inertia_) and math.isfinite(e32),
           "bf16-X fit energy")
     check(rep, "the bf16-X fit's repeat differs")
-    check(plain == 0 and counts["fused_lloyd"]
-          == counts["fused_lloyd_bf16"] > 0, "the bf16-X fit's launches")
+    check(plain == 0 and counts["fused_lloyd"] == counts["fused_lloyd_bf16"]
+          == counts["fused_lloyd_tc"] > 0, "the bf16-X fit's launches, or "
+          "not on the tensor cores")
     # its predict of the bf16 rows: the assignment kernel's bf16 variant,
     # whose labels are the fused step's on the same operands
     zero_counts()
@@ -3138,8 +3263,9 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
     print(f"  bf16-X predict of the bf16 rows: {predict_s!r} s, assignment "
           f"bf16 launches {counts['assignment_bf16']} vs {chunks} chunks; "
           f"labels equal to the bf16 fused step's {same_c}", flush=True)
-    check(counts["assignment"] == counts["assignment_bf16"] == chunks
-          and plain == 0, "bf16-X predict's launches")
+    check(counts["assignment"] == counts["assignment_bf16"]
+          == counts["assignment_tc"] == chunks and plain == 0,
+          "bf16-X predict's launches, or not on the tensor cores")
     check(same_c, "bf16-X predict disagrees with the fused step")
     del fits, m, lab_c
 
@@ -3168,7 +3294,8 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
           f"{mb11[1]}, n_accepted_ {mb11[2]}); the repeat bit-equal {rep}; "
           f"fused launches {counts['fused_lloyd']} (bf16 "
           f"{counts['fused_lloyd_bf16']})", flush=True)
-    check(rep and plain == 0 and counts["fused_lloyd_bf16"] > 0,
+    check(rep and plain == 0 and counts["fused_lloyd"]
+          == counts["fused_lloyd_bf16"] == counts["fused_lloyd_tc"] > 0,
           "the bf16-policy streaming fit")
     check(mb.n_steps_ == mb11[1], "bf16-policy n_steps_")
     del mbs, mb, lab
@@ -3176,11 +3303,18 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
                         if path.startswith("bf16"))
                 for kn in ("fused_lloyd", "assignment", "update",
                            "fused_bounds")}
-    print(f"  bf16 variants launched on phase 17's paths: {launched}; "
-          f"phase 17 took {time.perf_counter() - t_phase!r} s")
+    on_tc = {kn: sum(c[f"{kn}_tc"] for path, c in path_launches.items()
+                     if path.startswith("bf16"))
+             for kn in ("fused_lloyd", "assignment")}
+    tc["launches"] = on_tc
+    print(f"  bf16 variants launched on phase 17's paths: {launched}; of them "
+          f"on the tensor cores: {on_tc}; phase 17 took "
+          f"{time.perf_counter() - t_phase!r} s")
     check(all(v > 0 for v in launched.values()),
           "a bf16 variant was not launched on phase 17's paths")
-    return xb, cb, errs
+    check(all(v > 0 for v in on_tc.values()), "the tensor-core sweep was not "
+          "launched on phase 17's paths")
+    return xb, cb, errs, tc
 
 
 def wide_table(torch, dev, n, d, n_comp, seed=0):
@@ -3229,6 +3363,7 @@ def compare_wide(torch, got, want, x, c, w, bounds=None, tile_rows=None,
                 ).clamp_min(1.0)
     res["mind_rel"] = float((err / rows).max())
     if len(got) > 4:
+        res["energy_rel_plain"] = res["energy_rel"]
         de = (got[4] - want[4]).abs()
         if x.dtype == torch.bfloat16 or bounds is not None or seeded:
             xrows = xsq.clamp_min(1.0)
@@ -3271,7 +3406,7 @@ def accept_wide(res, what):
 
 
 def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
-            tile_rows):
+            tile_rows, tc):
     """Wide rows at Meta-Llama-3-8B's embedding table's shape (LLAMA_VOCAB x
     LLAMA_HIDDEN f32, a WIDE_COMPONENTS-component Gaussian mixture drawn on
     the card from seed 0): (a) the assignment, fused and bounded kernels at
@@ -3407,14 +3542,10 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                                    wc)
                 eq = same(got_a, got[:2]) and same(
                     lift(F.fused_lloyd(*args)), got)
-                if dt == bf16:
-                    eq = eq and same(got, lift(F.fused_lloyd(
-                        xk.float(), args[1].float(), wc)))
                 tag = "bf16" if dt == bf16 else "f32"
                 what = f"d={dd} {label} {tag}"
                 print(f"  (a) [{what}] fused: {fmt(res)}; assignment = the "
-                      f"step's sweep, relaunch equal"
-                      f"{', = the f32 launch' if dt == bf16 else ''}: {eq}")
+                      f"step's sweep, relaunch equal: {eq}")
                 accept_wide(res, f"wide fused [{what}]")
                 check(eq, f"wide [{what}]: a launch is not bit-equal")
                 key = "fused_lloyd" + ("_bf16" if dt == bf16 else "")
@@ -3453,10 +3584,25 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
     print(f"  (a) {n_cases} cases in {time.perf_counter() - t0!r} s; "
           f"launches {counts}; streamed {streamed}; plain-version calls "
           f"{plain} (the comparisons')", flush=True)
-    check(streamed["fused_lloyd"] == counts["fused_lloyd"]
-          and streamed["assignment"] == counts["assignment"]
+    # f32 launches stream X through the FP32 sweep; bf16 ones of the
+    # assignment and the fused step take the tensor cores
+    check(streamed["fused_lloyd"]
+          == counts["fused_lloyd"] - counts["fused_lloyd_tc"]
+          and streamed["assignment"]
+          == counts["assignment"] - counts["assignment_tc"]
           and streamed["fused_bounds"] == counts["fused_bounds"],
-          "a wide launch did not stream X")
+          "a wide f32 launch did not stream X")
+    check(counts["fused_lloyd_tc"] == counts["fused_lloyd_bf16"] > 0
+          and counts["assignment_tc"] == counts["assignment_bf16"] > 0,
+          "a wide bf16 launch did not take the tensor cores")
+    for dd in (widest["assignment"], d):
+        xd = table[:PREDICT_CHUNK, :dd].contiguous().to(bf16)
+        tc["cross_error"][dd] = cross_error(
+            torch, A, xd, table[rows_of(256), :dd].contiguous().to(bf16))
+        print(f"  (a) the tensor-core sweep's cross terms at d={dd} "
+              f"({PREDICT_CHUNK} rows x 256) against an f64 product: "
+              f"{tc['cross_error'][dd]}", flush=True)
+        del xd
     # forced streaming equals the resident launch where both fit
     widest["fused_bounds"] = F._bind_bounds(build.load(
         "fused_bounds")).fused_bounds_max_features(0, -(-300 // 16))
@@ -3468,6 +3614,20 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                 cs, gsr, bnds = drifted_bounds(16, xs, cs, None, steps=2)
             for dt in (torch.float32, bf16):
                 xk, ck = xs.to(dt), cs.to(dt)
+                if dt == bf16 and kname != "fused_bounds":
+                    # the tensor-core sweep has no streamed path to force
+                    try:
+                        (A.assignment(xk, ck, _stream=True)
+                         if kname == "assignment"
+                         else F.fused_lloyd(xk, ck, _stream=True))
+                        refused = False
+                    except ValueError:
+                        refused = True
+                    print(f"  (a) {kname} at d={dd} bf16: forcing the "
+                          f"stream refused {refused}")
+                    check(refused, f"{kname} at d={dd} bf16: a forced "
+                          f"stream was not refused")
+                    continue
                 if kname == "assignment":
                     def run(st):
                         return A.assignment(xk, ck, _stream=st)
@@ -3675,9 +3835,11 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
           f"{model_b.inertia_!r}; its centroids' f32 energy {e32!r}, "
           f"{gap!r} relative to (b)'s {model.inertia_!r}; bf16 fused "
           f"launches {counts['fused_lloyd_bf16']} of {counts['fused_lloyd']}"
-          f", streamed {streamed['fused_lloyd']}, plain {plain}", flush=True)
+          f", on the tensor cores {counts['fused_lloyd_tc']}, streamed "
+          f"{streamed['fused_lloyd']}, plain {plain}", flush=True)
     check(counts["fused_lloyd"] == counts["fused_lloyd_bf16"]
-          == streamed["fused_lloyd"] == 1 + trips_of(model_b) and plain == 0,
+          == counts["fused_lloyd_tc"] == 1 + trips_of(model_b)
+          and streamed["fused_lloyd"] == 0 and plain == 0,
           "the wide bf16-policy fit's launches")
     check(abs(gap) <= 0.02, "the wide bf16-policy fit's f32 energy is more "
           "than 2 % from the f32 fit's")
@@ -3724,6 +3886,9 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
     k4 = 1000
     c1000 = table[rows_of(k4)].contiguous()
     c1000_sq = torch.sum(c1000 * c1000, dim=-1)
+    c1000_b = c1000.to(bf16)
+    c1000_sq_b = torch.sum(c1000_b.float() ** 2, dim=-1)
+    has_mm = mm_argmin(torch, table_b[:128], c_fin_b, c_sq_b) is not None
     sums_buf = torch.zeros(k, d, device=dev)
     lab_l = lab_fin.long()
     # the streamed sweep forced where the resident one fits: USCensus1990
@@ -3765,6 +3930,13 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                                                   c_sq),
         "addmm + argmin bf16 chunk": lambda i: nearest(chunk(table_b, i),
                                                        c_fin_b, c_sq_b),
+        "mm bf16": lambda i: mm_argmin(torch, table_b, c_fin_b, c_sq_b),
+        "mm bf16 chunk": lambda i: mm_argmin(torch, chunk(table_b, i),
+                                             c_fin_b, c_sq_b),
+        "assignment_bf16 K=1000": lambda i: A.assignment(table_b, c1000_b),
+        "fused_lloyd_bf16 K=1000": lambda i: F.fused_lloyd(table_b, c1000_b),
+        "mm bf16 K=1000": lambda i: mm_argmin(torch, table_b, c1000_b,
+                                              c1000_sq_b),
         "index_add_": lambda i: sums_buf.index_add_(0, lab_l, table),
         "index_add_ bf16": lambda i: sums_buf.index_add_(0, lab_l,
                                                          table_b.float()),
@@ -3777,12 +3949,20 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
         "assignment d=821 resident": lambda i: A.assignment(x821, c821),
         "assignment d=821 streamed": lambda i: A.assignment(x821, c821,
                                                             _stream=True)}
+    if not has_mm:
+        print("  (d) torch.mm(out_dtype=torch.float32) is not in this torch: "
+              "no bf16 library call")
+        turned = {what: fn for what, fn in turned.items()
+                  if not what.startswith("mm ")}
     turns = {what: [] for what in turned}
     for order in (list(turned), list(reversed(turned))):
         for what in order:
             turns[what].append(event_ms(torch, turned[what],
                                         20 if "chunk" in what else 5))
     turn_ms = {what: sum(ts) / len(ts) for what, ts in turns.items()}
+    turn_ms.update({what: None for what in ("mm bf16", "mm bf16 chunk",
+                                            "mm bf16 K=1000")
+                    if what not in turn_ms})
     print("  (d) in turns: " + "; ".join(
         f"{what} {ts!r} ms" for what, ts in turns.items()))
     g = bnd[1].shape[-1]
@@ -3796,24 +3976,39 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                    "library_ms": None}
             bound = bf16_bound_ms if tag else \
                 (lambda b, c_, o: distance_bound_ms(b, c_, o)[:3])
+            on_tc = tag and kn in ("fused_lloyd", "assignment")
+
+            def other(rows, kk, chains):
+                """The CUDA-core operations beside the cross terms."""
+                if on_tc:
+                    return tc_other(rows, kk, d, chains)
+                return 3 * rows * kk + (2 * rows * d if chains else 0)
+
             if kn == "fused_lloyd":
                 row["plain_ms"] = event_ms(
                     torch, lambda i: F.fused_lloyd_plain(xx, cc), 3, warmup=1)
                 row["bounds"] = bound(nb * (n * d + k * d)
                                       + 4 * (2 * n + k * d + k + 1),
-                                      2 * n * k * d, 3 * n * k + 2 * n * d)
+                                      2 * n * k * d, other(n, k, True))
             elif kn == "assignment":
                 row["chunk_ms"] = turn_ms[f"{name} chunk"]
                 row["plain_ms"] = event_ms(
                     torch, lambda i: A.assignment_plain(chunk(xx, i), cc), 20)
-                lib = "addmm + argmin" + (" bf16" if tag else "")
+                # bf16: the one call on the bf16 operands, and f32 addmm on
+                # the upcast ones beside it
+                lib = "mm bf16" if tag else "addmm + argmin"
                 row["chunk_library_ms"] = turn_ms[f"{lib} chunk"]
                 row["library_ms"] = turn_ms[lib]
+                if tag:
+                    row["upcast_library_ms"] = turn_ms["addmm + argmin bf16"]
+                    row["chunk_upcast_library_ms"] = \
+                        turn_ms["addmm + argmin bf16 chunk"]
                 row["bounds"] = bound(nb * (n * d + k * d) + 4 * 2 * n,
-                                      2 * n * k * d, 3 * n * k)
+                                      2 * n * k * d, other(n, k, False))
                 row["chunk_bounds"] = bound(nb * (step * d + k * d)
                                             + 4 * 2 * step,
-                                            2 * step * k * d, 3 * step * k)
+                                            2 * step * k * d,
+                                            other(step, k, False))
             elif kn == "update":
                 row["plain_ms"] = event_ms(
                     torch, lambda i: U.update_plain(xx, lab_fin, k), 3,
@@ -3832,19 +4027,22 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                     nb * (n * d + k * d) + 4 * (2 * n + n * g)
                     + 4 * (2 * n + n * g + k * d + k + 1) + 8,
                     2 * n * k * d, 3 * n * k + 2 * n * d)
-            if kn in ("fused_lloyd", "assignment") and not tag:
-                # K = 1000 on all rows: four 256-centroid chunks
+            if kn in ("fused_lloyd", "assignment"):
+                # K = 1000 on all rows: four 256-centroid chunks (f32),
+                # eight of 128 (bf16)
                 extra = 4 * (2 * n + k4 * d + k4 + 1) if kn == "fused_lloyd" \
                     else 4 * 2 * n
-                other = 3 * n * k4 + (2 * n * d if kn == "fused_lloyd" else 0)
                 row["k1000"] = {
-                    "ms": turn_ms[f"{kn} K=1000"],
-                    "library_ms": turn_ms["addmm + argmin K=1000"],
-                    "bounds": bound(4 * (n * d + k4 * d) + extra,
-                                    2 * n * k4 * d, other)}
+                    "ms": turn_ms[f"{name} K=1000"],
+                    "library_ms": turn_ms["mm bf16 K=1000" if tag
+                                          else "addmm + argmin K=1000"],
+                    "bounds": bound(nb * (n * d + k4 * d) + extra,
+                                    2 * n * k4 * d,
+                                    other(n, k4, kn == "fused_lloyd"))}
             row["launches"] = wide_launches[name]
             row["check_launches"] = check_launches[name]
             wide[name] = row
+            lib_name = "mm (f32 out) + argmin" if tag else "addmm + argmin"
             b_ms, b_by, b_fp32 = row["bounds"]
             print(f"  (d) {name} at ({n}, {d}, {k}): {row['ms']!r} ms "
                   f"(subspaces {WIDE_SUBSPACES} x ({n}, {dsub}): "
@@ -3855,12 +4053,16 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                      f", library {row['library_ms']!r} ms")
                   + (f"; a {step}-row predict chunk {row['chunk_ms']!r} ms, "
                      f"bound {row['chunk_bounds'][0]!r} ms (FP32-core "
-                     f"{row['chunk_bounds'][2]!r} ms), addmm + argmin "
+                     f"{row['chunk_bounds'][2]!r} ms), {lib_name} "
                      f"{row['chunk_library_ms']!r} ms"
                      if "chunk_ms" in row else "")
+                  + (f", f32 addmm + argmin on the upcast operands "
+                     f"{row['upcast_library_ms']!r} ms (chunk "
+                     f"{row['chunk_upcast_library_ms']!r} ms)"
+                     if "upcast_library_ms" in row else "")
                   + (f"; at K = {k4} {row['k1000']['ms']!r} ms, bound "
                      f"{row['k1000']['bounds'][0]!r} ms (FP32-core "
-                     f"{row['k1000']['bounds'][2]!r} ms), addmm + argmin "
+                     f"{row['k1000']['bounds'][2]!r} ms), {lib_name} "
                      f"{row['k1000']['library_ms']!r} ms"
                      if "k1000" in row else "")
                   + f"; launches on (b) and (c) {row['launches']}, in (a)"
@@ -3879,7 +4081,10 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
     wide["assignment"]["forced_stream"] = forced
     ptxas = ptxas_report(build.library_path("assignment"), "assign_stream")
     wide["assignment"]["stream_ptxas"] = ptxas
-    print(f"  (d) ptxas, the streamed sweep: {ptxas}")
+    tc_ptxas = ptxas_report(build.library_path("assignment"), "assign_tc")
+    wide["assignment_bf16"]["tc_ptxas"] = tc_ptxas
+    print(f"  (d) ptxas, the streamed sweep: {ptxas}; the tensor-core sweep: "
+          f"{tc_ptxas}")
     print(f"  X is read once per 256-centroid chunk: {-(-k // 256)} time(s) "
           f"a step at K = {k}, {-(-k4 // 256)} at K = {k4}; phase 18 took "
           f"{time.perf_counter() - t_phase!r} s", flush=True)
@@ -3912,6 +4117,7 @@ def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
     from repro_torch.kernels import fused_lloyd as F
     from repro_torch.kernels import update as U
     from repro_torch.kernels.ops import pallas_lloyd_ops
+    from repro_torch.kernels.ref import tie_gap
     n, d = x.shape
     cap = PHASE10_MAX_ITER
     print(f"phase 10: Tables 2 and 3 on the card ({MAIN_N_NAME}, {n} x {d}; "
@@ -3986,7 +4192,7 @@ def phase10(torch, dev, x, zero_counts, read_counts, path_launches,
         # 1e-5 of the exact means
         c1_p, lab_p, e_p = lloyd_iteration(x, c0, k, ops=pallas_lloyd_ops())
         c1_d, lab_d, e_d = lloyd_iteration(x, c0, k)
-        agree, gap = tie_gap(torch, lab_p[None], lab_d[None], x, c0[None])
+        agree, gap = tie_gap(lab_p[None], lab_d[None], x, c0[None])
         sums = torch.zeros((k, d), dtype=torch.float64, device=dev)
         sums.index_add_(0, lab_p.long(), x.double())
         counts = torch.bincount(lab_p.long(), minlength=k).double()
@@ -4151,11 +4357,13 @@ def run():
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_lloyd as F
     from repro_torch.kernels import update as U
+    from repro_torch.kernels.ref import tie_gap
     from repro_torch.kernels.tiles import pad_rows
 
     # each kernel's (module, launch count, plain-version count); the
     # "_bf16" entries count the launches of each kernel on a bf16 X (its
-    # bf16 variant), which the kernel's own count includes
+    # bf16 variant), which the kernel's own count includes, and the "_tc"
+    # ones those of them on the tensor-core sweep (bf16 X and C)
     counters = {"fused_lloyd": (F, "launches", "plain_calls"),
                 "assignment": (A, "launches", "plain_calls"),
                 "update": (U, "launches", "plain_calls"),
@@ -4163,7 +4371,9 @@ def run():
                 "fused_lloyd_bf16": (F, "bf16_launches", None),
                 "assignment_bf16": (A, "bf16_launches", None),
                 "update_bf16": (U, "bf16_launches", None),
-                "fused_bounds_bf16": (F, "bounds_bf16_launches", None)}
+                "fused_bounds_bf16": (F, "bounds_bf16_launches", None),
+                "fused_lloyd_tc": (F, "tc_launches", None),
+                "assignment_tc": (A, "tc_launches", None)}
     path_launches = {}
 
     def zero_counts():
@@ -4643,7 +4853,7 @@ def run():
     def checked_bounds(x_, cs, k, carries, w=None):
         res, carries = bounded.batched_step(x_, cs, k, carries, w=w)
         ref_res, _ = fused.batched_step(x_, cs, k, (), w=w)
-        agree, gap = tie_gap(torch, res.labels, ref_res.labels, x_, cs)
+        agree, gap = tie_gap(res.labels, ref_res.labels, x_, cs)
         worst_b["steps"] += 1
         worst_b["agree"] = min(worst_b["agree"], agree)
         worst_b["gap"] = max(worst_b["gap"], gap)
@@ -4823,11 +5033,11 @@ def run():
                                     zero_counts, read_counts, path_launches)
     dist_launches = phase16(torch, x, x_np, c0_main, model, labels, fit_s,
                             mb11, path_launches)
-    x_bf, c_bf, errs17 = phase17(torch, x, c0_main, model, fit_s, mb11,
-                                    zero_counts, read_counts, path_launches,
-                                    tile_rows)
+    x_bf, c_bf, errs17, tc = phase17(torch, x, c0_main, model, fit_s, mb11,
+                                     zero_counts, read_counts, path_launches,
+                                     tile_rows)
     wide18, errs18 = phase18(torch, dev, x, zero_counts, read_counts,
-                             path_launches, tile_rows)
+                             path_launches, tile_rows, tc)
     main_abs_err = max(main_abs_err, errs15["fused_lloyd"])
     assign_abs_err = max(assign_abs_err, errs15["assignment"])
     update_abs_err = max(update_abs_err, errs15["update"])
@@ -4864,12 +5074,39 @@ def run():
     bnds_b = squared_bounds(bounds.init_carry(x, cb_p, k, gs_main),
                             cb_p.float(), k, gs_main)
     skip_b = float(F.fused_lloyd(x_bf, cb_p, bounds=bnds_b, gs=gs_main)[6][0])
+    n_chunks_b = n // PREDICT_CHUNK
+
+    def chunk_b(i):
+        return x_bf[(i % n_chunks_b) * PREDICT_CHUNK:
+                    (i % n_chunks_b + 1) * PREDICT_CHUNK]
+
+    cbf = c_bf.float()
+    c_sq_b = torch.sum(cbf * cbf, dim=-1)
     turned.update({
         "fused_lloyd bf16": lambda i: F.fused_lloyd(x_bf, c_bf),
         "assignment bf16, all rows": lambda i: A.assignment(x_bf, cb_p),
+        "assignment bf16, chunk": lambda i: A.assignment(chunk_b(i), c_bf),
         "update bf16": lambda i: U.update(x_bf, lab_p, k),
         "fused_bounds bf16, default groups, skip 0": lambda i: F.fused_lloyd(
             x_bf, cb_p, bounds=bnds_b, gs=gs_main)})
+    # the library on the same bf16 operands (torch.mm with f32 output, the
+    # epilogue, argmin), where this torch has the overload, and f32 addmm
+    # on the upcast operands, in the same turns
+    has_mm = mm_argmin(torch, x_bf[:128], c_bf, c_sq_b) is not None
+    if has_mm:
+        turned.update({
+            "mm bf16, all rows": lambda i: mm_argmin(torch, x_bf, c_bf,
+                                                     c_sq_b),
+            "mm bf16, chunk": lambda i: mm_argmin(torch, chunk_b(i), c_bf,
+                                                  c_sq_b)})
+    else:
+        print("  torch.mm(out_dtype=torch.float32) is not in this torch: no "
+              "bf16 library call")
+    turned.update({
+        "addmm upcast bf16, all rows": lambda i: torch.argmin(torch.addmm(
+            c_sq_b, x_bf.float(), cbf.T, alpha=-2.0), dim=1),
+        "addmm upcast bf16, chunk": lambda i: torch.argmin(torch.addmm(
+            c_sq_b, chunk_b(i).float(), cbf.T, alpha=-2.0), dim=1)})
     for what, xb, cb, gs, bnds, _ in bounds_cases:
         turned[f"fused_bounds, {what}"] = (
             lambda i, xb=xb, cb=cb, gs=gs, bnds=bnds: F.fused_lloyd(
@@ -5034,35 +5271,27 @@ def run():
     # the bf16 variants: times in turns above; plain versions (which
     # upcast), library calls on the upcast operands, bounds at 2-byte X
     bf = {}
-    n_chunks_b = n // PREDICT_CHUNK
-
-    def chunk_b(i):
-        return x_bf[(i % n_chunks_b) * PREDICT_CHUNK:
-                  (i % n_chunks_b + 1) * PREDICT_CHUNK]
-
-    cbf = c_bf.float()
-    c_sq_b = torch.sum(cbf * cbf, dim=-1)
     bf["fused_lloyd"] = dict(
         ms=turn_ms["fused_lloyd bf16"],
         plain_ms=event_ms(torch, lambda i: F.fused_lloyd_plain(x_bf, c_bf), 3,
                           warmup=1),
         library_ms=None, bounds=bf16_bound_ms(
             2 * (n * d + k * d) + 4 * (2 * n + k * d + k + 1),
-            2 * n * k * d, 3 * n * k + 2 * n * d))
+            2 * n * k * d, tc_other(n, k, d, chains=True)))
     bf["assignment"] = dict(
-        ms=event_ms(torch, lambda i: A.assignment(chunk_b(i), c_bf), 50),
+        ms=turn_ms["assignment bf16, chunk"],
         plain_ms=event_ms(torch, lambda i: A.assignment_plain(chunk_b(i),
                                                               c_bf), 50),
-        library_ms=event_ms(torch, lambda i: torch.argmin(torch.addmm(
-            c_sq_b, chunk_b(i).float(), cbf.T, alpha=-2.0), dim=1), 50),
+        library_ms=turn_ms.get("mm bf16, chunk"),
+        upcast_library_ms=turn_ms["addmm upcast bf16, chunk"],
         bounds=bf16_bound_ms(2 * (step * d + k * d) + 4 * 2 * step,
-                             2 * step * k * d, 3 * step * k),
+                             2 * step * k * d, tc_other(step, k, d)),
         all_rows=dict(
             ms=turn_ms["assignment bf16, all rows"],
-            library_ms=event_ms(torch, lambda i: torch.argmin(torch.addmm(
-                c_sq_b, x_bf.float(), cbf.T, alpha=-2.0), dim=1), 5),
+            library_ms=turn_ms.get("mm bf16, all rows"),
+            upcast_library_ms=turn_ms["addmm upcast bf16, all rows"],
             bounds=bf16_bound_ms(2 * (n * d + k * d) + 4 * 2 * n,
-                                 2 * n * k * d, 3 * n * k)))
+                                 2 * n * k * d, tc_other(n, k, d))))
     bf["update"] = dict(
         ms=turn_ms["update bf16"],
         plain_ms=event_ms(torch, lambda i: U.update_plain(x_bf, lab_p, k), 3,
@@ -5089,14 +5318,19 @@ def run():
               f"{row['ms'] / f32_ms!r} of it), bound {b_ms!r} ms ({b_by}; "
               f"FP32-core bound {b_fp32!r} ms), plain {row['plain_ms']!r} ms"
               + ("" if row["library_ms"] is None else
-                 f", library on the upcast operands {row['library_ms']!r} "
-                 f"ms"))
+                 f", library {row['library_ms']!r} ms")
+              + ("" if "upcast_library_ms" not in row else
+                 f" (torch.mm with f32 output on the bf16 operands, the "
+                 f"epilogue and argmin), f32 addmm + argmin on the upcast "
+                 f"operands {row['upcast_library_ms']!r} ms")
+              + (", library on the upcast X" if kn == "update" else ""))
     row = bf["assignment"]["all_rows"]
     print(f"  assignment bf16 at all rows: {row['ms']!r} ms (f32 "
           f"{assign_full_ms!r} ms), bound {row['bounds'][0]!r} ms "
           f"({row['bounds'][1]}; FP32-core bound {row['bounds'][2]!r} ms), "
-          f"f32 addmm + argmin on the upcast operands {row['library_ms']!r} "
-          f"ms")
+          f"torch.mm with f32 output + argmin {row['library_ms']!r} ms, "
+          f"f32 addmm + argmin on the upcast operands "
+          f"{row['upcast_library_ms']!r} ms")
     kernel_s = fused_launches * fused_ms / 1e3
     print(f"  fit of phase 5 split: seeding {seed_s!r} s, fused launches x "
           f"kernel time {kernel_s!r} s, the rest (host loop, Anderson "
@@ -5175,12 +5409,21 @@ def run():
                  "plain_ms": row["plain_ms"], "bound_ms": b_ms,
                  "bound_by": b_by, "fp32_bound_ms": b_fp32,
                  "library_ms": row["library_ms"]}
+        if kn in ("fused_lloyd", "assignment"):
+            # the sweep of both on bf16 X and C
+            entry["tensor_cores"] = {
+                "source": "src/repro_torch/kernels/csrc/sweep_tc.cuh",
+                "launches": total[f"{kn}_tc"],
+                "cross_error": tc["cross_error"], "hgmma": tc["hgmma"]}
+        if "upcast_library_ms" in row:
+            entry["upcast_library_ms"] = row["upcast_library_ms"]
         if "all_rows" in row:
             a_ms, a_by, a_fp32 = row["all_rows"]["bounds"]
-            entry["all_rows"] = {"ms": row["all_rows"]["ms"],
-                                 "bound_ms": a_ms, "bound_by": a_by,
-                                 "fp32_bound_ms": a_fp32,
-                                 "library_ms": row["all_rows"]["library_ms"]}
+            entry["all_rows"] = {
+                "ms": row["all_rows"]["ms"], "bound_ms": a_ms,
+                "bound_by": a_by, "fp32_bound_ms": a_fp32,
+                "library_ms": row["all_rows"]["library_ms"],
+                "upcast_library_ms": row["all_rows"]["upcast_library_ms"]}
         kernels.append(entry)
     # phase 18's wide rows: every entry's launches on the wide main paths
     # and its time at the Llama table's shape, with the rest of the row
@@ -5197,18 +5440,24 @@ def run():
             "subspace_ms": row["subspace_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by, "fp32_bound_ms": b_fp32,
             "library_ms": row["library_ms"]}
+        for key in ("upcast_library_ms",):
+            if key in row:
+                entry["wide"][key] = row[key]
         if "chunk_ms" in row:
             entry["wide"]["chunk"] = {
                 "ms": row["chunk_ms"], "bound_ms": row["chunk_bounds"][0],
                 "fp32_bound_ms": row["chunk_bounds"][2],
                 "library_ms": row["chunk_library_ms"]}
+            if "chunk_upcast_library_ms" in row:
+                entry["wide"]["chunk"]["upcast_library_ms"] = \
+                    row["chunk_upcast_library_ms"]
         if "k1000" in row:
             k_ms, k_by, k_fp32 = row["k1000"]["bounds"]
             entry["wide"]["k1000"] = {
                 "ms": row["k1000"]["ms"], "bound_ms": k_ms, "bound_by": k_by,
                 "fp32_bound_ms": k_fp32,
                 "library_ms": row["k1000"]["library_ms"]}
-        for key in ("forced_stream", "stream_ptxas"):
+        for key in ("forced_stream", "stream_ptxas", "tc_ptxas"):
             if key in row:
                 entry["wide"][key] = row[key]
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,9 @@ Wide rows (Meta-Llama-3-8B's embedding table, 128,256 x 4096 f32, drawn on
 the card as chip_smoke.py's phase 18 draws it; centroids drawn from its
 rows): the streamed launches (``force_stream``) of both checkouts at
 K = 256 and K = 1000, on all rows and on a 16,384-row predict chunk, f32
-and bf16, must give the same labels and min distances bit for bit; then
+and bf16 X (against f32 centroids: bf16 X and C take the tensor-core
+sweep, which scripts/tc_sweep_probe.py holds), must give the same labels
+and min distances bit for bit; then
 each is timed with CUDA events in turns (other, this, this, other), with
 ``addmm`` + ``argmin`` on the same operands (upcast for bf16) in the same
 turns.
@@ -41,7 +43,6 @@ from __future__ import annotations
 import argparse
 import collections
 import ctypes
-import re
 import subprocess
 import sys
 from pathlib import Path
@@ -53,36 +54,6 @@ sys.path.insert(0, str(ROOT))
 CHUNK = 16384
 
 
-def sass_functions(cuobjdump: str, lib_path: Path):
-    """{function name: its SASS instructions (no addresses, no
-    encodings)} of every kernel in the library."""
-    out = subprocess.run([cuobjdump, "-sass", str(lib_path)],
-                         capture_output=True, text=True, check=True).stdout
-    funs, cur = {}, None
-    for line in out.splitlines():
-        line = line.strip()
-        found = re.match(r"Function : (\S+)", line)
-        if found:
-            cur = funs.setdefault(found.group(1), [])
-        elif cur is not None and line.startswith("/*") and "*/" in line:
-            body = line.split("*/", 1)[1].strip()
-            if body and not body.startswith("/*"):
-                cur.append(body.split(";")[0].strip())
-    return funs
-
-
-def opcode_counts(ins):
-    """Opcodes (with their width suffix) of a function's instructions."""
-    counts = collections.Counter()
-    for i in ins:
-        words = i.split()
-        if words and words[0].startswith("@"):
-            words = words[1:]
-        if words:
-            counts[words[0]] += 1
-    return counts
-
-
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("other", type=Path)
@@ -92,6 +63,7 @@ def main() -> int:
         print("wide_sweep_probe: no CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
+    from chip_smoke import opcode_counts, sass_functions
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import build
 
@@ -207,7 +179,7 @@ def main() -> int:
         c = table[torch.randperm(table.shape[0], generator=gen,
                                  device=dev)[:k]].contiguous()
         for dt in (torch.float32, torch.bfloat16):
-            xk, ck = table.to(dt), c.to(dt)
+            xk, ck = table.to(dt), c
             for rows, xx in (("all rows", xk), ("chunk", xk[:CHUNK])):
                 ref = [t.clone() for t in launch("other", xx, ck, True)]
                 got = launch("this", xx, ck, True)
@@ -223,7 +195,7 @@ def main() -> int:
                                  device=dev)[:k]].contiguous()
         for dt in ((torch.float32, torch.bfloat16) if k == 256
                    else (torch.float32,)):
-            xk, ck = table.to(dt), c.to(dt)
+            xk, ck = table.to(dt), c
             tag = "bf16" if dt == torch.bfloat16 else "f32"
             turns(f"K={k} {tag} all rows", xk, ck, True, 5 if k == 256 else 3)
             turns(f"K={k} {tag} chunk", xk[:CHUNK], ck, True, 50)

@@ -9,9 +9,11 @@ slot.  ``assign`` (predict) is the assignment kernel
 (``kernels/update.py``).  On CPU tensors they run their plain versions,
 which is how the tests run this backend.  Under a ``Precision`` policy
 every slot casts X and C to the compute dtype and launches the kernel on
-them (bf16 X and C read as they are, everything added in f32); ``assign``
-and ``stats_fn`` do not cast, as in the reference
-(``repro/core/backends/pallas.py:76-84``, ``:161-198``).
+them: bf16 X and C read as they are, the cross terms as bf16 products on
+the tensor cores summed in f32 (the reference's MXU ``dot_general``), the
+norms, distances and stats in f32; ``assign`` and ``stats_fn`` do not
+cast, as in the reference (``repro/core/backends/pallas.py:76-84``,
+``:161-198``).
 """
 
 from __future__ import annotations

@@ -8,28 +8,29 @@
 // centroid sets or (R, N, d) one per set; C (R, K, d); weights none, (N,)
 // or (R, N).  X and C are each float32 or bfloat16 (the TPU kernel's bf16
 // compute policy: X and C in bf16, |x|^2, |c|^2, the cross terms and the
-// stats accumulated in f32); weights and every output are float32.  A bf16
-// operand is converted to f32 where it is loaded, so a bf16 step reads half
-// the bytes of X and equals the f32 step on the upcast operands bit for
-// bit.
+// stats accumulated in f32); weights and every output are float32.
 //
-// What bounds it on this card: the cross terms, 2*N*K*d FP32 operations
-// without tensor cores (67 TFLOP/s), against N*d*4 bytes of X read once
-// (3.35 TB/s); at K = 1000, d = 69 the operations bound is ~150x the bytes
-// bound.  The design is two passes over X, not the TPU kernel's one:
+// What bounds it on this card: the cross terms, 2*N*K*d operations: on
+// bf16 X and C the tensor cores' bf16 products (989 TFLOP/s, 0.34 ms at
+// USCensus1990, K = 1000) beside the epilogue on the CUDA cores; on f32 or
+// mixed operands the FP32 cores (67 TFLOP/s, 5.18 ms there), against N*d
+// bytes of X read once (3.35 TB/s).  The design is two passes over X, not
+// the TPU kernel's one:
 //   1. the assignment kernel's own launch (sweep_wide.cuh's launch_assign)
 //      writes each row's label and distance, so the step's labels and
-//      distances are the assignment's by construction: up to 821 features
-//      on an H100 sweep_fp32.cuh's 8 x 8 register blocks with the X tile
-//      resident in shared memory and C streamed by cp.async; past that
-//      sweep_wide.cuh's streamed kernel (128-row x 256-slot blocks, 8 x 16
-//      cross terms a lane, 32-feature stages of C and X copied by TMA into
-//      a three-slot ring, X by plain loads where its rows are not 16-byte
-//      aligned), so any d runs.  At
-//      128,256 x 4096, K = 256 the sweep's bound is 4.02 ms of FP32
-//      operations (PERF.md has its times);
+//      distances are the assignment's by construction: on bf16 X and C
+//      the tensor-core sweep of sweep_tc.cuh at any d (wgmma on 128-row
+//      tiles, C packed in bf16 and brought by TMA); otherwise, up to 821
+//      features on an H100, sweep_fp32.cuh's 8 x 8 register blocks with
+//      the X tile resident in shared memory and C streamed by cp.async,
+//      and past that sweep_wide.cuh's streamed kernel (128-row x 256-slot
+//      blocks, 8 x 16 cross terms a lane, 32-feature stages of C and X
+//      copied by TMA into a three-slot ring, X by plain loads where its
+//      rows are not 16-byte aligned), so any d runs (PERF.md has their
+//      times);
 //   2. the update kernel's segment sum (segment_sum.cuh) adds the stats
-//      of those labels, reading X a second time;
+//      of those labels, reading X a second time (a bf16 X converted to f32
+//      where it is loaded, so equal to the sum over the upcast X);
 //   3. the energy sum(w * min distance) is summed over the rows in two
 //      stages (stats.cuh): in the sweep it cost registers the sweep spilled.
 // A one-pass kernel must keep each block's (K, d+1) partial stats in
@@ -46,19 +47,21 @@
 
 using namespace repro;
 
-// Floats of scratch one launch needs: C transposed, |c|^2, the energy's
-// partials.
+// Floats of scratch one launch needs: the sweep's (C transposed or packed,
+// |c|^2), then the energy's partials.
 extern "C" long long fused_lloyd_scratch_floats(int r, int k, int d) {
-  return f8::scratch_floats(r, k, d) + (long long)r * kEnergyBlocks;
+  return f8::assign_scratch_floats(r, k, d) + (long long)r * kEnergyBlocks;
 }
 
-// Launches one step on `stream`: |c|^2 and C's transpose, the sweep, the
-// segment sum with the layout `lay` (tiles.update_layout: groups, width,
-// warps, ranges, range_k, slabs, tiles_per_slab, smem) and the energy.
+// Launches one step on `stream`: |c|^2 and C's transpose or packing, the
+// sweep, the segment sum with the layout `lay` (tiles.update_layout:
+// groups, width, warps, ranges, range_k, slabs, tiles_per_slab, smem) and
+// the energy.
 // Pointers are device pointers; x_type / c_type are X's and C's type codes
 // (nearest.cuh: 0 float32, 1 bfloat16); w may be null (every weight 1).
 // x_rstride / w_rstride are the element offsets between problems (0 when
-// shared).  force_stream != 0 streams X through the sweep at any d.
+// shared).  force_stream != 0 streams X through the FP32 sweep at any d
+// (refused where X and C are both bf16: launch_assign).
 // scratch (fused_lloyd_scratch_floats(r, k, d) floats, 16-byte aligned)
 // and part (R * slabs * K * (d+1)) are scratch.  Returns the first CUDA
 // error (0 on success); nothing synchronises.
@@ -73,11 +76,12 @@ extern "C" int fused_lloyd_launch(
   const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
                         lay[4], lay[5], lay[6], lay[7]};
   return (int)with_operand_types(x, x_type, c, c_type, [&](auto xt, auto ct) {
-    float* csq;
+    float* const part_e =
+        static_cast<float*>(scratch) + f8::assign_scratch_floats(r, k, d);
     cudaError_t err = f8::launch_assign(
         s, xt, x_rstride, ct, r, n, k, d, force_stream != 0,
         static_cast<float*>(scratch),
-        static_cast<int*>(labels), static_cast<float*>(mind), &csq);
+        static_cast<int*>(labels), static_cast<float*>(mind));
     if (err != cudaSuccess) return err;
     err = launch_segment_sum(s, xt, x_rstride,
                              static_cast<const int*>(labels), wf, w_rstride,
@@ -86,12 +90,12 @@ extern "C" int fused_lloyd_launch(
                              static_cast<float*>(counts));
     if (err != cudaSuccess) return err;
     return launch_energy(s, r, static_cast<const float*>(mind), wf,
-                         w_rstride, n, csq + (int64_t)r * k, nullptr, 0,
+                         w_rstride, n, part_e, nullptr, 0,
                          static_cast<float*>(energy), nullptr);
   });
 }
 
-// Widest d of the sweep's resident path; wider rows stream.
+// Widest d of the FP32 sweep's resident path; wider rows stream.
 extern "C" int fused_lloyd_max_features(int device) {
   return f8::max_features(device);
 }

@@ -32,10 +32,11 @@ __device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
   return a < b || (a == b && ia < ib);
 }
 
-// An operand element as f32: X and C come in float32 or bfloat16, and every
-// kernel computes in f32 on the exact upcast of a bf16 value (a product of
-// two bf16 values is exact in f32), so a bf16 launch equals the f32 launch
-// on the upcast operands bit for bit.
+// An operand element as f32: X and C come in float32 or bfloat16, and the
+// FP32 sweeps and the segment sum compute in f32 on the exact upcast of a
+// bf16 value, so such a launch equals the f32 launch on the upcast
+// operands bit for bit.  (Where X and C are both bf16, the assignment and
+// the fused step take sweep_tc.cuh's tensor-core sweep instead.)
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);

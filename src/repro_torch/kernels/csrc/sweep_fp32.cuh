@@ -23,15 +23,17 @@
 // the lowest index wins a tie, and the merge across lanes gives one answer
 // in any order.
 //
-// Operand types.  X and C are each float32 or bfloat16 in device memory
-// (the reference's bf16 compute policy streams both in bf16).  A bf16 value
-// is converted to f32 where it is stored: X into the transposed tile
+// Operand types.  X and C are each float32 or bfloat16 in device memory.
+// Where both are bf16 the assignment and the fused step run sweep_tc.cuh's
+// tensor-core sweep instead; the bounded step (any types) and the other
+// two on mixed types (a bf16 X against f32 C, or the reverse, computed in
+// f32 as JAX promotes them) run these FMA chains.  A bf16 value is
+// converted to f32 where it is stored: X into the transposed tile
 // (load_rows, or store_slab where X streams), C into the transposed
 // scratch (transpose_c) and |c|^2 (row_sqnorms).  The product of two bf16
-// values is exact in f32, so these FMA chains compute what the TPU kernel's
-// bf16 dot_general with f32 accumulation computes, and a bf16 launch equals
-// the f32 launch on the upcast operands bit for bit.  The X tile and slabs
-// hold f32, so a bf16 X takes the same path as an f32 X of its width.
+// values is exact in f32, so a launch with a bf16 operand equals the f32
+// launch on the upcast operands bit for bit.  The X tile and slabs hold
+// f32, so a bf16 X takes the same path as an f32 X of its width.
 //
 // Layout.  256 threads; warp w owns rows 4w..4w+3 and 32+4w..32+4w+3 of the
 // tile, and lane l slots 4l..4l+3 and 128+4l..128+4l+3 of each 256-slot

@@ -1,9 +1,10 @@
 // The streamed nearest-centroid sweep for rows wider than the resident X
 // tile (past 821 features on an H100, or where a launcher forces it): the
 // assignment kernel's launch and the fused step's sweep past the resident
-// path.  launch_assign (the one launcher of both) picks it or
-// sweep_fp32.cuh's resident assign_tiles.  The bounded sweep streams
-// through sweep_fp32.cuh's own kStream path.
+// path, on float32 or mixed operands.  launch_assign (the one launcher of
+// both) picks it, sweep_fp32.cuh's resident assign_tiles, or, where X and
+// C are both bfloat16, sweep_tc.cuh's tensor-core sweep.  The bounded
+// sweep streams through sweep_fp32.cuh's own kStream path.
 //
 // What bounds it: 2*N*K*d FP32 operations on the CUDA cores (67 TFLOP/s):
 // 4.02 ms at 128,256 x 4096, K = 256, against 2.1 GB of X read once (0.63
@@ -66,17 +67,17 @@
 // increasing order from 0, |x|^2 one FMA chain a row in column order, and
 // the distance max(|x|^2 - 2 x.c + |c|^2, 0) as the resident sweep writes
 // it, so labels and distances equal the resident launch's bit for bit
-// wherever both fit, and a bf16 launch equals the f32 launch on the
-// upcast operands, whichever way X arrives.  No split of the feature axis
-// and no atomics: a relaunch is bitwise equal.
+// wherever both fit, and a bf16 X against f32 C equals the f32 launch on
+// the upcast X, whichever way X arrives.  No split of the feature axis and
+// no atomics: a relaunch is bitwise equal.
 #pragma once
 
-#include <cudaTypedefs.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "sweep_fp32.cuh"
+#include "sweep_tc.cuh"
 
 namespace repro {
 namespace wide {
@@ -158,42 +159,6 @@ __device__ __forceinline__ void store_x(float* slot,
 #pragma unroll
   for (int q = 0; q < kSlabLoads; ++q)
     slot[slab_feature(q) * kXLd + slab_row(q)] = to_f32(v[q]);
-}
-
-// The ring's mbarriers (one arrival: the thread that starts a stage's
-// copies, and the copies' bytes) and its TMA copies.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-               :: "r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n" : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-  return done != 0;
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  int spins = 0;
-  while (!mbar_try(bar, parity))
-    if (++spins > (1 << 24)) __trap();
-}
-
-// A box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first.
-__device__ __forceinline__ void tma3(void* dst, const CUtensorMap* map,
-                                     int c0, int c1, int c2, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-         "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar)) : "memory");
 }
 
 // A raw f32 slab (row-major, 128-byte rows, TMA's 128-byte swizzle: the
@@ -490,34 +455,6 @@ assign_stream(const __grid_constant__ CUtensorMap cmap,
   }
 }
 
-// A 3-D tiled tensor map (dims and box innermost first, strides in bytes
-// of the outer two), zero past its edges.  cuTensorMapEncodeTiled lives in
-// libcuda; the runtime hands out its address, so nothing links libcuda.
-__host__ inline cudaError_t encode3(CUtensorMap* map, CUtensorMapDataType type,
-                                    const void* base, const uint64_t* dims,
-                                    const uint64_t* strides,
-                                    const uint32_t* box,
-                                    CUtensorMapSwizzle swizzle) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-    void* fn = nullptr;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
-                                         12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  const uint32_t unit[3] = {1, 1, 1};
-  return encode(map, type, 3, const_cast<void*>(base), dims, strides, box,
-                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
-             ? cudaSuccess
-             : cudaErrorInvalidValue;
-}
-
 // The streamed sweep on stream s over ct and csq (prepare_c's): X by TMA
 // where its rows start 16-byte aligned, else by plain loads.
 template <typename TX>
@@ -570,35 +507,49 @@ __host__ inline cudaError_t launch(cudaStream_t s, const TX* x,
 
 namespace f8 {
 
-// The assignment on stream s: |c|^2 and C's transpose into scratch
-// (scratch_floats(r, k, d) floats, 16-byte aligned), then the sweep:
-// assign_tiles with the X tile resident, or wide::assign_stream, as
-// plan_sweep decides (force_stream: streamed at any d).  The assignment
-// kernel's launch and the fused step's sweep, so the two give the same
-// labels and distances by construction.  *csq (may be null) receives
-// |c|^2's address in scratch.  X and C are each float32 or bfloat16; the
-// sweep runs on their f32 values.
+// Floats of scratch one assignment launch needs: the FP32 sweeps' (C
+// transposed, |c|^2) or the tensor-core sweep's (C packed in bf16, |c|^2),
+// whichever is more.
+__host__ inline long long assign_scratch_floats(int r, int k, int d) {
+  const long long a = scratch_floats(r, k, d), b = tc::scratch_floats(r, k, d);
+  return a > b ? a : b;
+}
+
+// The assignment on stream s into labels and mind, with scratch
+// (assign_scratch_floats(r, k, d) floats, 16-byte aligned).  The
+// assignment kernel's launch and the fused step's sweep, so the two give
+// the same labels and distances by construction.  X and C both bfloat16:
+// the tensor-core sweep (sweep_tc.cuh) at any d; it has no streamed FP32
+// path, so force_stream is refused.  Otherwise (float32, or one operand of
+// each type, computed in f32 as JAX promotes them): |c|^2 and C's
+// transpose into scratch, then assign_tiles with the X tile resident, or
+// wide::assign_stream, as plan_sweep decides (force_stream: streamed at
+// any d), on the operands' f32 values.
 template <typename TX, typename TC>
 __host__ inline cudaError_t launch_assign(cudaStream_t s, const TX* x,
                                           int64_t x_rstride, const TC* c,
                                           int r, int n, int k, int d,
                                           bool force_stream, float* scratch,
-                                          int* labels, float* mind,
-                                          float** csq_out = nullptr) {
-  SweepPlan plan;
-  cudaError_t err = plan_sweep(d, 0, false, force_stream, &plan);
-  if (err != cudaSuccess) return err;
-  float *ct, *csq;
-  err = prepare_c(s, c, r, k, d, scratch, &ct, &csq);
-  if (err != cudaSuccess) return err;
-  if (csq_out) *csq_out = csq;
-  if (plan.stream)
-    return wide::launch(s, x, x_rstride, ct, csq, r, n, k, d, labels, mind);
-  err = set_smem(assign_tiles<TX>, plan.smem);
-  if (err != cudaSuccess) return err;
-  assign_tiles<TX><<<dim3(cdiv(n, kRows), r), kThreads, plan.smem, s>>>(
-      x, x_rstride, ct, csq, n, k, d, plan.dc, labels, mind);
-  return cudaGetLastError();
+                                          int* labels, float* mind) {
+  if constexpr (std::is_same<TX, __nv_bfloat16>::value &&
+                std::is_same<TC, __nv_bfloat16>::value) {
+    if (force_stream) return cudaErrorInvalidValue;
+    return tc::launch(s, x, x_rstride, c, r, n, k, d, scratch, labels, mind);
+  } else {
+    SweepPlan plan;
+    cudaError_t err = plan_sweep(d, 0, false, force_stream, &plan);
+    if (err != cudaSuccess) return err;
+    float *ct, *csq;
+    err = prepare_c(s, c, r, k, d, scratch, &ct, &csq);
+    if (err != cudaSuccess) return err;
+    if (plan.stream)
+      return wide::launch(s, x, x_rstride, ct, csq, r, n, k, d, labels, mind);
+    err = set_smem(assign_tiles<TX>, plan.smem);
+    if (err != cudaSuccess) return err;
+    assign_tiles<TX><<<dim3(cdiv(n, kRows), r), kThreads, plan.smem, s>>>(
+        x, x_rstride, ct, csq, n, k, d, plan.dc, labels, mind);
+    return cudaGetLastError();
+  }
 }
 
 }  // namespace f8

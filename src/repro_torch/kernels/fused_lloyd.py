@@ -1,6 +1,7 @@
 """One Lloyd step in one call: the CUDA kernels ``csrc/fused_lloyd.cu``
 and ``csrc/fused_bounds.cu`` and their plain PyTorch versions.  On the
-card a step is the 8 x 8 sweep (labels and distances), then the update
+card a step is the assignment's sweep (labels and distances: the
+tensor-core sweep on bf16 X and C, else the FP32 sweep), then the update
 kernel's segment sum over those labels and the energy; the TPU kernel's
 single pass over X does not pay on the H100 (csrc/fused_lloyd.cu says
 why).
@@ -14,8 +15,9 @@ shared-memory X tile stream through the sweep in feature slabs.
 
 ``launches`` / ``bounds_launches`` count the launches of the two kernels
 (``bf16_launches`` / ``bounds_bf16_launches`` those of them on a bf16 X,
-the kernels' bf16 variants; ``stream_launches`` /
-``bounds_stream_launches`` those that streamed X) and ``plain_calls`` /
+the kernels' bf16 variants; ``tc_launches`` the fused steps on the tensor
+cores; ``stream_launches`` / ``bounds_stream_launches`` those that
+streamed X through the FP32 sweep) and ``plain_calls`` /
 ``bounds_plain_calls`` the calls of their plain versions, so a run can
 show which of them it went through.
 """
@@ -31,6 +33,7 @@ from repro_torch.kernels import build, ref, tiles, update
 
 launches = 0
 bf16_launches = 0
+tc_launches = 0
 stream_launches = 0
 plain_calls = 0
 bounds_launches = 0
@@ -96,12 +99,15 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
 
     x (N, d) or (R, N, d); c (K, d) or (R, K, d); w None, (N,) or (R, N)
     row weights that scale sums/counts/energy (labels and min_sqdist stay
-    unweighted).  x and c are each float32 or bfloat16: the kernel reads
-    them as they are and computes in f32, so a bf16 call equals the f32
-    call on the upcast operands bit for bit.  Any d.  Returns (labels
-    int32, min_sqdist f32, sums (K, d) f32, counts (K,) f32, energy ()
-    f32), each with a leading R axis when c is (R, K, d).  Repeated calls
-    on the same inputs are bitwise equal.
+    unweighted).  x and c are each float32 or bfloat16, read as they are:
+    bf16 x and c take the tensor-core sweep (bf16 products summed in f32,
+    the reference's bf16 policy), other types compute in f32 on the
+    upcast values, so a mixed call equals the f32 call on the upcast
+    operands bit for bit; the stats are summed in f32 either way.  Any d.
+    Returns (labels int32, min_sqdist f32, sums (K, d) f32, counts (K,)
+    f32, energy () f32), each with a leading R axis when c is (R, K, d).
+    Repeated calls on the same inputs are bitwise equal, and the labels
+    and min_sqdist are ``assignment``'s on the same operands.
 
     ``bounds=(lab0, lb_sq, ub_sq)`` with a group size ``gs`` switches to
     the tile-skipping kernel: lab0 (N,) int32 the standing labels, lb_sq
@@ -112,14 +118,15 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
     the share of (row tile, group) cells skipped (see
     ``fused_bounds_plain``).
 
-    ``_stream`` streams X through the sweep on the card at any d, which the
-    card tests compare with the resident launch bit for bit.
+    ``_stream`` streams X through the FP32 sweep on the card at any d,
+    which the card tests compare with the resident launch bit for bit
+    (ValueError on bf16 x and c without ``bounds``).
     """
     if bounds is not None:
         return _fused_bounds(x, c, w, bounds, gs, _stream)
     if gs is not None:
         raise ValueError("gs= goes with bounds=")
-    global launches, bf16_launches, stream_launches
+    global launches, bf16_launches, tc_launches, stream_launches
     batched, r, n, k, d = tiles.problem_shape(x, c, w)
     if x.device.type == "cpu" and c.device.type == "cpu" \
             and (w is None or w.device.type == "cpu"):
@@ -128,8 +135,9 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
         raise ValueError(f"R={r} exceeds {tiles.MAX_PROBLEMS} problems")
     lib = _bind(build.load("fused_lloyd"))
     tiles.check_cuda_operands(x, c, w)
-    streamed = tiles.streams_x(lib.fused_lloyd_max_features, x.device, d,
-                               _stream)
+    route = tiles.sweep_route(
+        x.dtype, c.dtype, d, lib.fused_lloyd_max_features(x.device.index),
+        _stream)
     w = tiles.kernel_weights(w)
     lay, lay_arr = _stats_layout(lib, n, r, k, d)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -156,7 +164,8 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
                            f"({lib.fused_lloyd_error_string(rc).decode()})")
     launches += 1
     bf16_launches += x.dtype == torch.bfloat16
-    stream_launches += streamed
+    tc_launches += route == tiles.TENSOR_CORES
+    stream_launches += route == tiles.STREAMED
     out = (labels, mind, sums, counts, energy)
     return out if batched else tuple(o[0] for o in out)
 

@@ -67,6 +67,31 @@ def minibatch_ref(x: torch.Tensor, c: torch.Tensor, w: torch.Tensor):
     return labels, mind, sums, counts, torch.sum(mind * w)
 
 
+NEAR_TIE = 1e-5   # the relative gap within which two labels tie
+
+
+def tie_gap(lab: torch.Tensor, lab_p: torch.Tensor, x: torch.Tensor,
+            c: torch.Tensor):
+    """How far two label sets (R, N) for the same rows differ: (the share
+    of rows whose labels agree, the largest relative gap between the f64
+    distances to the two labels where they differ).  The labels of two
+    correct sweeps that sum in different orders differ only at near ties,
+    rows whose gap is within ``NEAR_TIE``; a row where either distance is
+    NaN has an infinite gap, so NaN never hides a difference.  x (N, d)
+    shared or (R, N, d); c (R, K, d)."""
+    xs = x if x.dim() == 3 else x.expand(c.shape[0], *x.shape)
+    diff = lab != lab_p
+    gap = 0.0
+    if bool(diff.any()):
+        rr, nn = torch.nonzero(diff, as_tuple=True)
+        xr = xs[rr, nn].double()
+        d_k = ((xr - c[rr, lab[rr, nn].long()].double()) ** 2).sum(-1)
+        d_p = ((xr - c[rr, lab_p[rr, nn].long()].double()) ** 2).sum(-1)
+        rel = (d_k - d_p).abs() / d_p.abs().clamp_min(1.0)
+        gap = float(torch.nan_to_num(rel, nan=float("inf")).max())
+    return float(1.0 - diff.float().mean()), gap
+
+
 def computed_cells(lb_sq: torch.Tensor, ub_sq: torch.Tensor,
                    tile_rows: int) -> torch.Tensor:
     """The skip test of the bounded pass: (N, G) True where the row's

@@ -12,9 +12,11 @@ gives it weight 0).
 
 The tile geometry is the CUDA sources' alone (csrc/sweep_fp32.cuh): the
 wrappers ask the built library for the rows per tile and pass them in
-here.  The sweep takes any d: it keeps the 64-row X tile in shared memory
-up to the widest d that fits (the library's ``*_max_features``: 821 on an
-H100 for the assignment) and streams X in feature slabs past it.
+here.  The sweep takes any d: on bf16 X and C the assignment and the fused
+step run the tensor-core sweep (csrc/sweep_tc.cuh) at every d; otherwise
+the FP32 sweep keeps the 64-row X tile in shared memory up to the widest d
+that fits (the library's ``*_max_features``: 821 on an H100 for the
+assignment) and streams X in feature slabs past it (``sweep_route``).
 """
 
 from __future__ import annotations
@@ -198,11 +200,36 @@ def check_cuda_operands(*tensors: Optional[torch.Tensor]) -> None:
             raise ValueError(f"empty operand of shape {tuple(t.shape)}")
 
 
+# the sweep routes of an assignment or fused-step launch
+TENSOR_CORES = "tensor_cores"   # csrc/sweep_tc.cuh: X and C both bf16
+RESIDENT = "resident"           # csrc/sweep_fp32.cuh: the X tile resident
+STREAMED = "streamed"           # csrc/sweep_wide.cuh: X streamed in slabs
+
+
+def sweep_route(x_dtype: torch.dtype, c_dtype: torch.dtype, d: int,
+                widest: int, force_stream: bool) -> str:
+    """The sweep an assignment or fused-step launch takes, the launcher's
+    own rule (csrc/sweep_wide.cuh ``launch_assign``): X and C both
+    bfloat16 take the tensor-core sweep at any d, and it has no streamed
+    path to force (ValueError); otherwise the FP32 sweep streams X when
+    forced or past ``widest``, the resident tile's widest d (the
+    library's ``*_max_features``; negative when it could not be
+    queried: RuntimeError), and keeps the tile resident else."""
+    if x_dtype == torch.bfloat16 and c_dtype == torch.bfloat16:
+        if force_stream:
+            raise ValueError("bf16 X and C take the tensor-core sweep, which "
+                             "has no streamed FP32 path to force")
+        return TENSOR_CORES
+    if widest < 0:
+        raise RuntimeError("could not query the card's shared memory")
+    return STREAMED if force_stream or d > widest else RESIDENT
+
+
 def streams_x(max_features, device: torch.device, d: int,
               force: bool) -> bool:
-    """Whether a sweep launch at width d streams X: when forced, or past
-    the resident tile's widest d, ``max_features(device index)`` (the
-    library's ``*_max_features``); the launchers' own rule
+    """Whether a bounded-step launch at width d streams X: when forced, or
+    past the resident tile's widest d, ``max_features(device index)`` (the
+    library's ``*_max_features``); the launcher's own rule
     (csrc/sweep_fp32.cuh ``plan_sweep``)."""
     if force:
         return True

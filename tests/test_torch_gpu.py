@@ -17,10 +17,16 @@ assignment's by construction; the bounded sweep computes each distance
 with the same FMA chain.  On exact small-integer data every distance is
 exact, so a tie goes to the lowest index.  Relaunches are bitwise equal.
 
-On bfloat16 operands each kernel is held to its plain version with the
-same gates, and to its own float32 launch on the upcast operands bit for
-bit in every output: the kernels convert a bf16 value to f32 where they
-load it and compute as before.
+On bfloat16 X and C the assignment and the fused step run the tensor-core
+sweep (csrc/sweep_tc.cuh), whose f32 sums of the bf16 products run in
+another order: labels equal the plain version's but at near ties
+(``ref.tie_gap`` within ``ref.NEAR_TIE``), min distances within 1e-5 of
+|x|^2 + max |c|^2, the stats of the kernel's labels within the gates
+above; the two kernels' labels and distances are equal bit for bit (one
+sweep) and a relaunch is bitwise equal.  The update and the bounded step
+on bf16 operands, and the other two on mixed operands, convert a bf16
+value to f32 where they load it: each equals its float32 launch on the
+upcast operands bit for bit.
 """
 
 import numpy as np
@@ -1317,8 +1323,9 @@ def test_mesh_steps_two_ranks_gloo_on_the_card(cuda, tmp_path):
                 v for key, v in n.items() if key != "plain") > 0
 
 
-# bf16 shapes: d = 1, 69 and 821 (the widest tile); K not a multiple of
-# 256; N not a multiple of 64; per-problem X with (R, N) weights
+# bf16 shapes: d = 1, 69 and 821 (the FP32 sweep's widest tile); K not a
+# multiple of 128 or 256; N not a multiple of 64; per-problem X with (R, N)
+# weights
 BF16_CASES = [(1000, 1, 37, None, False, None),
               (4097, 69, 1000, None, False, "n"),
               (2001, 69, 45, 3, True, "rn"),
@@ -1335,29 +1342,66 @@ def _bf16_operands(cuda, n, d, k, r, x_batched, weights, seed=5):
     return x.bfloat16(), c.bfloat16(), w
 
 
+def _lift(x, c, out):
+    """A kernel's outputs and C with the leading R axis (c (K, d) -> R = 1)."""
+    if c.dim() == 3:
+        return c, list(out)
+    return c[None], [o[None] for o in out]
+
+
+def _tc_scale(x, c):
+    """(R, N): |x|^2 + max |c|^2 of the row's problem, at least 1 — the
+    scale of a bf16 distance's rounding (the rows' and centroids' norms it
+    cancels from).  c (R, K, d)."""
+    xf, cf = x.float(), c.float()
+    xs = xf if xf.dim() == 3 else xf.expand(cf.shape[0], *xf.shape)
+    return (torch.sum(xs * xs, dim=-1) + torch.sum(cf * cf, dim=-1).max(
+        dim=-1).values[:, None]).clamp_min(1.0)
+
+
+def _assert_tc_contract(x, c, w, got, want):
+    """The tensor-core sweep's outputs against the plain version's on the
+    same bf16 operands: labels equal but at near ties (``ref.tie_gap``
+    within ``ref.NEAR_TIE``), min distances within 1e-5 of |x|^2 + max
+    |c|^2; with the fused step's five outputs, the sums and counts of the
+    kernel's own labels within 1e-4 and 1e-5 of ``ref.update_ref``'s and
+    the energy as ``_assert_energy_close`` holds a bf16 energy."""
+    c3, got = _lift(x, c, got)
+    _, want = _lift(x, c, want)
+    agree, gap = ref.tie_gap(got[0], want[0], x, c3)
+    assert agree == 1.0 or gap <= ref.NEAR_TIE, (agree, gap)
+    err = (got[1] - want[1]).abs()
+    assert bool((err <= 1e-5 * _tc_scale(x, c3)).all()), float(err.max())
+    if len(got) == 2:
+        return
+    xs = x if x.dim() == 3 else x.expand(c3.shape[0], *x.shape)
+    for i in range(c3.shape[0]):
+        wi = None if w is None else (w[i] if w.dim() == 2 else w)
+        sums, counts = ref.update_ref(xs[i], got[0][i], c3.shape[1], wi)
+        np.testing.assert_allclose(got[2][i].cpu(), sums.cpu(), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got[3][i].cpu(), counts.cpu(), rtol=1e-5,
+                                   atol=1e-5)
+    _assert_energy_close(got[4].cpu(), want[4].cpu(), x, w)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("n,d,k,r,x_batched,weights", BF16_CASES)
 def test_bf16_fused_and_assignment(cuda, n, d, k, r, x_batched, weights):
-    """bf16 X and C: the fused step and the assignment against their
-    plain versions (the f32 gates), and bit for bit against their own f32
-    launches on the upcast operands."""
+    """bf16 X and C: the fused step and the assignment run the tensor-core
+    sweep (its counters move), their labels and distances are equal bit
+    for bit, a relaunch is equal, and both meet the tensor-core contract
+    against the plain version (``_assert_tc_contract``)."""
     xb, cb, w = _bf16_operands(cuda, n, d, k, r, x_batched, weights)
-    launched = F.launches
+    launched = F.launches, F.tc_launches
     got = F.fused_lloyd(xb, cb, w)
-    assert F.launches == launched + 1
-    _assert_equal(got, F.fused_lloyd(xb.float(), cb.float(), w))
-    got = [g.cpu() for g in got]
-    want = [v.cpu() for v in F.fused_lloyd_plain(xb, cb, w)]
-    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
-    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
-    launched = A.launches
+    assert (F.launches, F.tc_launches) == (launched[0] + 1, launched[1] + 1)
+    _assert_equal(F.fused_lloyd(xb, cb, w), got)
+    _assert_tc_contract(xb, cb, w, got, F.fused_lloyd_plain(xb, cb, w))
+    launched = A.launches, A.tc_launches
     lab, mind = A.assignment(xb, cb)
-    assert A.launches == launched + 1
-    _assert_equal((lab, mind), A.assignment(xb.float(), cb.float()))
-    assert torch.equal(lab.cpu(), got[0]) and torch.equal(mind.cpu(), got[1])
+    assert (A.launches, A.tc_launches) == (launched[0] + 1, launched[1] + 1)
+    assert torch.equal(lab, got[0]) and torch.equal(mind, got[1])
 
 
 @pytest.mark.gpu
@@ -1552,7 +1596,8 @@ def _assert_energy_close(got, want, x, w, seeded=False):
 def _counts():
     return (F.launches, F.stream_launches, F.bounds_launches,
             F.bounds_stream_launches, A.launches, A.stream_launches,
-            F.plain_calls + F.bounds_plain_calls + A.plain_calls)
+            F.plain_calls + F.bounds_plain_calls + A.plain_calls,
+            F.tc_launches, A.tc_launches)
 
 
 @pytest.mark.gpu
@@ -1562,11 +1607,11 @@ def _counts():
 def test_wide_kernels_match_plain(cuda, d, n, k, r, x_batched, weights,
                                   bf16):
     """The fused step and the assignment at wide d launch the streamed
-    sweep: against the plain version (labels exact, min_sqdist within 1e-5
-    of |x|^2, sums 1e-4, counts 1e-5, energy 1e-6), the assignment's
-    labels and distances equal to the step's, a relaunch equal, and a bf16
-    launch equal to the f32 launch on the upcast operands, bit for bit.
-    bf16 energies as ``_assert_energy_close`` holds them."""
+    sweep on f32 operands and the tensor-core sweep on bf16 ones: the
+    assignment's labels and distances equal to the step's, a relaunch
+    equal, bit for bit; f32 against the plain version (labels exact,
+    min_sqdist within 1e-5 of |x|^2, sums 1e-4, counts 1e-5, energy
+    1e-6), bf16 by the tensor-core contract (``_assert_tc_contract``)."""
     x, c, w = _mixture(cuda, n, d, k, r, x_batched, weights, seed=d)
     if bf16:
         x, c = x.bfloat16(), c.bfloat16()
@@ -1574,11 +1619,13 @@ def test_wide_kernels_match_plain(cuda, d, n, k, r, x_batched, weights,
     got = F.fused_lloyd(x, c, w)
     lab, mind = A.assignment(x, c)
     after = _counts()
-    assert [b - a for a, b in zip(before, after)] == [1, 1, 0, 0, 1, 1, 0]
+    assert [b - a for a, b in zip(before, after)] == (
+        [1, 0, 0, 0, 1, 0, 0, 1, 1] if bf16 else [1, 1, 0, 0, 1, 1, 0, 0, 0])
     assert torch.equal(lab, got[0]) and torch.equal(mind, got[1])
     _assert_equal(F.fused_lloyd(x, c, w), got)
     if bf16:
-        _assert_equal(got, F.fused_lloyd(x.float(), c.float(), w))
+        _assert_tc_contract(x, c, w, got, F.fused_lloyd_plain(x, c, w))
+        return
     got = [g.cpu() for g in got]
     want = [v.cpu() for v in F.fused_lloyd_plain(x, c, w)]
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
@@ -1612,7 +1659,8 @@ def test_wide_fused_bounds_matches_plain(cuda, d, n, k, r, x_batched,
     before = _counts()
     got = F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr)
     after = _counts()
-    assert [b - a for a, b in zip(before, after)] == [0, 0, 1, 1, 0, 0, 0]
+    assert [b - a for a, b in zip(before, after)] == [0, 0, 1, 1, 0, 0, 0,
+                                                      0, 0]
     _assert_equal(F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr), got)
     if bf16:
         _assert_equal(got, F.fused_lloyd(x.float(), c.float(), w,
@@ -1644,7 +1692,9 @@ def test_streamed_equals_resident(cuda, at, kernel, bf16):
     the launch forced to stream X equals the resident launch bit for bit
     in every output: the same FMA chains in the same order.  Random data,
     two C chunks, a ragged row tile, (R, N) weights; the bounded step from
-    drifted bounds at G = 19."""
+    drifted bounds at G = 19.  bf16 X and C take the tensor-core sweep in
+    the assignment and the fused step, which has no streamed path: forcing
+    one raises."""
     n, k, r = 777, 300, 2
     gs = 16
     g = -(-k // gs)
@@ -1672,6 +1722,10 @@ def test_streamed_equals_resident(cuda, at, kernel, bf16):
             return F.fused_lloyd(x, c, w, _stream=stream)
         return F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr, _stream=stream)
 
+    if bf16 and kernel != "bounded":
+        with pytest.raises(ValueError):
+            run(True)
+        return
     before = _counts()
     resident = run(False)
     middle = _counts()
@@ -1686,13 +1740,20 @@ def test_streamed_equals_resident(cuda, at, kernel, bf16):
 
 # The streamed sweep of the assignment and the fused step
 # (csrc/sweep_wide.cuh): 128-row tiles, 256-centroid chunks, X slabs of 32
-# features read at any alignment.
+# features read at any alignment.  Their bf16 cases run the tensor-core
+# sweep (csrc/sweep_tc.cuh): 128-row tiles, 128-centroid chunks, X slabs
+# of 64 features, by TMA or by plain loads.
 
 
 def _assert_streamed_assignment(x, c, lab, mind):
-    """One streamed assignment launch against the plain version: labels
-    exact, min distances within 1e-5 of max(|x|^2, 1)."""
-    want = [v.cpu() for v in A.assignment_plain(x, c)]
+    """One wide assignment launch against the plain version: f32 labels
+    exact and min distances within 1e-5 of max(|x|^2, 1); bf16 by the
+    tensor-core contract."""
+    want = A.assignment_plain(x, c)
+    if x.dtype == torch.bfloat16:
+        _assert_tc_contract(x, c, None, (lab, mind), want)
+        return
+    want = [v.cpu() for v in want]
     np.testing.assert_array_equal(lab.cpu().numpy(), want[0].numpy())
     np.testing.assert_allclose(mind.cpu(), want[1], rtol=1e-5,
                                atol=_wide_atol(x))
@@ -1701,33 +1762,34 @@ def _assert_streamed_assignment(x, c, lab, mind):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
 def test_streamed_sweep_ragged_k_and_rows(cuda, bf16):
-    """d = 4096, K = 1000 (four centroid chunks, the last one ragged) and
-    N = 1000 (not a multiple of the 128-row tile): the streamed launch
-    against the plain version, a relaunch equal bit for bit, and a bf16
-    launch equal to the f32 launch on the upcast operands."""
+    """d = 4096, K = 1000 (four 256-centroid chunks or eight of 128, the
+    last one ragged) and N = 1000 (not a multiple of the 128-row tile): the
+    streamed launch (f32) or the tensor-core one (bf16) against the plain
+    version, and a relaunch equal bit for bit."""
     x, c, _ = _mixture(cuda, 1000, 4096, 1000, None, False, None, seed=41)
     if bf16:
         x, c = x.bfloat16(), c.bfloat16()
-    before = A.stream_launches
+    before = A.tc_launches if bf16 else A.stream_launches
     lab, mind = A.assignment(x, c)
-    assert A.stream_launches == before + 1
+    assert (A.tc_launches if bf16 else A.stream_launches) == before + 1
     _assert_streamed_assignment(x, c, lab, mind)
     _assert_equal(A.assignment(x, c), (lab, mind))
-    if bf16:
-        _assert_equal(A.assignment(x.float(), c.float()), (lab, mind))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
 def test_streamed_sweep_per_problem_x(cuda, bf16):
     """Per-problem X at R = 3 with (R, N) weights at d = 4096 and a ragged
-    N: the fused step against the plain version, its sweep equal to the
-    assignment's launch bit for bit."""
+    N: the fused step against the plain version (bf16: the tensor-core
+    contract), its sweep equal to the assignment's launch bit for bit."""
     x, c, w = _mixture(cuda, 515, 4096, 256, 3, True, "rn", seed=43)
     if bf16:
         x, c = x.bfloat16(), c.bfloat16()
     got = F.fused_lloyd(x, c, w)
     _assert_equal(A.assignment(x, c), got[:2])
+    if bf16:
+        _assert_tc_contract(x, c, w, got, F.fused_lloyd_plain(x, c, w))
+        return
     got = [g.cpu() for g in got]
     want = [v.cpu() for v in F.fused_lloyd_plain(x, c, w)]
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
@@ -1746,9 +1808,10 @@ def test_streamed_sweep_per_problem_x(cuda, bf16):
 def test_streamed_sweep_unaligned_rows(cuda, dtype, d, offset):
     """Rows that do not start 16-byte aligned: f32 rows of odd width, bf16
     rows, and a base one element past an aligned one
-    (``torch.empty(n * d + 1)[1:].view(n, d)``).  Equal bit for bit to the
-    launch on an aligned copy of the same values, and to the plain
-    version."""
+    (``torch.empty(n * d + 1)[1:].view(n, d)``), so X comes by plain loads
+    (bf16: into the tensor-core sweep's swizzled slabs).  Equal bit for bit
+    to the launch on an aligned copy of the same values (bf16 at d = 4096:
+    X by TMA), and against the plain version."""
     x, c, _ = _mixture(cuda, 700, d, 256, None, False, None, seed=d + 7)
     x, c = x.to(dtype), c.to(dtype)
     n = x.shape[0]
@@ -1765,7 +1828,8 @@ def test_streamed_sweep_unaligned_rows(cuda, dtype, d, offset):
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
 def test_streamed_sweep_ties_and_nan(cuda, bf16):
-    """Integer data at d = 4096, so every distance is exact: K = 1000 is
+    """Integer data at d = 4096, so every distance is exact (the
+    tensor-core sweep's too: small integer products and sums): K = 1000 is
     250 centroids four times over, so each one ties with copies in other
     lanes, warps and chunks (the last ragged), and the lowest index wins;
     rows with a NaN (in the first and in a later tile) get a NaN distance
@@ -1815,8 +1879,136 @@ def test_wide_fits_run_on_the_kernels(cuda, d):
         m = AAKMeans(n_clusters=16, backend=name).fit(x, c0s=c0s)
         lab = m.predict(x)
         after = _counts()
-        assert after[-1] == before[-1]                 # no plain version
+        assert after[6] == before[6]                   # no plain version
         assert after[1] + after[3] + after[5] > before[1] + before[3] \
             + before[5]
         np.testing.assert_allclose(m.inertia_, dense.inertia_, rtol=1e-4)
         np.testing.assert_array_equal(lab, m.labels_.cpu().numpy())
+
+
+# The tensor-core sweep (csrc/sweep_tc.cuh) on bf16 X and C: every d (X
+# resident up to 256 padded features, streamed past them), K on both sides
+# of the 128-centroid chunk, N = 777 (a ragged 128-row tile).
+TC_DS = (1, 8, 16, 69, 80, 821, 822, 4096)
+TC_KS = (1, 37, 256, 257, 1000)
+
+
+def _tc_counts():
+    return (F.tc_launches, A.tc_launches, F.stream_launches,
+            A.stream_launches, F.plain_calls + A.plain_calls)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", TC_KS)
+@pytest.mark.parametrize("d", TC_DS)
+def test_tensor_core_sweep_matches_plain(cuda, d, k):
+    """(N,) weights: the fused step and the assignment each launch the
+    tensor-core sweep (its counters move, no FP32 streamed launch, no
+    plain version), their labels and distances are equal bit for bit, a
+    relaunch is equal, and the step meets the tensor-core contract against
+    the plain version."""
+    x, c, w = _mixture(cuda, 777, d, k, None, False, "n", seed=7 * d + k)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    before = _tc_counts()
+    got = F.fused_lloyd(xb, cb, w)
+    lab, mind = A.assignment(xb, cb)
+    assert [b - a for a, b in zip(before, _tc_counts())] == [1, 1, 0, 0, 0]
+    assert torch.equal(lab, got[0]) and torch.equal(mind, got[1])
+    _assert_equal(F.fused_lloyd(xb, cb, w), got)
+    _assert_equal(A.assignment(xb, cb), (lab, mind))
+    _assert_tc_contract(xb, cb, w, got, F.fused_lloyd_plain(xb, cb, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_batched", [False, True])
+@pytest.mark.parametrize("d", [69, 821, 4096])
+def test_tensor_core_sweep_batched(cuda, d, x_batched):
+    """R = 3 with shared X (N, d), or per-problem X (R, N, d) with (R, N)
+    weights that zero a fifth of the rows; N = 515, so at d = 69 and 821
+    the problem stride N*d*2 is not a multiple of 16 bytes (plain X loads)
+    and at 4096 it is (X by TMA).  The step meets the tensor-core contract
+    (weight-0 rows add nothing to the stats), and each problem's rows
+    equal bit for bit a launch of that problem alone."""
+    x, c, w = _mixture(cuda, 515, d, 256, 3, x_batched,
+                       "rn" if x_batched else None, seed=d + x_batched)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    got = F.fused_lloyd(xb, cb, w)
+    _assert_tc_contract(xb, cb, w, got, F.fused_lloyd_plain(xb, cb, w))
+    for i in range(3):
+        alone = A.assignment(xb[i].contiguous() if x_batched else xb, cb[i])
+        assert torch.equal(alone[0], got[0][i])
+        assert torch.equal(alone[1], got[1][i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [69, 192, 193])
+def test_tensor_core_sweep_rows_independent(cuda, d):
+    """Each row's label and distance depend on its own row alone: a
+    40,000-row launch equals a launch of its first 16,384 rows there bit
+    for bit, at the widest resident d (192) and the first streamed one
+    (193), and the whole launch meets the tensor-core contract."""
+    x, c, _ = _mixture(cuda, 40000, d, 300, None, False, None, seed=d)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    whole = A.assignment(xb, cb)
+    part = A.assignment(xb[:16384], cb)
+    _assert_equal(part, (whole[0][:16384], whole[1][:16384]))
+    _assert_tc_contract(xb, cb, None, whole, A.assignment_plain(xb, cb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [69, 300])
+def test_tensor_core_sweep_ties_and_nan(cuda, d):
+    """Integer data, so every product and sum is exact: K = 1000 is 250
+    centroids four times over, so each one ties with copies in other
+    lanes, chunks and the ragged last chunk, and the lowest index wins;
+    rows with a NaN (in the first and in a later tile) get a NaN distance
+    and label 0.  Labels and distances equal the plain version's."""
+    rng = np.random.default_rng(59 + d)
+    x = rng.integers(-4, 5, (600, d)).astype(np.float32)
+    c = np.tile(rng.integers(-4, 5, (250, d)).astype(np.float32), (4, 1))
+    x[[7, 300], [3, d - 1]] = np.nan
+    xt = torch.from_numpy(x).to(cuda).bfloat16()
+    ct = torch.from_numpy(c).to(cuda).bfloat16()
+    lab, mind = (t.cpu() for t in A.assignment(xt, ct))
+    want = A.assignment_plain(torch.from_numpy(x), torch.from_numpy(c))
+    assert int(lab.max()) < 250
+    assert int(lab[7]) == int(lab[300]) == 0
+    assert torch.isnan(mind[7]) and torch.isnan(mind[300])
+    np.testing.assert_array_equal(lab.numpy(), want[0].numpy())
+    np.testing.assert_array_equal(mind.numpy(), want[1].numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [69, 821, 4096])
+def test_tensor_core_cross_terms(cuda, d):
+    """The sweep's cross terms x.c (``assignment.cross_terms``: the
+    accumulator its epilogue reads) against an f64 product of the same
+    bf16 values: within 2e-6 of |x| |c| (summed in f32 from exact
+    products; past 256 features each 64-feature slab is summed apart and
+    added with round to nearest)."""
+    x, c, _ = _mixture(cuda, 300, d, 257, 2, False, None, seed=d)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    before = A.cross_launches
+    got = A.cross_terms(xb, cb)
+    assert A.cross_launches == before + 1
+    xd, cd = xb.double(), cb.double()
+    want = torch.einsum("nd,rkd->rnk", xd, cd)
+    norms = torch.linalg.norm(xd, dim=-1)[None, :, None] \
+        * torch.linalg.norm(cd, dim=-1)[:, None, :]
+    rel = float(((got.double() - want).abs() / norms.clamp_min(1e-30)).max())
+    assert rel <= 2e-6, rel
+
+
+@pytest.mark.gpu
+def test_tensor_core_sweep_refuses_forced_streaming(cuda):
+    """bf16 X and C have no streamed FP32 path: ``_stream=True`` raises,
+    and a bf16 X against f32 C still streams when forced."""
+    x, c, _ = _inputs(cuda, 300, 69, 40, None, False, None, seed=3)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    with pytest.raises(ValueError):
+        A.assignment(xb, cb, _stream=True)
+    with pytest.raises(ValueError):
+        F.fused_lloyd(xb, cb, _stream=True)
+    before = A.stream_launches
+    A.assignment(xb, c, _stream=True)
+    assert A.stream_launches == before + 1
