@@ -3423,12 +3423,15 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
     epoch and a bf16-policy fused fit; (d) each kernel's times at the
     table's shape, on a predict chunk and on the subspaces (CUDA events,
     in turns, with addmm + argmin and index_add_ in the same turns),
-    beside its plain version and its bounds; the assignment and the fused
-    step at K = 1000 on all rows beside addmm + argmin; the assignment
+    beside its plain version and its bounds; the assignment, the fused
+    step and the bounded step (gs 16, skip 0) at K = 1000 on all rows
+    beside addmm + argmin; the bounded step on the table's rows sorted by
+    the fit's labels from bounds carried one fused_bounds engine step
+    from the fit's centroids, with its skipped share; the assignment
     forced to stream beside its resident launch at d = 69 (x_main, the
     USCensus1990 rows, K = 1000) and at the resident path's widest d (the
     table's first columns, K = 1000); ptxas' registers and spills of the
-    streamed sweep.
+    streamed sweeps.
     -> (per kernel name and its "_bf16" variant: its launches on (b)'s
     and (c)'s paths, all streamed, its launches in (a)'s checks and its
     wide timings; each kernel's largest absolute error against its plain
@@ -3888,6 +3891,23 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
     c1000_sq = torch.sum(c1000 * c1000, dim=-1)
     c1000_b = c1000.to(bf16)
     c1000_sq_b = torch.sum(c1000_b.float() ** 2, dim=-1)
+    bnd1000 = squared_bounds(bounds.init_carry(table, c1000[None], k4, gs16),
+                             c1000[None], k4, gs16)
+    # the bounded step where it skips: the table's rows sorted by the fit's
+    # labels, and the bounds one fused_bounds engine step leaves from the
+    # fit's centroids
+    table_s = table[torch.argsort(lab_fin, stable=True)].contiguous()
+    bk16 = get_backend("fused_bounds", group_size=16)
+    res_car, carry_s = bk16.batched_step(
+        table_s, c_p, k, bk16.batched_init_carry(table_s, c_p, k))
+    c_car = bk16.centroids_from_step(table_s, res_car, k, c_p)
+    bnd_car = squared_bounds(carry_s, c_car, k, gs16)
+    del res_car, carry_s
+    table_sb, c_carb = table_s.to(bf16), c_car.to(bf16)
+    skip_car = float(F.fused_lloyd(table_s, c_car, bounds=bnd_car,
+                                   gs=gs16)[6][0])
+    print(f"  (d) the bounded step on the label-sorted rows from carried "
+          f"bounds (gs {gs16}): skipped share {skip_car!r}", flush=True)
     has_mm = mm_argmin(torch, table_b[:128], c_fin_b, c_sq_b) is not None
     sums_buf = torch.zeros(k, d, device=dev)
     lab_l = lab_fin.long()
@@ -3942,6 +3962,16 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                                                          table_b.float()),
         "assignment K=1000": lambda i: A.assignment(table, c1000),
         "fused_lloyd K=1000": lambda i: F.fused_lloyd(table, c1000),
+        "fused_bounds K=1000": lambda i: F.fused_lloyd(
+            table, c1000[None], bounds=bnd1000, gs=gs16),
+        "fused_bounds_bf16 K=1000": lambda i: F.fused_lloyd(
+            table_b, c1000_b[None], bounds=bnd1000, gs=gs16),
+        "fused_bounds sorted": lambda i: F.fused_lloyd(
+            table_s, c_car, bounds=bnd_car, gs=gs16),
+        "fused_bounds_bf16 sorted": lambda i: F.fused_lloyd(
+            table_sb, c_carb, bounds=bnd_car, gs=gs16),
+        "fused_lloyd sorted": lambda i: F.fused_lloyd(table_s, c_car),
+        "fused_lloyd_bf16 sorted": lambda i: F.fused_lloyd(table_sb, c_carb),
         "addmm + argmin K=1000": lambda i: nearest(table, c1000, c1000_sq),
         "assignment d=69 resident": lambda i: A.assignment(x69, c69),
         "assignment d=69 streamed": lambda i: A.assignment(x69, c69,
@@ -4027,6 +4057,24 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                     nb * (n * d + k * d) + 4 * (2 * n + n * g)
                     + 4 * (2 * n + n * g + k * d + k + 1) + 8,
                     2 * n * k * d, 3 * n * k + 2 * n * d)
+                g4 = bnd1000[1].shape[-1]
+                row["k1000"] = {
+                    "ms": turn_ms[f"{name} K=1000"], "library_ms": None,
+                    "fused_ms": turn_ms["fused_lloyd" + tag + " K=1000"],
+                    "bounds": bound(
+                        nb * (n * d + k4 * d) + 4 * (2 * n + n * g4)
+                        + 4 * (2 * n + n * g4 + k4 * d + k4 + 1) + 8,
+                        2 * n * k4 * d, 3 * n * k4 + 2 * n * d)}
+                # the sorted rows: the computed share's cross terms
+                live = 1.0 - skip_car
+                row["sorted_carried"] = {
+                    "ms": turn_ms[f"{name} sorted"], "skipped": skip_car,
+                    "fused_ms": turn_ms["fused_lloyd" + tag + " sorted"],
+                    "bounds": bound(
+                        nb * (n * d + k * d) + 4 * (2 * n + n * g)
+                        + 4 * (2 * n + n * g + k * d + k + 1) + 8,
+                        live * 2 * n * k * d,
+                        live * 3 * n * k + 2 * n * d)}
             if kn in ("fused_lloyd", "assignment"):
                 # K = 1000 on all rows: four 256-centroid chunks (f32),
                 # eight of 128 (bf16)
@@ -4062,9 +4110,23 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                      if "upcast_library_ms" in row else "")
                   + (f"; at K = {k4} {row['k1000']['ms']!r} ms, bound "
                      f"{row['k1000']['bounds'][0]!r} ms (FP32-core "
-                     f"{row['k1000']['bounds'][2]!r} ms), {lib_name} "
-                     f"{row['k1000']['library_ms']!r} ms"
+                     f"{row['k1000']['bounds'][2]!r} ms), "
+                     + (f"the fused step {row['k1000']['fused_ms']!r} ms "
+                        f"in the same turns"
+                        if "fused_ms" in row["k1000"] else
+                        f"{lib_name} {row['k1000']['library_ms']!r} ms")
                      if "k1000" in row else "")
+                  + (f"; on the label-sorted rows from carried bounds "
+                     f"(skipped {row['sorted_carried']['skipped']!r}) "
+                     f"{row['sorted_carried']['ms']!r} ms, bound "
+                     f"{row['sorted_carried']['bounds'][0]!r} ms (FP32-core "
+                     f"{row['sorted_carried']['bounds'][2]!r} ms), the fused"
+                     f" step on those rows "
+                     f"{row['sorted_carried']['fused_ms']!r} ms"
+                     if "sorted_carried" in row else "")
+                  + (f"; {row['ms'] / turn_ms['fused_lloyd' + tag]!r}x the "
+                     f"fused step in the same turns"
+                     if kn == "fused_bounds" else "")
                   + f"; launches on (b) and (c) {row['launches']}, in (a)"
                   f" {row['check_launches']}")
     # the streamed sweep where the resident one fits (dispatch keeps the
@@ -4083,12 +4145,19 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
     wide["assignment"]["stream_ptxas"] = ptxas
     tc_ptxas = ptxas_report(build.library_path("assignment"), "assign_tc")
     wide["assignment_bf16"]["tc_ptxas"] = tc_ptxas
+    b_ptxas = ptxas_report(build.library_path("fused_bounds"),
+                           "bounds_stream")
+    wide["fused_bounds"]["stream_ptxas"] = b_ptxas
     print(f"  (d) ptxas, the streamed sweep: {ptxas}; the tensor-core sweep: "
-          f"{tc_ptxas}")
+          f"{tc_ptxas}; the bounded streamed sweep: {b_ptxas}")
+    check(all(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0
+              for r in b_ptxas.values()) and len(b_ptxas) > 0,
+          "the bounded streamed sweep spills, or ptxas reported nothing")
     print(f"  X is read once per 256-centroid chunk: {-(-k // 256)} time(s) "
           f"a step at K = {k}, {-(-k4 // 256)} at K = {k4}; phase 18 took "
           f"{time.perf_counter() - t_phase!r} s", flush=True)
     del table, table_b, blocks, blocks_b, fin, x821, c1000
+    del table_s, table_sb
     return wide, errs
 
 
@@ -5451,12 +5520,17 @@ def run():
             if "chunk_upcast_library_ms" in row:
                 entry["wide"]["chunk"]["upcast_library_ms"] = \
                     row["chunk_upcast_library_ms"]
-        if "k1000" in row:
-            k_ms, k_by, k_fp32 = row["k1000"]["bounds"]
-            entry["wide"]["k1000"] = {
-                "ms": row["k1000"]["ms"], "bound_ms": k_ms, "bound_by": k_by,
+        for key in ("k1000", "sorted_carried"):
+            if key not in row:
+                continue
+            k_ms, k_by, k_fp32 = row[key]["bounds"]
+            entry["wide"][key] = {
+                "ms": row[key]["ms"], "bound_ms": k_ms, "bound_by": k_by,
                 "fp32_bound_ms": k_fp32,
-                "library_ms": row["k1000"]["library_ms"]}
+                "library_ms": row[key].get("library_ms")}
+            for extra in ("fused_ms", "skipped"):
+                if extra in row[key]:
+                    entry["wide"][key][extra] = row[key][extra]
         for key in ("forced_stream", "stream_ptxas", "tc_ptxas"):
             if key in row:
                 entry["wide"][key] = row[key]

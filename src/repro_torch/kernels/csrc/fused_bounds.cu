@@ -23,32 +23,36 @@
 // What bounds it on this card: the cross terms of the computed groups,
 // (1 - skip) * 2*N*K*d FP32 operations (67 TFLOP/s), against X, the
 // bounds and the group minima read or written once, (N*d + 2*N*G + 4*N)*4
-// bytes (3.35 TB/s).  The design is the fused step's (fused_lloyd.cu: one
-// 64-row tile a block through the 8 x 8 sweep of sweep_fp32.cuh, then the
-// segment sum of segment_sum.cuh over the labels) with the C ring filled
-// from the computed groups only: the tile lists the 16-byte vectors of C
-// that hold a centroid of a computed group, a chunk of 64 ahead of the
-// sweep, and the sweep streams those (half the FMAs where they fill half of
-// one chunk), so its work follows the computed share at any group size
-// and its shared memory does not grow with K; a tile that computes every
-// group lists nothing and sweeps C in order.  A vector's centroids of
-// skipped groups are padding and never compete.  Each computed group's
-// minimum is merged across the warp at the end of each chunk it meets (a
-// group that goes on keeps its minimum so far in shared memory, not in
-// registers).  X is the sweep's: resident in shared memory where the whole
-// 64-row tile fits beside the lists (a little under 821 features on an
-// H100, less as G grows), else streamed beside C in slabs of 32 features,
-// so any d runs.  No atomics but the need bits' atomicOr, whose result does
-// not depend on the order.
+// bytes (3.35 TB/s).  The design is the fused step's (fused_lloyd.cu: the
+// sweep, then the segment sum of segment_sum.cuh over the labels) with the
+// C stages filled from the computed groups only: the 16-byte vectors of C
+// that hold a centroid of a computed group are listed a chunk of 64 ahead
+// of the sweep, and the sweep copies and multiplies those, so its work
+// follows the computed share at any group size and its shared memory does
+// not grow with K; a block that computes every group lists nothing and
+// sweeps C in order.  A vector's centroids of skipped groups are padding
+// and never compete.  Two sweeps:
+//  - up to the widest resident d (a little under 821 features on an H100,
+//    less as G grows) this file's bounds_tiles: one 64-row tile a block,
+//    the whole X tile resident in shared memory, the 8 x 8 sweep of
+//    sweep_fp32.cuh (half the FMAs where the live vectors fill half of one
+//    chunk); each computed group's minimum is merged across the warp at
+//    the end of each chunk it meets (a group that goes on keeps its
+//    minimum so far in shared memory, not in registers);
+//  - past it, or where the launcher forces it, sweep_bounded.cuh's
+//    streamed sweep (sweep_wide.cuh's design: 128-row blocks of two tiles,
+//    8 x 16 cross terms a lane, 32-feature stages of X and C in a TMA
+//    ring), so any d runs.
+// The two give the same bits wherever both fit.  No atomics but the need
+// bits' atomicOr, whose result does not depend on the order.
 
 #include <type_traits>
 
 #include "segment_sum.cuh"
+#include "sweep_bounded.cuh"
 #include "sweep_fp32.cuh"
 
 namespace repro {
-
-__host__ __device__ inline int need_words(int g) { return cdiv(g, 32); }
 
 // Shared words beyond the sweep's: the open group minima (kRows), the
 // lists of live vectors (f8::kListWords) and the need bits.
@@ -58,11 +62,11 @@ __host__ __device__ inline size_t bounds_extra(int g) {
 
 constexpr int kLbRegs = 4;   // bounds a thread holds: 64 rows x 16 groups
 
-// kVecGroups: gs and K multiples of 4, so that each 4-centroid vector lies
-// in one group and below K (sweep_fp32.cuh then merges a chunk that lies in
-// one group without masks).  TX: X's element type.  kStream: X streams in
-// slabs (dc = kMaxDepth), else the whole tile is resident.
-template <bool kVecGroups, typename TX, bool kStream>
+// The resident path: one 64-row tile a block, the whole X tile in shared
+// memory.  kVecGroups: gs and K multiples of 4, so that each 4-centroid
+// vector lies in one group and below K (sweep_fp32.cuh then merges a chunk
+// that lies in one group without masks).  TX: X's element type.
+template <bool kVecGroups, typename TX>
 __global__ void __launch_bounds__(f8::kThreads, 2)
 bounds_tiles(const TX* __restrict__ x, int64_t x_rstride,
              const float* __restrict__ ct, const float* __restrict__ csq,
@@ -72,8 +76,7 @@ bounds_tiles(const TX* __restrict__ x, int64_t x_rstride,
              float* __restrict__ mind, float* __restrict__ gmin,
              int* __restrict__ part_skip) {
   extern __shared__ float4 smem_raw[];
-  const f8::Tile sm(reinterpret_cast<float*>(smem_raw), kStream ? 2 * dc : d,
-                    dc, true);
+  const f8::Tile sm(reinterpret_cast<float*>(smem_raw), d, dc, true);
   unsigned* open = reinterpret_cast<unsigned*>(sm.extra);  // kRows
   int* live = reinterpret_cast<int*>(open + f8::kRows);    // 2 x kVecs
   int* scan = live + 2 * f8::kVecs;                        // kWarps + 1
@@ -167,24 +170,13 @@ bounds_tiles(const TX* __restrict__ x, int64_t x_rstride,
   const int n_first = skip.fill(0);
   if (n_first > 0) f8::start_stage<true>(sm, ctr, k, d, dc, 0, skip, n_first);
   const int n_second = n_first == f8::kVecs ? skip.fill(1) : 0;
-  if constexpr (kStream) {
-    const f8::XRows<TX> xr{x + r * x_rstride + row0 * d, rows};
-    f8::load_first_slab(sm, xr, d);
-    if (n_first <= f8::kVecs / 2)
-      f8::sweep<true, true, kVecGroups, true, true>(sm, ctr, csqr, k, d, dc,
-                                                    skip, n_first, 0, xr);
-    else
-      f8::sweep<true, true, kVecGroups, false, true>(
-          sm, ctr, csqr, k, d, dc, skip, n_first, n_second, xr);
-  } else {
-    f8::load_rows(sm, x + r * x_rstride, row0, rows, d);
-    if (n_first <= f8::kVecs / 2)   // one chunk, half full: half the FMAs
-      f8::sweep<true, true, kVecGroups, true>(sm, ctr, csqr, k, d, dc, skip,
-                                              n_first);
-    else
-      f8::sweep<true, true, kVecGroups>(sm, ctr, csqr, k, d, dc, skip,
-                                        n_first, n_second);
-  }
+  f8::load_rows(sm, x + r * x_rstride, row0, rows, d);
+  if (n_first <= f8::kVecs / 2)   // one chunk, half full: half the FMAs
+    f8::sweep<true, true, kVecGroups, true>(sm, ctr, csqr, k, d, dc, skip,
+                                            n_first);
+  else
+    f8::sweep<true, true, kVecGroups>(sm, ctr, csqr, k, d, dc, skip,
+                                      n_first, n_second);
   if (threadIdx.x < rows) {
     labels[at + threadIdx.x] = sm.lab[threadIdx.x];
     mind[at + threadIdx.x] = sm.mind[threadIdx.x];
@@ -206,8 +198,9 @@ extern "C" long long fused_bounds_scratch_floats(int r, int k, int d) {
 // lab0 (R, N) int32, lb (R, N, G) and ub (R, N) float32 are the squared
 // bounds; gmin (R, N, G) and skipped (R,) int64 are outputs besides the
 // fused step's.  part_skip (R * tiles int32) is scratch besides
-// fused_lloyd_launch's; force_stream != 0 streams X at any d.  Returns the
-// first CUDA error (0 on success); nothing synchronises.
+// fused_lloyd_launch's; force_stream != 0 streams X at any d
+// (sweep_bounded.cuh).  Returns the first CUDA error (0 on success);
+// nothing synchronises.
 extern "C" int fused_bounds_launch(
     const void* x, int x_type, long long x_rstride, const void* c,
     int c_type, const void* w, long long w_rstride, const void* lab0,
@@ -237,19 +230,30 @@ extern "C" int fused_bounds_launch(
 #else
     const bool vec_groups = gs % 4 == 0 && k % 4 == 0;
 #endif
-    auto kernel = vec_groups ? (plan.stream ? bounds_tiles<true, TX, true>
-                                            : bounds_tiles<true, TX, false>)
-                             : (plan.stream ? bounds_tiles<false, TX, true>
-                                            : bounds_tiles<false, TX, false>);
-    err = set_smem(kernel, plan.smem);
-    if (err != cudaSuccess) return err;
-    kernel<<<dim3(n_tiles, r), f8::kThreads, plan.smem, s>>>(
-        xt, x_rstride, ct, csq, static_cast<const int*>(lab0),
-        static_cast<const float*>(lb), static_cast<const float*>(ub), n, k,
-        d, plan.dc, gs, g, static_cast<int*>(labels),
-        static_cast<float*>(mind), static_cast<float*>(gmin),
-        static_cast<int*>(part_skip));
-    err = cudaGetLastError();
+    const int* l0 = static_cast<const int*>(lab0);
+    const float* lbf = static_cast<const float*>(lb);
+    const float* ubf = static_cast<const float*>(ub);
+    int* lab = static_cast<int*>(labels);
+    float* md = static_cast<float*>(mind);
+    float* gm = static_cast<float*>(gmin);
+    int* ps = static_cast<int*>(part_skip);
+    if (plan.stream) {
+      err = vec_groups
+                ? bwide::launch<true>(s, xt, x_rstride, ct, csq, l0, lbf, ubf,
+                                      r, n, k, d, gs, g, lab, md, gm, ps)
+                : bwide::launch<false>(s, xt, x_rstride, ct, csq, l0, lbf,
+                                       ubf, r, n, k, d, gs, g, lab, md, gm,
+                                       ps);
+    } else {
+      auto kernel =
+          vec_groups ? bounds_tiles<true, TX> : bounds_tiles<false, TX>;
+      err = set_smem(kernel, plan.smem);
+      if (err != cudaSuccess) return err;
+      kernel<<<dim3(n_tiles, r), f8::kThreads, plan.smem, s>>>(
+          xt, x_rstride, ct, csq, l0, lbf, ubf, n, k, d, plan.dc, gs, g, lab,
+          md, gm, ps);
+      err = cudaGetLastError();
+    }
     if (err != cudaSuccess) return err;
     err = launch_segment_sum(s, xt, x_rstride,
                              static_cast<const int*>(labels), wf, w_rstride,

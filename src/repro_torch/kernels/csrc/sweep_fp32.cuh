@@ -1,11 +1,11 @@
 // Nearest-centroid sweep on the FP32 CUDA cores with 8 x 8 register
-// blocks: one block's sweep over a 64-row X tile against the K centroids,
-// C streamed through a two-stage cp.async ring, X held whole in shared
-// memory or (the bounded sweep), for rows wider than that holds, streamed
-// beside C in feature slabs.  The sweep of the assignment kernel and the
-// fused step up to the widest resident d (past it, sweep_wide.cuh's, with
-// the same FMA chains) and of the bounded fused step at any d, so the
-// three give the same distances bit for bit.
+// blocks: one block's sweep over a 64-row X tile held whole in shared
+// memory against the K centroids, C streamed through a two-stage cp.async
+// ring.  The sweep of the assignment kernel, the fused step and the
+// bounded fused step up to the widest resident d; past it X streams,
+// through sweep_wide.cuh's sweep (the first two) or sweep_bounded.cuh's
+// (the bounded step), with the same FMA chains, so the three give the same
+// distances bit for bit.
 //
 // Why FP32 and not the tensor cores.  Split TF32 (x.c as three TF32
 // products on mma.sync, C and X split into hi and lo) held f32 accuracy
@@ -21,7 +21,9 @@
 // is max(|x|^2 - 2 x.c + |c|^2, 0) (NaN passed through).  The running
 // (min, argmin) uses nearest.cuh's total order (NaN first, value, index):
 // the lowest index wins a tie, and the merge across lanes gives one answer
-// in any order.
+// in any order.  The unbounded scan starts at (inf, 0), centroid 0's pair
+// where its distance is +inf, so a row whose every distance is +inf gets
+// label 0, the first index of the minimum, and never an index >= K.
 //
 // Operand types.  X and C are each float32 or bfloat16 in device memory.
 // Where both are bf16 the assignment and the fused step run sweep_tc.cuh's
@@ -29,11 +31,11 @@
 // two on mixed types (a bf16 X against f32 C, or the reverse, computed in
 // f32 as JAX promotes them) run these FMA chains.  A bf16 value is
 // converted to f32 where it is stored: X into the transposed tile
-// (load_rows, or store_slab where X streams), C into the transposed
-// scratch (transpose_c) and |c|^2 (row_sqnorms).  The product of two bf16
-// values is exact in f32, so a launch with a bf16 operand equals the f32
-// launch on the upcast operands bit for bit.  The X tile and slabs hold
-// f32, so a bf16 X takes the same path as an f32 X of its width.
+// (load_rows), C into the transposed scratch (transpose_c) and |c|^2
+// (row_sqnorms).  The product of two bf16 values is exact in f32, so a
+// launch with a bf16 operand equals the f32 launch on the upcast operands
+// bit for bit.  The X tile holds f32, so a bf16 X takes the same path as
+// an f32 X of its width.
 //
 // Layout.  256 threads; warp w owns rows 4w..4w+3 and 32+4w..32+4w+3 of the
 // tile, and lane l slots 4l..4l+3 and 128+4l..128+4l+3 of each 256-slot
@@ -46,23 +48,13 @@
 // cp.async vectors while the previous stage is multiplied.  A stage is dc
 // features of a chunk.
 //
-// Resident and streamed X.  The resident path keeps the whole tile,
-// xs[feature][row] for all d features, loaded once (load_rows); dc
-// (stage_depth) is 32 where two blocks fit on an SM (d = 69: 85 KB), less
-// for wider rows, down to 4 at the widest tile that fits the 227 KB of a
-// block (max_features: 821 on an H100 for the assignment).  Past that, or
-// when the launcher forces it, X streams.  The unbounded sweep (the
-// assignment and the fused step) then runs sweep_wide.cuh's kernel, which
-// launch_assign picks; the bounded sweep streams here (kStream): a slab
-// of kMaxDepth features of the tile's rows sits beside each C stage,
-// double-buffered like C, so the shared memory (84 KB, two blocks an SM)
-// does not grow with d.  A slab is read by plain loads into registers
-// before the stage's FMAs and stored, transposed and converted to f32,
-// after them (rows start at any element: f32 rows of odd width and bf16
-// rows are not 16- or 4-byte aligned).  The tile is read once per listed
-// chunk.  The FMA chains are the resident path's, in the same order (|x|^2
-// carried across the first chunk's slabs), so a streamed launch equals the
-// resident launch bit for bit wherever both fit.
+// Resident X.  The tile holds xs[feature][row] for all d features, loaded
+// once (load_rows); dc (stage_depth) is 32 where two blocks fit on an SM
+// (d = 69: 85 KB), less for wider rows, down to 4 at the widest tile that
+// fits the 227 KB of a block (max_features: 821 on an H100 for the
+// assignment).  Past that, or when a launcher forces it, X streams:
+// launch_assign (sweep_wide.cuh) runs sweep_wide.cuh's kernel, and
+// fused_bounds.cu sweep_bounded.cuh's.
 //
 // The unbounded sweep's chunk c is centroids 256c .. 256c+255.  The bounded
 // sweep (kBounded) computes only the centroid groups its tile needs: chunk
@@ -91,11 +83,6 @@ constexpr int kXLd = kRows + 4;     // pitch of the transposed X tile
 constexpr int kCLd = kCents + 4;    // pitch of a staged C feature row
 constexpr int kMaxDepth = 32;       // most features per C stage
 constexpr int kTwoPerSm = 115712;   // shared bytes with room for two blocks
-// X elements each thread loads of a streamed slab (kRows x kMaxDepth)
-constexpr int kSlabLoads = kRows * kMaxDepth / kThreads;
-static_assert(kThreads % kMaxDepth == 0 &&
-              kSlabLoads * kThreads == kRows * kMaxDepth,
-              "a slab splits evenly over the threads");
 
 __host__ __device__ inline int pad_centroids(int k) {
   return cdiv(k, kCents) * kCents;
@@ -150,9 +137,9 @@ __host__ inline cudaError_t prepare_c(cudaStream_t s, const TC* c, int r,
 constexpr int kBestFloats = 2 * 8 * kThreads;
 
 // Shared floats: the C ring (2 x dc x kCLd), the transposed X tile of
-// x_feats features (x_feats x kXLd: d resident, 2 x kMaxDepth streamed),
-// |x|^2, each row's label and min distance, then (shared_best) the
-// threads' running minima, and `extra` floats of the kernel's own.
+// x_feats features (x_feats x kXLd), |x|^2, each row's label and min
+// distance, then (shared_best) the threads' running minima, and `extra`
+// floats of the kernel's own.
 __host__ __device__ inline size_t smem_bytes(int x_feats, int dc,
                                              size_t extra = 0,
                                              bool shared_best = false) {
@@ -196,9 +183,9 @@ __host__ inline int max_features(int device, size_t extra = 0,
 }
 
 // How one launch sweeps width d: the resident tile with stage depth dc
-// wherever it fits and streaming is not forced, else X streamed in slabs
-// of kMaxDepth features (dc = kMaxDepth); smem its shared bytes.  Depends
-// on (d, extra, device) only, so a relaunch takes the same path.
+// and smem shared bytes wherever it fits and streaming is not forced, else
+// X streams (stream; the streamed kernels size themselves).  Depends on
+// (d, extra, device) only, so a relaunch takes the same path.
 struct SweepPlan {
   int dc;
   bool stream;
@@ -212,18 +199,16 @@ __host__ inline cudaError_t plan_sweep(int d, size_t extra, bool shared_best,
   if (err != cudaSuccess) return err;
   const int optin = optin_bytes(device);
   if (optin < 0) return cudaErrorInvalidValue;
-  const int dc = force_stream ? 0 : stage_depth(d, optin, extra, shared_best);
-  plan->stream = dc == 0;
-  plan->dc = plan->stream ? kMaxDepth : dc;
-  plan->smem = smem_bytes(plan->stream ? 2 * kMaxDepth : d, plan->dc, extra,
-                          shared_best);
-  return plan->smem <= (size_t)optin ? cudaSuccess : cudaErrorInvalidValue;
+  plan->dc = force_stream ? 0 : stage_depth(d, optin, extra, shared_best);
+  plan->stream = plan->dc == 0;
+  plan->smem = plan->stream ? 0 : smem_bytes(d, plan->dc, extra, shared_best);
+  return cudaSuccess;
 }
 
 struct Tile {
   float* ring;      // 2 x dc x kCLd, first: 16-byte copies land here
   float* xs;        // x_feats x kXLd: xs[feature * kXLd + row], zero past
-                    // the rows (streamed: two slabs of dc features)
+                    // the rows
   float* xsq;       // kRows
   float* mind;      // kRows
   int* lab;         // kRows
@@ -271,63 +256,6 @@ __device__ void load_rows(const Tile& sm, const TX* __restrict__ x,
     sm.xsq[threadIdx.x] = s;
   }
   __syncthreads();
-}
-
-// The streamed path's X: the tile's rows, read a slab of kMaxDepth
-// features a stage.
-template <typename TX>
-struct XRows {
-  const TX* src = nullptr;   // the tile's first row (row-major, d columns)
-  int rows = 0;              // rows of the tile that hold data
-};
-
-// Thread t's share of the slab at features [d0, d0 + kMaxDepth): feature
-// t % kMaxDepth of rows t / kMaxDepth + q * (kThreads / kMaxDepth), so a
-// warp reads consecutive features of one row.  Plain loads at any
-// alignment, left in registers as they are (a conversion would wait for
-// them); returns bit q set where element q holds data.
-template <typename TX>
-__device__ __forceinline__ unsigned fetch_slab(const XRows<TX>& xr, int d,
-                                               int d0, TX (&v)[kSlabLoads]) {
-  const int f = threadIdx.x % kMaxDepth;
-  const bool in_d = d0 + f < d;
-  unsigned ok = 0;
-#pragma unroll
-  for (int q = 0; q < kSlabLoads; ++q) {
-    const int r = q * (kThreads / kMaxDepth) + threadIdx.x / kMaxDepth;
-    if (in_d && r < xr.rows) {
-      v[q] = xr.src[(int64_t)r * d + d0 + f];
-      ok |= 1u << q;
-    } else {
-      v[q] = TX();
-    }
-  }
-  return ok;
-}
-
-// fetch_slab's elements into a slab slot (xs[feature * kXLd + row]),
-// converted to f32; zero where no data is (rows past the data, features
-// past d).
-template <typename TX>
-__device__ __forceinline__ void store_slab(float* slot,
-                                           const TX (&v)[kSlabLoads],
-                                           unsigned ok) {
-  const int f = threadIdx.x % kMaxDepth;
-#pragma unroll
-  for (int q = 0; q < kSlabLoads; ++q) {
-    const int r = q * (kThreads / kMaxDepth) + threadIdx.x / kMaxDepth;
-    slot[f * kXLd + r] = (ok >> q) & 1u ? to_f32(v[q]) : 0.f;
-  }
-}
-
-// The streamed path's first slab (features [0, kMaxDepth)) into slot 0;
-// the sweep's first barrier makes it visible.
-template <typename TX>
-__device__ __forceinline__ void load_first_slab(const Tile& sm,
-                                                const XRows<TX>& xr, int d) {
-  TX v[kSlabLoads];
-  const unsigned ok = fetch_slab(xr, d, 0, v);
-  store_slab(sm.xs, v, ok);
 }
 
 constexpr int kWarps = kThreads / 32;
@@ -495,18 +423,12 @@ __device__ __forceinline__ int row_of(int ty, int i) {
 // of 4: a vector lies in one group) takes each slot's group from its
 // vector and merges a chunk that lies in one group without masks; kHalf
 // (at most 32 live vectors: one chunk, half full) does half the FMAs.
-//
-// kStream: X streams (dc = kMaxDepth): the caller has stored the first
-// slab into slot 0 (load_first_slab) and not computed |x|^2; stage s
-// reads slab slot s & 1, and fetches stage s + 1's slab from xr while it
-// multiplies.  Threads 0-63 carry their row's |x|^2 chain across the first
-// chunk's slabs and store it before the chunk's distances.
 template <bool kBounded, bool kSharedBest = kBounded, bool kVecGroups = false,
-          bool kHalf = false, bool kStream = false, typename TX = float>
+          bool kHalf = false>
 __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
                       const float* __restrict__ csq, int k, int d, int dc,
                       const Skip& skip, int n_first = 0,
-                      int n_second = 0, XRows<TX> xr = XRows<TX>{}) {
+                      int n_second = 0) {
   const int ty = threadIdx.x / 32, tx = threadIdx.x % 32;
   const int n_ds = cdiv(d, dc);
   // the bounded sweep adds a chunk's stages when fill finds it
@@ -540,11 +462,10 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     best[i] = kBounded ? sm.mind[row_of(ty, i)] : INFINITY;
-    arg[i] = kBounded ? -1 : 0x7fffffff;
+    arg[i] = kBounded ? -1 : 0;   // unbounded: (inf, 0), see the header
   }
   save_best();
   float acc[8][8];
-  float xsq = 0.f;   // (kStream, threads 0-63) the row's |x|^2 so far
   if (!kBounded && n_stages > 0) start_stage<false>(sm, ct, k, d, dc, 0, skip);
   for (int kc = 0; kc * n_ds < n_stages; ++kc) {
 #pragma unroll
@@ -553,32 +474,18 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
       for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
     for (int ds = 0; ds < n_ds; ++ds) {
       const int s = kc * n_ds + ds, d0 = ds * dc;
-      TX xv[kStream ? kSlabLoads : 1];   // (kStream) stage s + 1's slab
-      unsigned x_ok = 0;
       if (s + 1 < n_stages) {
         // slot (s + 1) & 1 was consumed at s - 1
         start_stage<kBounded>(sm, ct, k, d, dc, s + 1, skip,
                               ds == n_ds - 1 ? n_next : n_cur);
-        if constexpr (kStream)
-          x_ok = fetch_slab(xr, d, ds == n_ds - 1 ? 0 : d0 + dc, xv);
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncthreads();
-      const float* xslab =
-          kStream ? sm.xs + (s & 1) * dc * kXLd : sm.xs + (size_t)d0 * kXLd;
-      const float* xcol = xslab + ty * 4;
+      const float* xcol = sm.xs + (size_t)d0 * kXLd + ty * 4;
       const float* ccol = sm.ring + (s & 1) * dc * kCLd + tx * 4;
       const int depth = min(dc, d - d0);
-      if (kStream && kc == 0 && threadIdx.x < kRows) {
-        // load_rows' chain, in the same order, a slab at a time
-        for (int kk = 0; kk < depth; ++kk) {
-          const float v = xslab[kk * kXLd + threadIdx.x];
-          xsq = fmaf(v, v, xsq);
-        }
-        if (ds == n_ds - 1) sm.xsq[threadIdx.x] = xsq;
-      }
       if (kHalf) {
         // the live vectors fit the first 128 slots: half the FMAs
 #pragma unroll 4
@@ -612,10 +519,6 @@ __device__ void sweep(const Tile& sm, const float* __restrict__ ct,
             for (int j = 0; j < 8; ++j)
               acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
         }
-      }
-      if constexpr (kStream) {
-        if (s + 1 < n_stages)
-          store_slab(sm.xs + ((s + 1) & 1) * dc * kXLd, xv, x_ok);
       }
       __syncthreads();            // slot s & 1 is consumed
     }

@@ -4,7 +4,7 @@
 // path, on float32 or mixed operands.  launch_assign (the one launcher of
 // both) picks it, sweep_fp32.cuh's resident assign_tiles, or, where X and
 // C are both bfloat16, sweep_tc.cuh's tensor-core sweep.  The bounded
-// sweep streams through sweep_fp32.cuh's own kStream path.
+// step's streamed sweep (sweep_bounded.cuh) is built on this design.
 //
 // What bounds it: 2*N*K*d FP32 operations on the CUDA cores (67 TFLOP/s):
 // 4.02 ms at 128,256 x 4096, K = 256, against 2.1 GB of X read once (0.63
@@ -12,13 +12,14 @@
 // 1e-5 gate (sweep_fp32.cuh), so the FMA rate is the roof, and the design
 // is an FP32 GEMM whose epilogue is the argmin.
 //
-// Where the 8 x 8 streamed sweep this replaced (sweep_fp32.cuh's kStream,
-// which the bounded sweep keeps) lost time: 7.37 ms on an H100 SXM, 1.36x
-// addmm + argmin.  Its running minima (16 registers) and the prefetched
-// slab stayed live across the FMA loop, so ptxas spilled 492 bytes; two
-// warps carried the 64 |x|^2 chains while six waited at the next barrier;
-// two barriers guarded each 32-feature stage of a two-slot ring; and each
-// 64 FMAs of a lane cost four 16-byte shared loads.
+// Where the 8 x 8 streamed sweep this replaced (once in sweep_fp32.cuh,
+// and the bounded step's until sweep_bounded.cuh replaced it too) lost
+// time: 7.37 ms on an H100 SXM, 1.36x addmm + argmin.  Its running minima
+// (16 registers) and the prefetched slab stayed live across the FMA loop,
+// so ptxas spilled 492 bytes; two warps carried the 64 |x|^2 chains while
+// six waited at the next barrier; two barriers guarded each 32-feature
+// stage of a two-slot ring; and each 64 FMAs of a lane cost four 16-byte
+// shared loads.
 //
 // This design (each choice timed in turns against alternatives on the
 // card; PERF.md lists them):
@@ -38,12 +39,14 @@
 //    between chunks, all in nearest.cuh's total order (NaN first, value,
 //    index).  That order gives the sequential scan's answer under any
 //    split of a row's slots: a lane scans its slots in increasing order
-//    from (inf, INT_MAX) and takes a distance that is smaller, or the
-//    first NaN, which is the minimum under before() of the pairs it saw
-//    (ties keep the lower index; a lane that sees only +inf keeps (inf,
-//    INT_MAX), as the scan does); before() is a strict total order on
-//    pairs with distinct indices, so the minimum of minima over lanes,
-//    warps and chunks, in any grouping, is the minimum over all slots.
+//    from (inf, 0) and takes a distance that is smaller, or the first NaN,
+//    which is the minimum under before() of the pairs it saw (ties keep
+//    the lower index); before() is a strict total order on pairs with
+//    distinct indices, so the minimum of minima over lanes, warps and
+//    chunks, in any grouping, is the minimum over all slots.  The start
+//    (inf, 0) is centroid 0's pair where its distance is +inf, and loses
+//    to every other pair: a row whose every distance is +inf gets label
+//    0, as the first index of the minimum, and never an index >= K.
 //  - Stages of 32 features in a three-slot ring, two stages ahead, one
 //    block barrier a stage.  One thread starts each stage's copies by TMA
 //    onto the slot's mbarrier: C's (32 features x 256 slots of the
@@ -386,7 +389,7 @@ assign_stream(const __grid_constant__ CUtensorMap cmap,
 #pragma unroll
     for (int i = 0; i < kLaneRows; ++i) {
       best[i] = INFINITY;
-      arg[i] = 0x7fffffff;
+      arg[i] = 0;   // (inf, 0): see the header
     }
 #pragma unroll
     for (int j = 0; j < kSlots; ++j) {
@@ -455,6 +458,49 @@ assign_stream(const __grid_constant__ CUtensorMap cmap,
   }
 }
 
+// C transposed (prepare_c's ct: (R, d, k_pad) f32) as a tensor map of
+// boxes of kCents slots x kDepth features, zero past d.
+__host__ inline cudaError_t encode_c_map(CUtensorMap* map, const float* ct,
+                                         int r, int k, int d) {
+  const uint64_t k_pad = f8::pad_centroids(k);
+  const uint64_t dims[3] = {k_pad, (uint64_t)d, (uint64_t)r};
+  const uint64_t strides[2] = {k_pad * sizeof(float),
+                               d * k_pad * sizeof(float)};
+  const uint32_t box[3] = {kCents, kDepth, 1};
+  return encode3(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ct, dims, strides,
+                 box, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// Whether X's rows start 16-byte aligned (the base, d and the problem
+// stride), so that its slabs may come by TMA.
+template <typename TX>
+__host__ inline bool x_tma_aligned(const TX* x, int64_t x_rstride, int d) {
+  constexpr int kAlign = 16 / sizeof(TX);   // elements in 16 bytes
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && d % kAlign == 0 &&
+         x_rstride % kAlign == 0;
+}
+
+// X (R, n, d), or one (n, d) that every problem reads (x_rstride 0), as a
+// tensor map of boxes of kDepth features x kRows rows, zero past d and n:
+// f32 with TMA's 128-byte swizzle, bf16 unswizzled.
+template <typename TX>
+__host__ inline cudaError_t encode_x_map(CUtensorMap* map, const TX* x,
+                                         int64_t x_rstride, int r, int n,
+                                         int d) {
+  constexpr bool kF32 = std::is_same<TX, float>::value;
+  const uint64_t dims[3] = {(uint64_t)d, (uint64_t)n,
+                            (uint64_t)(x_rstride ? r : 1)};
+  const uint64_t strides[2] = {
+      d * sizeof(TX), (x_rstride ? x_rstride : (int64_t)n * d) * sizeof(TX)};
+  const uint32_t box[3] = {kDepth, kRows, 1};
+  return encode3(map,
+                 kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                 x, dims, strides, box,
+                 kF32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
 // The streamed sweep on stream s over ct and csq (prepare_c's): X by TMA
 // where its rows start 16-byte aligned, else by plain loads.
 template <typename TX>
@@ -462,33 +508,12 @@ __host__ inline cudaError_t launch(cudaStream_t s, const TX* x,
                                    int64_t x_rstride, const float* ct,
                                    const float* csq, int r, int n, int k,
                                    int d, int* labels, float* mind) {
-  constexpr bool kF32 = std::is_same<TX, float>::value;
-  constexpr int kAlign = 16 / sizeof(TX);   // elements in 16 bytes
-  const uint64_t k_pad = f8::pad_centroids(k);
-  const uint64_t c_dims[3] = {k_pad, (uint64_t)d, (uint64_t)r};
-  const uint64_t c_strides[2] = {k_pad * sizeof(float),
-                                 d * k_pad * sizeof(float)};
-  const uint32_t c_box[3] = {kCents, kDepth, 1};
   CUtensorMap cmap{}, xmap{};
-  cudaError_t err = encode3(&cmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ct,
-                            c_dims, c_strides, c_box,
-                            CU_TENSOR_MAP_SWIZZLE_NONE);
+  cudaError_t err = encode_c_map(&cmap, ct, r, k, d);
   if (err != cudaSuccess) return err;
   const dim3 grid(cdiv(n, kRows), r);
-  if (reinterpret_cast<uintptr_t>(x) % 16 == 0 && d % kAlign == 0 &&
-      x_rstride % kAlign == 0) {
-    // X (R, n, d), or one (n, d) that every problem reads
-    const uint64_t x_dims[3] = {(uint64_t)d, (uint64_t)n,
-                                (uint64_t)(x_rstride ? r : 1)};
-    const uint64_t x_strides[2] = {
-        d * sizeof(TX), (x_rstride ? x_rstride : (int64_t)n * d) * sizeof(TX)};
-    const uint32_t x_box[3] = {kDepth, kRows, 1};
-    err = encode3(&xmap,
-                  kF32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                  x, x_dims, x_strides, x_box,
-                  kF32 ? CU_TENSOR_MAP_SWIZZLE_128B
-                       : CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (x_tma_aligned(x, x_rstride, d)) {
+    err = encode_x_map(&xmap, x, x_rstride, r, n, d);
     if (err != cudaSuccess) return err;
     err = set_smem(assign_stream<TX, true>, smem_bytes());
     if (err != cudaSuccess) return err;

@@ -13,9 +13,11 @@ the skipped share exact and every skipped group's minimum bit for bit
 The fused step launches the assignment kernel's own sweep (8 x 8 register
 blocks, csrc/sweep_fp32.cuh; past the resident X tile the streamed sweep
 of csrc/sweep_wide.cuh), so its labels and distances are the
-assignment's by construction; the bounded sweep computes each distance
-with the same FMA chain.  On exact small-integer data every distance is
-exact, so a tie goes to the lowest index.  Relaunches are bitwise equal.
+assignment's by construction; the bounded sweep (past the resident tile
+csrc/sweep_bounded.cuh's) computes each distance with the same FMA chain.
+On exact small-integer data every distance is exact, so a tie goes to the
+lowest index; a row whose every distance is +inf gets label 0 (the
+bounded step: its seed).  Relaunches are bitwise equal.
 
 On bfloat16 X and C the assignment and the fused step run the tensor-core
 sweep (csrc/sweep_tc.cuh), whose f32 sums of the bf16 products run in
@@ -2012,3 +2014,120 @@ def test_tensor_core_sweep_refuses_forced_streaming(cuda):
     before = A.stream_launches
     A.assignment(xb, c, _stream=True)
     assert A.stream_launches == before + 1
+
+
+# The bounded step's streamed sweep (csrc/sweep_bounded.cuh): 128-row
+# blocks, each two of the skip test's 64-row tiles, and 256-slot chunks of
+# the live 16-byte vectors of C.
+
+
+def _tile_bounds(x, c, gs, seed):
+    """Bounds under which adjacent 64-row tiles compute different groups:
+    lab0 a random label and ub^2 the squared distance to it (an upper
+    bound), each tile computing a random half of the groups (one random
+    row of the tile with lb^2 = 0 a group), every other cell lb^2 = 2 ub^2
+    + 1 (above the bound).  -> (lab0, lb_sq, ub_sq) on the CPU."""
+    rng = np.random.default_rng(seed)
+    n, k = x.shape[0], c.shape[0]
+    g = -(-k // gs)
+    lab0 = rng.integers(0, k, n)
+    xd, cd = x.double().cpu(), c.double().cpu()
+    ub_sq = ((xd - cd[torch.from_numpy(lab0)]) ** 2).sum(-1).float()
+    lb_sq = (2 * ub_sq + 1)[:, None].repeat(1, g)
+    for t in range(-(-n // 64)):
+        rows = np.arange(64 * t, min(64 * t + 64, n))
+        for grp in rng.choice(g, size=g // 2, replace=False):
+            lb_sq[rng.choice(rows), grp] = 0.0
+    return torch.from_numpy(lab0.astype(np.int32)), lb_sq, ub_sq
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,gs", [(300, 16), (900, 48), (93, 5), (1000, 53)])
+@pytest.mark.parametrize("d", [1023, 4096])
+def test_streamed_bounds_tiles_need_different_groups(cuda, d, k, gs):
+    """G = 19 at a ragged N = 777 (the last 128-row block one partial
+    64-row tile): each 64-row tile computes its own random half of the
+    groups, so the two tiles of a block differ and the block computes
+    their union.  gs 16 and 48 with K a multiple of 4 (each vector in one
+    group; gs 48 groups straddle the 256-slot chunks), gs 5 and 53 the
+    general merge (K = 93 not a multiple of 4; gs 53 groups straddle
+    chunks); d = 1023 takes X by plain loads, 4096 by TMA.  The streamed
+    launch against the plain version: labels exact, min distances and
+    computed group minima within 1e-5 of |x|^2, the skipped share exact
+    and every skipped cell's lb^2 passed through bit for bit; a relaunch
+    equal, and a bf16 X equal to the launch on its upcast values."""
+    x, c, _ = _mixture(cuda, 777, d, k, None, False, None, seed=d + k)
+    lab0, lb_sq, ub_sq = _tile_bounds(x, c, gs, seed=k)
+    assert lb_sq.shape[1] == 19
+    need = ref.computed_cells(lb_sq, ub_sq, 64)[::64]
+    assert not torch.equal(need[0], need[1])
+    assert 0.0 < float(need.float().mean()) < 1.0
+    bnds = tuple(t.to(cuda) for t in (lab0, lb_sq, ub_sq))
+    before = _counts()
+    got = F.fused_lloyd(x, c, None, bounds=bnds, gs=gs)
+    after = _counts()
+    assert [b - a for a, b in zip(before, after)] == [0, 0, 1, 1, 0, 0, 0,
+                                                      0, 0]
+    _assert_equal(F.fused_lloyd(x, c, None, bounds=bnds, gs=gs), got)
+    xb = x.bfloat16()
+    _assert_equal(F.fused_lloyd(xb, c, None, bounds=bnds, gs=gs),
+                  F.fused_lloyd(xb.float(), c, None, bounds=bnds, gs=gs))
+    got = [t.cpu() for t in got]
+    want = [t.cpu() for t in F.fused_bounds_plain(
+        x, c, None, *bnds, gs, build.tile_rows())]
+    atol = _wide_atol(x)
+    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
+    _assert_energy_close(got[4], want[4], x, None, seeded=True)
+    computed = ref.computed_cells(lb_sq, ub_sq, 64)
+    np.testing.assert_allclose(got[5][computed], want[5][computed],
+                               rtol=1e-5, atol=atol)
+    assert torch.equal(got[5][~computed], lb_sq[~computed])
+    assert torch.equal(got[6], want[6])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kernel", ["assignment", "fused", "bounded"])
+@pytest.mark.parametrize("d", [69, 4096])
+def test_rows_at_infinite_distance_keep_a_real_label(cuda, d, kernel, bf16):
+    """Rows with one feature at 3e19, whose |x|^2 overflows f32, so that
+    their distance to every real centroid is +inf, in three 128-row tiles
+    (the first, a middle one and the ragged last), at K = 300: not a
+    multiple of the FP32 sweeps' 256-slot chunk or the tensor-core sweep's
+    128.  Each kernel's labels lie in [0, K) and equal the plain
+    version's: the first index, 0, where nothing bounds the row, and the
+    bounded step's seed lab0 (ub^2 = +inf keeps a tie); those rows' min
+    distances are +inf; every other row as the plain version gives it
+    (bf16 X and C on the tensor cores: but at near ties)."""
+    n, k, gs = 777, 300, 16
+    x, c, _ = _mixture(cuda, n, d, k, None, False, None, seed=61 + d)
+    far = [0, 300, n - 1]
+    x[far, 5] = 3e19
+    if bf16:
+        x, c = x.bfloat16(), c.bfloat16()
+    if kernel == "assignment":
+        got, want = A.assignment(x, c), A.assignment_plain(x, c)
+    elif kernel == "fused":
+        got, want = F.fused_lloyd(x, c), F.fused_lloyd_plain(x, c)
+    else:
+        lab0 = torch.from_numpy(np.random.default_rng(d).integers(
+            0, k, n).astype(np.int32)).to(cuda)
+        bnds = (lab0, torch.zeros((n, -(-k // gs)), device=cuda),
+                torch.full((n,), float("inf"), device=cuda))
+        got = F.fused_lloyd(x, c, bounds=bnds, gs=gs)
+        want = F.fused_bounds_plain(x, c, None, *bnds, gs, build.tile_rows())
+    lab, want_lab = got[0].cpu(), want[0].cpu()
+    assert 0 <= int(lab.min()) and int(lab.max()) < k
+    assert torch.equal(lab[far], want_lab[far])
+    assert bool(torch.isinf(got[1][far]).all())
+    if bf16 and kernel != "bounded":
+        assert ref.tie_gap(lab[None], want_lab[None], x.float().cpu(),
+                           c.float().cpu()[None])[1] <= ref.NEAR_TIE
+    else:
+        np.testing.assert_array_equal(lab.numpy(), want_lab.numpy())
+    if kernel != "assignment":
+        np.testing.assert_array_equal(got[3].cpu().numpy(),
+                                      want[3].cpu().numpy())
