@@ -648,6 +648,9 @@ def distance_bound_ms(n_bytes, n_cross, n_other):
 # per (row, centroid), csrc/sweep_tc.cuh's take(): FFMA, FADD, FMNMX, IADD3,
 # ISETP and two SEL (the SASS opcode mix of scripts/tc_sweep_probe.py).
 TC_EPILOGUE_INSTR = 7
+# The bounded step's epilogue adds one IMNMX a (row, centroid): the running
+# minimum key of the open group (sweep_tc.cuh's fold_bounded).
+TC_BOUNDED_INSTR = TC_EPILOGUE_INSTR + 1
 
 
 def bf16_bound_ms(n_bytes, n_cross, n_other):
@@ -668,13 +671,13 @@ def bf16_bound_ms(n_bytes, n_cross, n_other):
         bound_ms(n_bytes, n_cross + n_other)[0]
 
 
-def tc_other(n, k, d, chains=False):
+def tc_other(n, k, d, chains=False, instr=TC_EPILOGUE_INSTR):
     """The CUDA-core operations of the tensor-core sweep over n rows and k
     centroids of width d, at the FP32 rate (an instruction slot counting
-    2): the epilogue's TC_EPILOGUE_INSTR a (row, centroid), and with
-    ``chains`` the |x|^2 FMA chains (the fused step's bound has always
-    counted them)."""
-    return 2 * TC_EPILOGUE_INSTR * n * k + (2 * n * d if chains else 0)
+    2): the epilogue's ``instr`` a (row, centroid) (TC_BOUNDED_INSTR in
+    the bounded step), and with ``chains`` the |x|^2 FMA chains (the
+    fused step's bound has always counted them)."""
+    return 2 * instr * n * k + (2 * n * d if chains else 0)
 
 
 def mm_argmin(torch, x, c, csq):
@@ -713,23 +716,25 @@ def cross_error(torch, assignment, x, c):
 
 def tc_sass(build):
     """The HGMMA instructions of the tensor-core sweep's kernels in the
-    built assignment and fused libraries (``cuobjdump -sass``): {library:
-    {kernel: count}}."""
+    built assignment, fused and bounded libraries (``cuobjdump -sass``):
+    {library: {kernel: count}}."""
     cuobjdump = str(Path(build._nvcc()).parent / "cuobjdump")
     out = {}
-    for lib in ("assignment", "fused_lloyd"):
+    for lib, kernel in (("assignment", "assign_tc"),
+                        ("fused_lloyd", "assign_tc"),
+                        ("fused_bounds", "bounds_tc")):
         funs = sass_functions(cuobjdump, build.library_path(lib))
         out[lib] = {f: sum(n for op, n in opcode_counts(ins).items()
                            if op.startswith("HGMMA"))
-                    for f, ins in funs.items() if "assign_tc" in f}
+                    for f, ins in funs.items() if kernel in f}
     return out
 
 
 def ptxas_report(lib_path, pattern):
-    """{kernel: ptxas' registers and spill bytes} of the kernels of a built
-    library whose names match the regular expression ``pattern``, from the
-    compiler log that kernels/build.py keeps beside it (empty when there is
-    none)."""
+    """{kernel: ptxas' registers, stack and spill bytes} of the kernels of
+    a built library whose names match the regular expression ``pattern``,
+    from the compiler log that kernels/build.py keeps beside it (empty
+    when there is none)."""
     log = Path(lib_path).with_suffix(".log")
     out, name = {}, None
     for line in (log.read_text().splitlines() if log.exists() else ()):
@@ -740,12 +745,12 @@ def ptxas_report(lib_path, pattern):
             continue
         if name is None:
             continue
-        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                          line)
+        found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
         if found:
             out.setdefault(name, {}).update(
-                spill_stores=int(found.group(1)),
-                spill_loads=int(found.group(2)))
+                stack=int(found.group(1)), spill_stores=int(found.group(2)),
+                spill_loads=int(found.group(3)))
         found = re.search(r"Used (\d+) registers", line)
         if found:
             out.setdefault(name, {})["registers"] = int(found.group(1))
@@ -3017,6 +3022,7 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
     against its plain version)."""
     import tempfile
 
+    import numpy as np
     from repro_torch.core import AAKMeans, MiniBatchAAKMeans, get_backend
     from repro_torch.core.api import PREDICT_CHUNK
     from repro_torch.core.backends import Precision, bounds
@@ -3026,7 +3032,7 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_lloyd as F
     from repro_torch.kernels import update as U
-    from repro_torch.kernels.ref import NEAR_TIE, tie_gap
+    from repro_torch.kernels.ref import tie_gap
     bf16 = torch.bfloat16
     policy = Precision(compute=bf16)
     n, d = x.shape
@@ -3090,9 +3096,13 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
             "update": res_u["sums_abs"]}
     tc = {"cross_error": {d: cross}, "hgmma": sass}
     del got_u, lab_a
-    # the bounded step: at the init carry with the default groups (G = 2,
-    # nothing skipped), and on the bounds of one bf16-policy step with
-    # 64-centroid groups
+    # the bounded step on the tensor cores: at the init carry with the
+    # default groups (G = 2, nothing skipped), and on the bounds of one
+    # bf16-policy step with 64-centroid groups, held to the tensor-core
+    # contract (compare_wide: labels but at near ties, distances and
+    # computed group minima within 1e-5 of |x|^2 + max |c|^2, skipped
+    # minima and the skipped share exact); then the bit-exact anchor
+    # (ub^2 = +inf, lb^2 = 0, random lab0): the bf16 fused step's outputs
     gs_main = engine_group_size(k)
     c_p = cb[None]
     bnd0 = squared_bounds(bounds.init_carry(x, c_p, k, gs_main),
@@ -3108,19 +3118,38 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
     for what, cc, gs, bnds in (("default groups, skip 0", c_p, gs_main, bnd0),
                                (f"gs {gs_g}, one step's bounds", c_g, gs_g,
                                 bnd_g)):
+        zero_counts()
         got_b = F.fused_lloyd(xb, cc, bounds=bnds, gs=gs)
-        res_b = compare_bounds(torch, got_b, F.fused_bounds_plain(
-            xb, cc, None, *bnds, gs, tile_rows), xb, cc, None, bnds[1],
-            bnds[2], tile_rows)
-        eq_b = same(got_b, F.fused_lloyd(xb.float(), cc.float(), bounds=bnds,
-                                         gs=gs))
+        counts, _ = read_counts()
+        res_b = compare_wide(torch, got_b, F.fused_bounds_plain(
+            xb, cc, None, *bnds, gs, tile_rows), xb, cc, None,
+            bounds=(bnds[1], bnds[2]), tile_rows=tile_rows)
+        rep_b = same(F.fused_lloyd(xb, cc, bounds=bnds, gs=gs), got_b)
         print(f"  fused_bounds bf16 ({what}) vs plain: {fmt_bounds(res_b)}; "
-              f"vs its f32 launch: bit-equal {eq_b}")
-        accept_bounds(res_b, f"bf16 fused_bounds ({what})",
-                      exact_labels=False)
-        check(eq_b, f"the bf16 bounded step ({what}) is not its f32 launch")
+              f"relaunch bit-equal {rep_b}; on the tensor cores "
+              f"{counts['fused_bounds_tc']} of {counts['fused_bounds']}")
+        accept_wide(res_b, f"bf16 fused_bounds ({what})")
+        check(rep_b, f"the bf16 bounded step ({what}): a relaunch differs")
+        check(counts["fused_bounds_tc"] == counts["fused_bounds"] == 1,
+              f"the bf16 bounded step ({what}) did not take the tensor "
+              f"cores")
         errs["fused_bounds"] = max(errs["fused_bounds"], res_b["mind_abs"])
     del got_b, carry, res_g
+    lab0 = torch.randint(0, k, (n,), generator=torch.Generator(
+        device=x.device).manual_seed(17), device=x.device, dtype=torch.int32)
+    anchor = (lab0, torch.zeros((n, -(-k // gs_g)), device=x.device),
+              torch.full((n,), float("inf"), device=x.device))
+    got_b = F.fused_lloyd(xb, cb, bounds=anchor, gs=gs_g)
+    eq_anchor = same(got_b[:5], F.fused_lloyd(xb, cb))
+    eq_gmin = torch.equal(got_b[5].amin(dim=-1), got_b[1])
+    print(f"  fused_bounds bf16 at ub^2 = +inf, lb^2 = 0 (gs {gs_g}): the "
+          f"bf16 fused step's five outputs bit for bit {eq_anchor}; each "
+          f"row's least group minimum its distance {eq_gmin}; skipped "
+          f"{float(got_b[6])!r}", flush=True)
+    check(eq_anchor and eq_gmin and float(got_b[6]) == 0.0,
+          "the bf16 bounded step at ub^2 = +inf, lb^2 = 0 is not the bf16 "
+          "fused step")
+    del got_b, anchor, lab0
     # one bf16 fused step's device memory above its resident inputs: no
     # f32 copy of X (678 MB) may appear
     del got
@@ -3182,24 +3211,69 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
         counts, plain = read_counts()
         path_launches[f"bf16-policy {name} step"] = counts
         kname = "assignment" if name == "pallas" else "fused_bounds"
-        # pallas's assignment is the fused step's tensor-core sweep; the
-        # bounded step sums in f32 on the FP32 cores, so its labels part
-        # from the fused step's only at near ties
+        # pallas's assignment is the fused step's tensor-core sweep, and
+        # the bounded step shares its arithmetic: from the init carry
+        # (ub^2 = +inf, lb^2 = 0) it computes every cell, no seed wins, and
+        # its labels are the fused step's bit for bit
         agree, gap = tie_gap(lab_o[None], step_f[None], xb, cb_b)
         print(f"  {name} at the bf16 policy, one step from the fit's "
               f"centroids: labels agree with the bf16 fused step's on "
               f"{agree!r} of rows (near-tie gap {gap!r}); {kname} bf16 "
               f"launches {counts[kname + '_bf16']}, on the tensor cores "
-              f"{counts.get(kname + '_tc', 0)}")
-        if name == "pallas":
-            check(agree == 1.0 and counts["assignment_tc"] == 1,
-                  "pallas at the bf16 policy is not the fused step's sweep")
-        check(agree == 1.0 or gap <= NEAR_TIE,
-              f"{name} at the bf16 policy disagrees with fused beyond a "
-              f"near tie")
+              f"{counts[kname + '_tc']}")
+        check(agree == 1.0 and counts[kname + "_tc"] == 1,
+              f"{name} at the bf16 policy is not the fused step's sweep")
         check(counts[kname + "_bf16"] == 1 and plain == 0,
               f"{name} at the bf16 policy did not launch its bf16 kernel")
     del cb_b
+    # the slice's path: the bf16-policy fused_bounds fit from phase 5's
+    # seeds (default groups), every step on the tensor cores, and its
+    # predict
+    rec = StepRecorder(get_backend("fused_bounds", precision=policy))
+    model_bb = AAKMeans(n_clusters=k, backend=rec.backend, n_init=1)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model_bb.fit(x, c0s=c0_main[None])
+    torch.cuda.synchronize()
+    fit_bb_s = time.perf_counter() - t0
+    counts, plain = read_counts()
+    path_launches["bf16-policy fused_bounds fit"] = counts
+    trips_bb = trips_of(model_bb)
+    skips = torch.cat(rec.skips).tolist()
+    e32_bb = float(F.fused_lloyd(x, model_bb.centroids_)[4])
+    gap_bb = abs(e32_bb - model5.inertia_) / model5.inertia_
+    print(f"  the bf16-policy fused_bounds fit (phase 5's seeds, gs "
+          f"{gs_main}): {fit_bb_s!r} s (no seeding), {trips_bb} trips, "
+          f"n_iter_ {model_bb.n_iter_}, n_accepted_ {model_bb.n_accepted_}, "
+          f"inertia_ {model_bb.inertia_!r}; the f32 energy of its centroids "
+          f"{e32_bb!r}, {gap_bb!r} relative from phase 5's (the bf16-policy "
+          f"fused fit's {e32!r}: {fit_s!r} s, {trips} trips); fused_bounds "
+          f"launches {counts['fused_bounds']} (bf16 "
+          f"{counts['fused_bounds_bf16']}, on the tensor cores "
+          f"{counts['fused_bounds_tc']}) vs 1 + trips = {1 + trips_bb}; "
+          f"plain-version calls {plain}; skipped share per trip: first "
+          f"{skips[1]!r}, median {float(np.median(skips))!r}, mean "
+          f"{float(np.mean(skips))!r}, last {skips[-1]!r}", flush=True)
+    check(counts["fused_bounds"] == counts["fused_bounds_bf16"]
+          == counts["fused_bounds_tc"] == 1 + trips_bb, "bf16-policy "
+          "fused_bounds launches != 1 + trips, or not all on the tensor "
+          "cores")
+    check(plain == 0, "the bf16-policy fused_bounds fit called a plain "
+          "version")
+    check(gap_bb <= 0.02, "the bf16-policy fused_bounds fit's f32 energy is "
+          "more than 2 % from phase 5's")
+    zero_counts()
+    labels_bb = model_bb.predict(x)
+    counts, plain = read_counts()
+    path_launches["bf16-policy fused_bounds predict"] = counts
+    want = A.assignment(x, model_bb.centroids_)[0].cpu().numpy()
+    print(f"  its predict on all rows: equal to an f32 assignment of the "
+          f"fit's centroids {bool((labels_bb == want).all())} (assignment "
+          f"launches {counts['assignment']})", flush=True)
+    check(bool((labels_bb == want).all()) and plain == 0,
+          "the bf16-policy fused_bounds predict is not an f32 assignment")
+    del rec, model_bb, labels_bb, want
     zero_counts()
     labels = model.predict(x)
     counts, _ = read_counts()
@@ -3305,7 +3379,7 @@ def phase17(torch, x, c0_main, model5, fit5_s, mb11, zero_counts,
                            "fused_bounds")}
     on_tc = {kn: sum(c[f"{kn}_tc"] for path, c in path_launches.items()
                      if path.startswith("bf16"))
-             for kn in ("fused_lloyd", "assignment")}
+             for kn in ("fused_lloyd", "assignment", "fused_bounds")}
     tc["launches"] = on_tc
     print(f"  bf16 variants launched on phase 17's paths: {launched}; of them "
           f"on the tensor cores: {on_tc}; phase 17 took "
@@ -3568,14 +3642,10 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                     xk, ck, None, *bnds, gsr, tile_rows), xk, ck, None,
                     bounds=(bnds[1], bnds[2]), tile_rows=tile_rows)
                 eq = same(F.fused_lloyd(xk, ck, bounds=bnds, gs=gsr), got)
-                if dt == bf16:
-                    eq = eq and same(got, F.fused_lloyd(
-                        xk.float(), ck.float(), bounds=bnds, gs=gsr))
                 tag = "bf16" if dt == bf16 else "f32"
                 what = f"d={dd} K=256 N={n2} gs={gsr} {tag}"
                 print(f"  (a) [{what}] fused_bounds: {fmt_bounds(res)}; "
-                      f"relaunch equal"
-                      f"{', = the f32 launch' if dt == bf16 else ''}: {eq}")
+                      f"relaunch equal: {eq}")
                 accept_wide(res, f"wide fused_bounds [{what}]")
                 check(eq, f"wide fused_bounds [{what}]: a launch is not "
                       f"bit-equal")
@@ -3587,16 +3657,12 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
     print(f"  (a) {n_cases} cases in {time.perf_counter() - t0!r} s; "
           f"launches {counts}; streamed {streamed}; plain-version calls "
           f"{plain} (the comparisons')", flush=True)
-    # f32 launches stream X through the FP32 sweep; bf16 ones of the
-    # assignment and the fused step take the tensor cores
-    check(streamed["fused_lloyd"]
-          == counts["fused_lloyd"] - counts["fused_lloyd_tc"]
-          and streamed["assignment"]
-          == counts["assignment"] - counts["assignment_tc"]
-          and streamed["fused_bounds"] == counts["fused_bounds"],
-          "a wide f32 launch did not stream X")
-    check(counts["fused_lloyd_tc"] == counts["fused_lloyd_bf16"] > 0
-          and counts["assignment_tc"] == counts["assignment_bf16"] > 0,
+    # f32 launches stream X through the FP32 sweeps; bf16 ones take the
+    # tensor cores
+    check(all(streamed[kn] == counts[kn] - counts[f"{kn}_tc"]
+              for kn in streams), "a wide f32 launch did not stream X")
+    check(all(counts[f"{kn}_tc"] == counts[f"{kn}_bf16"] > 0
+              for kn in streams),
           "a wide bf16 launch did not take the tensor cores")
     for dd in (widest["assignment"], d):
         xd = table[:PREDICT_CHUNK, :dd].contiguous().to(bf16)
@@ -3617,20 +3683,6 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                 cs, gsr, bnds = drifted_bounds(16, xs, cs, None, steps=2)
             for dt in (torch.float32, bf16):
                 xk, ck = xs.to(dt), cs.to(dt)
-                if dt == bf16 and kname != "fused_bounds":
-                    # the tensor-core sweep has no streamed path to force
-                    try:
-                        (A.assignment(xk, ck, _stream=True)
-                         if kname == "assignment"
-                         else F.fused_lloyd(xk, ck, _stream=True))
-                        refused = False
-                    except ValueError:
-                        refused = True
-                    print(f"  (a) {kname} at d={dd} bf16: forcing the "
-                          f"stream refused {refused}")
-                    check(refused, f"{kname} at d={dd} bf16: a forced "
-                          f"stream was not refused")
-                    continue
                 if kname == "assignment":
                     def run(st):
                         return A.assignment(xk, ck, _stream=st)
@@ -3641,6 +3693,18 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                     def run(st):
                         return F.fused_lloyd(xk, ck, bounds=bnds, gs=gsr,
                                              _stream=st)
+                if dt == bf16:
+                    # the tensor-core sweep has no streamed path to force
+                    try:
+                        run(True)
+                        refused = False
+                    except ValueError:
+                        refused = True
+                    print(f"  (a) {kname} at d={dd} bf16: forcing the "
+                          f"stream refused {refused}")
+                    check(refused, f"{kname} at d={dd} bf16: a forced "
+                          f"stream was not refused")
+                    continue
                 zero_all()
                 resident = run(False)
                 _, _, s0 = read_all()
@@ -4014,6 +4078,16 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                     return tc_other(rows, kk, d, chains)
                 return 3 * rows * kk + (2 * rows * d if chains else 0)
 
+            def bounded_other(rows, kk, live):
+                """The bounded step's: the computed share's epilogue (on
+                the tensor-core route, TC_BOUNDED_INSTR a (row,
+                centroid)) and the |x|^2 chains."""
+                if tag:
+                    return live * tc_other(rows, kk, d, True,
+                                           TC_BOUNDED_INSTR) \
+                        + (1 - live) * 2 * rows * d
+                return live * 3 * rows * kk + 2 * rows * d
+
             if kn == "fused_lloyd":
                 row["plain_ms"] = event_ms(
                     torch, lambda i: F.fused_lloyd_plain(xx, cc), 3, warmup=1)
@@ -4056,7 +4130,9 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                 row["bounds"] = bound(
                     nb * (n * d + k * d) + 4 * (2 * n + n * g)
                     + 4 * (2 * n + n * g + k * d + k + 1) + 8,
-                    2 * n * k * d, 3 * n * k + 2 * n * d)
+                    2 * n * k * d, bounded_other(n, k, 1.0))
+                row["fused_subspace_ms"] = \
+                    turn_ms[f"fused_lloyd{tag} subspaces"]
                 g4 = bnd1000[1].shape[-1]
                 row["k1000"] = {
                     "ms": turn_ms[f"{name} K=1000"], "library_ms": None,
@@ -4064,7 +4140,7 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                     "bounds": bound(
                         nb * (n * d + k4 * d) + 4 * (2 * n + n * g4)
                         + 4 * (2 * n + n * g4 + k4 * d + k4 + 1) + 8,
-                        2 * n * k4 * d, 3 * n * k4 + 2 * n * d)}
+                        2 * n * k4 * d, bounded_other(n, k4, 1.0))}
                 # the sorted rows: the computed share's cross terms
                 live = 1.0 - skip_car
                 row["sorted_carried"] = {
@@ -4073,8 +4149,7 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                     "bounds": bound(
                         nb * (n * d + k * d) + 4 * (2 * n + n * g)
                         + 4 * (2 * n + n * g + k * d + k + 1) + 8,
-                        live * 2 * n * k * d,
-                        live * 3 * n * k + 2 * n * d)}
+                        live * 2 * n * k * d, bounded_other(n, k, live))}
             if kn in ("fused_lloyd", "assignment"):
                 # K = 1000 on all rows: four 256-centroid chunks (f32),
                 # eight of 128 (bf16)
@@ -4090,6 +4165,7 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
             row["launches"] = wide_launches[name]
             row["check_launches"] = check_launches[name]
             wide[name] = row
+            sorted_fused = row.get("sorted_carried", {}).get("fused_ms")
             lib_name = "mm (f32 out) + argmin" if tag else "addmm + argmin"
             b_ms, b_by, b_fp32 = row["bounds"]
             print(f"  (d) {name} at ({n}, {d}, {k}): {row['ms']!r} ms "
@@ -4125,7 +4201,12 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                      f"{row['sorted_carried']['fused_ms']!r} ms"
                      if "sorted_carried" in row else "")
                   + (f"; {row['ms'] / turn_ms['fused_lloyd' + tag]!r}x the "
-                     f"fused step in the same turns"
+                     f"fused step in the same turns (subspaces "
+                     f"{row['subspace_ms'] / row['fused_subspace_ms']!r}x, "
+                     f"K = {k4} "
+                     f"{row['k1000']['ms'] / row['k1000']['fused_ms']!r}x, "
+                     f"sorted rows "
+                     f"{row['sorted_carried']['ms'] / sorted_fused!r}x)"
                      if kn == "fused_bounds" else "")
                   + f"; launches on (b) and (c) {row['launches']}, in (a)"
                   f" {row['check_launches']}")
@@ -4148,11 +4229,18 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
     b_ptxas = ptxas_report(build.library_path("fused_bounds"),
                            "bounds_stream")
     wide["fused_bounds"]["stream_ptxas"] = b_ptxas
+    tcb_ptxas = ptxas_report(build.library_path("fused_bounds"), "bounds_tc")
+    wide["fused_bounds_bf16"]["tc_ptxas"] = tcb_ptxas
     print(f"  (d) ptxas, the streamed sweep: {ptxas}; the tensor-core sweep: "
-          f"{tc_ptxas}; the bounded streamed sweep: {b_ptxas}")
+          f"{tc_ptxas}; the bounded streamed sweep: {b_ptxas}; the bounded "
+          f"tensor-core sweep: {tcb_ptxas}")
     check(all(r.get("spill_stores", 0) + r.get("spill_loads", 0) == 0
               for r in b_ptxas.values()) and len(b_ptxas) > 0,
           "the bounded streamed sweep spills, or ptxas reported nothing")
+    check(all(r.get("spill_stores", 0) + r.get("spill_loads", 0)
+              + r.get("stack", 0) == 0 for r in tcb_ptxas.values())
+          and len(tcb_ptxas) == 2, "the bounded tensor-core sweep spills or "
+          "keeps a stack frame, or ptxas reported nothing")
     print(f"  X is read once per 256-centroid chunk: {-(-k // 256)} time(s) "
           f"a step at K = {k}, {-(-k4 // 256)} at K = {k4}; phase 18 took "
           f"{time.perf_counter() - t_phase!r} s", flush=True)
@@ -4442,7 +4530,8 @@ def run():
                 "update_bf16": (U, "bf16_launches", None),
                 "fused_bounds_bf16": (F, "bounds_bf16_launches", None),
                 "fused_lloyd_tc": (F, "tc_launches", None),
-                "assignment_tc": (A, "tc_launches", None)}
+                "assignment_tc": (A, "tc_launches", None),
+                "fused_bounds_tc": (F, "bounds_tc_launches", None)}
     path_launches = {}
 
     def zero_counts():
@@ -5143,6 +5232,11 @@ def run():
     bnds_b = squared_bounds(bounds.init_carry(x, cb_p, k, gs_main),
                             cb_p.float(), k, gs_main)
     skip_b = float(F.fused_lloyd(x_bf, cb_p, bounds=bnds_b, gs=gs_main)[6][0])
+    # and on phase 5c's cluster-ordered rows at its last step's bounds
+    # (G = 16), where most cells skip
+    x_ord_b, cs_last_b = x_ord.to(torch.bfloat16), cs_last.to(torch.bfloat16)
+    skip_ob = float(F.fused_lloyd(x_ord_b, cs_last_b, bounds=bnds_o,
+                                  gs=gs_o)[6][0])
     n_chunks_b = n // PREDICT_CHUNK
 
     def chunk_b(i):
@@ -5157,7 +5251,10 @@ def run():
         "assignment bf16, chunk": lambda i: A.assignment(chunk_b(i), c_bf),
         "update bf16": lambda i: U.update(x_bf, lab_p, k),
         "fused_bounds bf16, default groups, skip 0": lambda i: F.fused_lloyd(
-            x_bf, cb_p, bounds=bnds_b, gs=gs_main)})
+            x_bf, cb_p, bounds=bnds_b, gs=gs_main),
+        "fused_bounds bf16, the cluster-ordered run's last step":
+            lambda i: F.fused_lloyd(x_ord_b, cs_last_b, bounds=bnds_o,
+                                    gs=gs_o)})
     # the library on the same bf16 operands (torch.mm with f32 output, the
     # epilogue, argmin), where this torch has the overload, and f32 addmm
     # on the upcast operands, in the same turns
@@ -5369,16 +5466,28 @@ def run():
             0, lab_p, x_bf.float()), 10))
     u_ms, u_by = bound_ms(2 * n * d + 4 * n + 4 * (k * d + k), n * d + n)
     bf["update"]["bounds"] = (u_ms, u_by, u_ms)
-    g_b = bnds_b[1].shape[-1]
+    def bf16_bounded_bound(g_, skip_):
+        """The bf16 bounded step's bounds on the tensor cores: its computed
+        share's products and epilogue (TC_BOUNDED_INSTR a (row,
+        centroid)) beside the |x|^2 chains, against X, C, the bounds, the
+        group minima and the fused step's outputs."""
+        live = 1.0 - skip_
+        return bf16_bound_ms(
+            2 * (n * d + k * d) + 4 * (2 * n + n * g_)
+            + 4 * (2 * n + n * g_ + k * d + k + 1) + 8,
+            live * 2 * n * k * d,
+            live * tc_other(n, k, d, False, TC_BOUNDED_INSTR) + 2 * n * d)
+
     bf["fused_bounds"] = dict(
         ms=turn_ms["fused_bounds bf16, default groups, skip 0"],
         plain_ms=event_ms(torch, lambda i: F.fused_bounds_plain(
             x_bf, cb_p, None, *bnds_b, gs_main, tile_rows), 3, warmup=1),
-        library_ms=None, bounds=bf16_bound_ms(
-            2 * (n * d + k * d) + 4 * (2 * n + n * g_b)
-            + 4 * (2 * n + n * g_b + k * d + k + 1) + 8,
-            (1.0 - skip_b) * 2 * n * k * d,
-            (1.0 - skip_b) * 3 * n * k + 2 * n * d))
+        library_ms=None,
+        bounds=bf16_bounded_bound(bnds_b[1].shape[-1], skip_b),
+        ordered=dict(
+            ms=turn_ms["fused_bounds bf16, the cluster-ordered run's last "
+                       "step"], skipped=skip_ob,
+            bounds=bf16_bounded_bound(bnds_o[1].shape[-1], skip_ob)))
     for kn, row in bf.items():
         f32_ms = {"fused_lloyd": fused_ms, "assignment": assign_ms,
                   "update": update_ms, "fused_bounds": bounds_ms_main}[kn]
@@ -5393,6 +5502,16 @@ def run():
                  f"epilogue and argmin), f32 addmm + argmin on the upcast "
                  f"operands {row['upcast_library_ms']!r} ms")
               + (", library on the upcast X" if kn == "update" else ""))
+    row, fused_b = bf["fused_bounds"], turn_ms["fused_lloyd bf16"]
+    ordered_f32 = (f"fused_bounds, gs {gs_o}, the cluster-ordered run's "
+                   f"last step")
+    print(f"  fused_bounds bf16 on the tensor cores against the bf16 fused "
+          f"step in the same turns: skip 0 {row['ms'] / fused_b!r}x; the "
+          f"cluster-ordered run's last step (gs {gs_o}, skipped {skip_ob!r}) "
+          f"{row['ordered']['ms']!r} ms, {row['ordered']['ms'] / fused_b!r}x, "
+          f"bound {row['ordered']['bounds'][0]!r} ms "
+          f"({row['ordered']['bounds'][1]}), the f32 step there "
+          f"{turn_ms[ordered_f32]!r} ms")
     row = bf["assignment"]["all_rows"]
     print(f"  assignment bf16 at all rows: {row['ms']!r} ms (f32 "
           f"{assign_full_ms!r} ms), bound {row['bounds'][0]!r} ms "
@@ -5478,8 +5597,14 @@ def run():
                  "plain_ms": row["plain_ms"], "bound_ms": b_ms,
                  "bound_by": b_by, "fp32_bound_ms": b_fp32,
                  "library_ms": row["library_ms"]}
-        if kn in ("fused_lloyd", "assignment"):
-            # the sweep of both on bf16 X and C
+        if "ordered" in row:
+            o_ms, o_by, o_fp32 = row["ordered"]["bounds"]
+            entry["ordered"] = {
+                "ms": row["ordered"]["ms"],
+                "skipped": row["ordered"]["skipped"], "bound_ms": o_ms,
+                "bound_by": o_by, "fp32_bound_ms": o_fp32}
+        if kn != "update":
+            # the sweep of the three distance kernels on bf16 X and C
             entry["tensor_cores"] = {
                 "source": "src/repro_torch/kernels/csrc/sweep_tc.cuh",
                 "launches": total[f"{kn}_tc"],

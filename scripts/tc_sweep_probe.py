@@ -12,8 +12,8 @@ with nvcc into build/repro_torch/probe/ (git-ignored), in parallel.  Then:
 - SASS (``cuobjdump -sass``, instructions only): every kernel of the other
   side's three libraries is in this side's with the same instructions;
   this side's other kernels must be the tensor-core sweep's (``assign_tc``,
-  ``pack_c``), whose HGMMA / HMMA instructions are counted; ptxas'
-  registers and spills of each.
+  ``bounds_tc``, ``pack_c``), whose HGMMA / HMMA instructions are counted;
+  ptxas' registers and spills of each.
 - Bits: the f32 launches (resident at USCensus1990, 2,458,285 x 69,
   K = 1000, all rows and a 16,384-row chunk; streamed at 128,256 x 4096,
   K = 256, a chunk) and the mixed ones (bf16 X, f32 C) equal the other
@@ -51,7 +51,7 @@ sys.path.insert(0, str(ROOT))
 
 CHUNK = 16384
 LIBS = ("assignment", "fused_lloyd", "fused_bounds")
-TC_KERNELS = r"assign_tc|pack_c"
+TC_KERNELS = r"assign_tc|bounds_tc|pack_c"
 
 
 def main() -> int:

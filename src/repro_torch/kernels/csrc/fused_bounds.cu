@@ -17,13 +17,20 @@
 // group minima gmin^2 (R, N, G) (a computed group's minimum over its own
 // centroids; a skipped group's lb^2, bit for bit) and the count of skipped
 // (tile, group) cells per problem (R,), summed as integers.  X and C are
-// each float32 or bfloat16, converted to f32 as they are loaded (the fused
-// step's rule); the bounds, weights and outputs are float32.
+// each float32 or bfloat16; the bounds, weights and outputs are float32.
+// Where X and C are both bf16 and gs is a multiple of 8, the sweep is the
+// tensor-core one (sweep_tc.cuh, bounds_tc), as the fused step's is on such
+// operands; otherwise X and C are converted to f32 as they are loaded (the
+// FP32 sweeps' rule), so a mixed launch equals the f32 launch on the
+// upcast operands.
 //
 // What bounds it on this card: the cross terms of the computed groups,
-// (1 - skip) * 2*N*K*d FP32 operations (67 TFLOP/s), against X, the
-// bounds and the group minima read or written once, (N*d + 2*N*G + 4*N)*4
-// bytes (3.35 TB/s).  The design is the fused step's (fused_lloyd.cu: the
+// (1 - skip) * 2*N*K*d FP32 operations (67 TFLOP/s), or bf16 products on
+// the tensor cores (989 TFLOP/s) beside the epilogue's instructions on the
+// CUDA cores (take()'s 7 and the group minimum's 1 a (row, centroid)),
+// against X, the bounds and the group minima read or written once,
+// (N*d*b + 2*N*G*4 + 4*N*4) bytes with b = 4 or 2 (3.35 TB/s).  The FP32
+// design is the fused step's (fused_lloyd.cu: the
 // sweep, then the segment sum of segment_sum.cuh over the labels) with the
 // C stages filled from the computed groups only: the 16-byte vectors of C
 // that hold a centroid of a computed group are listed a chunk of 64 ahead
@@ -31,7 +38,7 @@
 // follows the computed share at any group size and its shared memory does
 // not grow with K; a block that computes every group lists nothing and
 // sweeps C in order.  A vector's centroids of skipped groups are padding
-// and never compete.  Two sweeps:
+// and never compete.  Three sweeps:
 //  - up to the widest resident d (a little under 821 features on an H100,
 //    less as G grows) this file's bounds_tiles: one 64-row tile a block,
 //    the whole X tile resident in shared memory, the 8 x 8 sweep of
@@ -42,9 +49,17 @@
 //  - past it, or where the launcher forces it, sweep_bounded.cuh's
 //    streamed sweep (sweep_wide.cuh's design: 128-row blocks of two tiles,
 //    8 x 16 cross terms a lane, 32-feature stages of X and C in a TMA
-//    ring), so any d runs.
-// The two give the same bits wherever both fit.  No atomics but the need
-// bits' atomicOr, whose result does not depend on the order.
+//    ring), so any d runs;
+//  - bf16 X and C with gs a multiple of 8, at every d: sweep_tc.cuh's
+//    bounds_tc (wgmma in 128-row blocks, each warpgroup one 64-row tile;
+//    chunks of 128 slots listed where a tile computes a group; the group
+//    minima in registers, the seed merged last).  Its cross terms sum in
+//    another order, so its bits are not the f32 launch's: labels equal the
+//    plain version's but at near ties, distances and computed group minima
+//    within 1e-5 of |x|^2 + max |c|^2, skipped minima and the skipped share
+//    exact; at ub^2 = +inf, lb^2 = 0 it equals the bf16 fused step.
+// The two FP32 sweeps give the same bits wherever both fit.  No atomics
+// but the need bits' atomicOr, whose result does not depend on the order.
 
 #include <type_traits>
 
@@ -61,6 +76,8 @@ __host__ __device__ inline size_t bounds_extra(int g) {
 }
 
 constexpr int kLbRegs = 4;   // bounds a thread holds: 64 rows x 16 groups
+static_assert(tc::kTileRows == f8::kRows,
+              "the tensor-core sweep's skip tile is the FP32 sweeps'");
 
 // The resident path: one 64-row tile a block, the whole X tile in shared
 // memory.  kVecGroups: gs and K multiples of 4, so that each 4-centroid
@@ -187,10 +204,10 @@ bounds_tiles(const TX* __restrict__ x, int64_t x_rstride,
 
 using namespace repro;
 
-// Floats of scratch one launch needs: C transposed, |c|^2, the energy's
-// partials.
+// Floats of scratch one launch needs: C transposed (the FP32 sweeps) or
+// packed (the tensor-core sweep), |c|^2, the energy's partials.
 extern "C" long long fused_bounds_scratch_floats(int r, int k, int d) {
-  return f8::scratch_floats(r, k, d) + (long long)r * kEnergyBlocks;
+  return f8::assign_scratch_floats(r, k, d) + (long long)r * kEnergyBlocks;
 }
 
 // Launches one step on `stream`, as fused_lloyd_launch does with the
@@ -198,9 +215,10 @@ extern "C" long long fused_bounds_scratch_floats(int r, int k, int d) {
 // lab0 (R, N) int32, lb (R, N, G) and ub (R, N) float32 are the squared
 // bounds; gmin (R, N, G) and skipped (R,) int64 are outputs besides the
 // fused step's.  part_skip (R * tiles int32) is scratch besides
-// fused_lloyd_launch's; force_stream != 0 streams X at any d
-// (sweep_bounded.cuh).  Returns the first CUDA error (0 on success);
-// nothing synchronises.
+// fused_lloyd_launch's; force_stream != 0 streams X through the FP32 sweep
+// at any d (sweep_bounded.cuh; refused where X and C are both bf16 and gs
+// is a multiple of 8, which take the tensor cores at every d).  Returns
+// the first CUDA error (0 on success); nothing synchronises.
 extern "C" int fused_bounds_launch(
     const void* x, int x_type, long long x_rstride, const void* c,
     int c_type, const void* w, long long w_rstride, const void* lab0,
@@ -209,16 +227,55 @@ extern "C" int fused_bounds_launch(
     void* mind, void* gmin, void* part, void* part_skip, void* sums,
     void* counts, void* energy, void* skipped, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  f8::SweepPlan plan;
-  cudaError_t err =
-      f8::plan_sweep(d, bounds_extra(g), true, force_stream != 0, &plan);
-  if (err != cudaSuccess) return (int)err;
   const int n_tiles = cdiv(n, f8::kRows);
   const float* wf = static_cast<const float*>(w);
   const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
                         lay[4], lay[5], lay[6], lay[7]};
   return (int)with_operand_types(x, x_type, c, c_type, [&](auto xt, auto cp) {
     using TX = std::remove_cv_t<std::remove_pointer_t<decltype(xt)>>;
+    using TC = std::remove_cv_t<std::remove_pointer_t<decltype(cp)>>;
+    // the segment sum over the sweep's labels, then the energy and the
+    // skipped cells (part_e: the energy's partials)
+    auto stats = [&](float* part_e) {
+      cudaError_t e = launch_segment_sum(
+          s, xt, x_rstride, static_cast<const int*>(labels), wf, w_rstride,
+          r, n, k, d, ul, static_cast<float*>(part), static_cast<float*>(sums),
+          static_cast<float*>(counts));
+      if (e != cudaSuccess) return e;
+      return launch_energy(s, r, static_cast<const float*>(mind), wf,
+                           w_rstride, n, part_e,
+                           static_cast<const int*>(part_skip), n_tiles,
+                           static_cast<float*>(energy),
+                           static_cast<long long*>(skipped));
+    };
+    cudaError_t err;
+    if constexpr (std::is_same<TX, __nv_bfloat16>::value &&
+                  std::is_same<TC, __nv_bfloat16>::value) {
+      if (gs % 8 == 0) {
+        // bf16 X and C: the tensor-core sweep at every d
+        if (force_stream) return cudaErrorInvalidValue;
+        const tc::Bounds bd{static_cast<const int*>(lab0),
+                            static_cast<const float*>(lb),
+                            static_cast<const float*>(ub), gs, g,
+                            static_cast<float*>(gmin),
+                            static_cast<int*>(part_skip)};
+        float* const sc = static_cast<float*>(scratch);
+        int* const lab = static_cast<int*>(labels);
+        float* const md = static_cast<float*>(mind);
+        err = tc::streams(d) ? tc::launch_bounds<true>(s, xt, x_rstride, cp,
+                                                       r, n, k, d, sc, bd,
+                                                       lab, md)
+                             : tc::launch_bounds<false>(s, xt, x_rstride, cp,
+                                                        r, n, k, d, sc, bd,
+                                                        lab, md);
+        if (err != cudaSuccess) return err;
+        return stats(static_cast<float*>(scratch) +
+                     f8::assign_scratch_floats(r, k, d));
+      }
+    }
+    f8::SweepPlan plan;
+    err = f8::plan_sweep(d, bounds_extra(g), true, force_stream != 0, &plan);
+    if (err != cudaSuccess) return err;
     float *ct, *csq;
     err = f8::prepare_c(s, cp, r, k, d, static_cast<float*>(scratch), &ct,
                         &csq);
@@ -255,17 +312,7 @@ extern "C" int fused_bounds_launch(
       err = cudaGetLastError();
     }
     if (err != cudaSuccess) return err;
-    err = launch_segment_sum(s, xt, x_rstride,
-                             static_cast<const int*>(labels), wf, w_rstride,
-                             r, n, k, d, ul, static_cast<float*>(part),
-                             static_cast<float*>(sums),
-                             static_cast<float*>(counts));
-    if (err != cudaSuccess) return err;
-    return launch_energy(s, r, static_cast<const float*>(mind), wf,
-                         w_rstride, n, csq + (int64_t)r * k,
-                         static_cast<const int*>(part_skip), n_tiles,
-                         static_cast<float*>(energy),
-                         static_cast<long long*>(skipped));
+    return stats(csq + (int64_t)r * k);
   });
 }
 

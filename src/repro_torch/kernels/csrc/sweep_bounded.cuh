@@ -69,9 +69,6 @@
 
 namespace repro {
 
-// Words of a tile's need bits: one bit a group.
-__host__ __device__ inline int need_words(int g) { return cdiv(g, 32); }
-
 namespace bwide {
 
 using wide::kColWarps;
@@ -113,22 +110,6 @@ __host__ __device__ inline size_t smem_bytes(int g) {
          sizeof(float) * ((size_t)kRows + 2 * kRows + 2 * kColWarps * kRows +
                           kRows + 2 * kColWarps * kRows + kLists * kVecs +
                           kWarps + 1 + (size_t)kTiles * need_words(g));
-}
-
-// Whether bit grp of a need-bit set is on.
-__device__ __forceinline__ bool bit(const unsigned* words, int grp) {
-  return (words[grp >> 5] >> (grp & 31)) & 1u;
-}
-
-// The first set bit from grp on among g, or g when there is none.
-__device__ __forceinline__ int next_set(const unsigned* words, int grp,
-                                        int g) {
-  while (grp < g) {
-    const unsigned word = words[grp >> 5] >> (grp & 31);
-    if (word) return grp + __ffs(word) - 1;
-    grp = (grp | 31) + 1;
-  }
-  return g;
 }
 
 // What the block computes: the union of its two tiles' groups (need: the

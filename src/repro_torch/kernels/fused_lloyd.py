@@ -15,9 +15,10 @@ shared-memory X tile stream through the sweep in feature slabs.
 
 ``launches`` / ``bounds_launches`` count the launches of the two kernels
 (``bf16_launches`` / ``bounds_bf16_launches`` those of them on a bf16 X,
-the kernels' bf16 variants; ``tc_launches`` the fused steps on the tensor
-cores; ``stream_launches`` / ``bounds_stream_launches`` those that
-streamed X through the FP32 sweep) and ``plain_calls`` /
+the kernels' bf16 variants; ``tc_launches`` / ``bounds_tc_launches``
+those on the tensor cores; ``stream_launches`` /
+``bounds_stream_launches`` those that streamed X through the FP32 sweep)
+and ``plain_calls`` /
 ``bounds_plain_calls`` the calls of their plain versions, so a run can
 show which of them it went through.
 """
@@ -38,6 +39,7 @@ stream_launches = 0
 plain_calls = 0
 bounds_launches = 0
 bounds_bf16_launches = 0
+bounds_tc_launches = 0
 bounds_stream_launches = 0
 bounds_plain_calls = 0
 
@@ -101,7 +103,8 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
     row weights that scale sums/counts/energy (labels and min_sqdist stay
     unweighted).  x and c are each float32 or bfloat16, read as they are:
     bf16 x and c take the tensor-core sweep (bf16 products summed in f32,
-    the reference's bf16 policy), other types compute in f32 on the
+    the reference's bf16 policy; with ``bounds=`` where gs is a multiple
+    of 8, as the engines give it), other types compute in f32 on the
     upcast values, so a mixed call equals the f32 call on the upcast
     operands bit for bit; the stats are summed in f32 either way.  Any d.
     Returns (labels int32, min_sqdist f32, sums (K, d) f32, counts (K,)
@@ -120,7 +123,8 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
 
     ``_stream`` streams X through the FP32 sweep on the card at any d,
     which the card tests compare with the resident launch bit for bit
-    (ValueError on bf16 x and c without ``bounds``).
+    (ValueError on bf16 x and c, which take the tensor cores; with
+    ``bounds`` where gs is a multiple of 8).
     """
     if bounds is not None:
         return _fused_bounds(x, c, w, bounds, gs, _stream)
@@ -235,7 +239,8 @@ def _bind_bounds(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 
 def _fused_bounds(x, c, w, bounds, gs, force_stream):
-    global bounds_launches, bounds_bf16_launches, bounds_stream_launches
+    global bounds_launches, bounds_bf16_launches, bounds_tc_launches
+    global bounds_stream_launches
     batched, r, n, k, d = tiles.problem_shape(x, c, w)
     g = _bounds_shape(c, bounds, gs, batched, r, n, k)
     lab0, lb_sq, ub_sq = bounds
@@ -247,9 +252,9 @@ def _fused_bounds(x, c, w, bounds, gs, force_stream):
         raise ValueError(f"R={r} exceeds {tiles.MAX_PROBLEMS} problems")
     lib = _bind_bounds(build.load("fused_bounds"))
     tiles.check_cuda_operands(x, c, w, lab0, lb_sq, ub_sq)
-    streamed = tiles.streams_x(
-        lambda dev: lib.fused_bounds_max_features(dev, g), x.device, d,
-        force_stream)
+    route = tiles.bounds_route(
+        x.dtype, c.dtype, d, int(gs),
+        lib.fused_bounds_max_features(x.device.index, g), force_stream)
     tile_rows = lib.fused_bounds_tile_rows()
     w = tiles.kernel_weights(w)
     lay, lay_arr = _stats_layout(lib, n, r, k, d)
@@ -286,7 +291,8 @@ def _fused_bounds(x, c, w, bounds, gs, force_stream):
             f"({lib.fused_bounds_error_string(rc).decode()})")
     bounds_launches += 1
     bounds_bf16_launches += x.dtype == torch.bfloat16
-    bounds_stream_launches += streamed
+    bounds_tc_launches += route == tiles.TENSOR_CORES
+    bounds_stream_launches += route == tiles.STREAMED
     # the cell count made on the card: a host tensor would be a copy that
     # keeps the next launch waiting, a Python divisor a multiplication by
     # its reciprocal, not the plain version's division

@@ -12,11 +12,13 @@ gives it weight 0).
 
 The tile geometry is the CUDA sources' alone (csrc/sweep_fp32.cuh): the
 wrappers ask the built library for the rows per tile and pass them in
-here.  The sweep takes any d: on bf16 X and C the assignment and the fused
-step run the tensor-core sweep (csrc/sweep_tc.cuh) at every d; otherwise
-the FP32 sweep keeps the 64-row X tile in shared memory up to the widest d
-that fits (the library's ``*_max_features``: 821 on an H100 for the
-assignment) and streams X in feature slabs past it (``sweep_route``).
+here.  The sweep takes any d: on bf16 X and C the assignment, the fused
+step and the bounded step (with a group size that is a multiple of 8) run
+the tensor-core sweep (csrc/sweep_tc.cuh) at every d; otherwise the FP32
+sweep keeps the 64-row X tile in shared memory up to the widest d that
+fits (the library's ``*_max_features``: 821 on an H100 for the
+assignment) and streams X in feature slabs past it (``sweep_route``,
+``bounds_route``).
 """
 
 from __future__ import annotations
@@ -200,10 +202,21 @@ def check_cuda_operands(*tensors: Optional[torch.Tensor]) -> None:
             raise ValueError(f"empty operand of shape {tuple(t.shape)}")
 
 
-# the sweep routes of an assignment or fused-step launch
+# the sweep routes of an assignment, fused-step or bounded-step launch
 TENSOR_CORES = "tensor_cores"   # csrc/sweep_tc.cuh: X and C both bf16
-RESIDENT = "resident"           # csrc/sweep_fp32.cuh: the X tile resident
-STREAMED = "streamed"           # csrc/sweep_wide.cuh: X streamed in slabs
+RESIDENT = "resident"           # the X tile resident (csrc/sweep_fp32.cuh,
+#                                 fused_bounds.cu's bounds_tiles)
+STREAMED = "streamed"           # X streamed in slabs (csrc/sweep_wide.cuh,
+#                                 sweep_bounded.cuh)
+
+
+def _fp32_route(d: int, widest: int, force_stream: bool) -> str:
+    """The FP32 sweep's route: streamed when forced or past ``widest``,
+    the resident tile's widest d (negative when it could not be queried:
+    RuntimeError), resident else."""
+    if widest < 0:
+        raise RuntimeError("could not query the card's shared memory")
+    return STREAMED if force_stream or d > widest else RESIDENT
 
 
 def sweep_route(x_dtype: torch.dtype, c_dtype: torch.dtype, d: int,
@@ -220,20 +233,23 @@ def sweep_route(x_dtype: torch.dtype, c_dtype: torch.dtype, d: int,
             raise ValueError("bf16 X and C take the tensor-core sweep, which "
                              "has no streamed FP32 path to force")
         return TENSOR_CORES
-    if widest < 0:
-        raise RuntimeError("could not query the card's shared memory")
-    return STREAMED if force_stream or d > widest else RESIDENT
+    return _fp32_route(d, widest, force_stream)
 
 
-def streams_x(max_features, device: torch.device, d: int,
-              force: bool) -> bool:
-    """Whether a bounded-step launch at width d streams X: when forced, or
-    past the resident tile's widest d, ``max_features(device index)`` (the
-    library's ``*_max_features``); the launcher's own rule
-    (csrc/sweep_fp32.cuh ``plan_sweep``)."""
-    if force:
-        return True
-    widest = max_features(device.index)
-    if widest < 0:
-        raise RuntimeError(f"could not query the shared memory of {device}")
-    return d > widest
+def bounds_route(x_dtype: torch.dtype, c_dtype: torch.dtype, d: int,
+                 gs: int, widest: int, force_stream: bool) -> str:
+    """The sweep a bounded-step launch takes, the launcher's own rule
+    (csrc/fused_bounds.cu ``fused_bounds_launch``): X and C both bfloat16
+    with ``gs`` a multiple of 8 (as the engines round it) take the
+    tensor-core sweep at any d, with no streamed path to force
+    (ValueError); every other pair, and any other gs, takes the FP32
+    bounded sweep as ``sweep_route`` does, with ``widest`` the resident
+    tile's widest d for the launch's G groups (the library's
+    ``fused_bounds_max_features``)."""
+    if x_dtype == torch.bfloat16 and c_dtype == torch.bfloat16 \
+            and gs % 8 == 0:
+        if force_stream:
+            raise ValueError("bf16 X and C take the tensor-core sweep, which "
+                             "has no streamed FP32 path to force")
+        return TENSOR_CORES
+    return _fp32_route(d, widest, force_stream)

@@ -169,12 +169,16 @@ def test_update_plain_matches_pallas_bf16(weighted):
         np.testing.assert_array_equal(_np(got[1]), _np(want[1]))
 
 
-@pytest.mark.parametrize("gs", [8, 24])
+@pytest.mark.parametrize("gs", [8, 16, 24, 40])
 def test_fused_bounds_plain_matches_pallas_bf16(gs):
-    """The bounded step on bf16 X and C from loose but valid bounds: the
-    JAX kernel runs the port's 64-row tile and gs as its k tile.  Labels,
-    the skipped share and every skipped group's bound exact; distances
-    and computed group minima 2e-5; stats as the fused step."""
+    """The bounded step on bf16 X and C from loose but valid bounds, at
+    group sizes that are multiples of 8 (as the engines give them, and as
+    the card's tensor-core bounded sweep takes them): the JAX kernel runs
+    the port's 64-row tile and gs as its k tile.  Labels, the skipped
+    share and every skipped group's bound exact; distances and computed
+    group minima 2e-5; stats as the fused step.  Some cells skip where
+    there are several groups; one group (gs = K) is always computed, since
+    its lb^2 is at most the row's least distance."""
     rng = np.random.default_rng(gs)
     k, d, n = 40, 8, 390
     centers = rng.standard_normal((k, d)) * 20.0
@@ -200,7 +204,8 @@ def test_fused_bounds_plain_matches_pallas_bf16(gs):
                               bounds=tuple(jnp.asarray(b) for b in bnds))
     atol = max(2e-5, 1e-6 * float(np.max(np.sum(x * x, axis=-1))))
     _close_step(got[:5], want[:5], atol=atol, weighted=True)
-    assert float(got[6]) == float(want[6]) and 0.0 < float(got[6]) < 1.0
+    assert float(got[6]) == float(want[6])
+    assert 0.0 < float(got[6]) < 1.0 if g > 1 else float(got[6]) == 0.0
     computed = F.ref.computed_cells(torch.from_numpy(bnds[1]),
                                     torch.from_numpy(bnds[2]),
                                     tile_rows).numpy()
@@ -208,6 +213,40 @@ def test_fused_bounds_plain_matches_pallas_bf16(gs):
     np.testing.assert_array_equal(gmin[~computed], bnds[1][~computed])
     np.testing.assert_array_equal(wg[~computed], bnds[1][~computed])
     np.testing.assert_allclose(gmin[computed], wg[computed], rtol=2e-5,
+                               atol=atol)
+
+
+def test_fused_bounds_plain_at_the_anchor_matches_pallas_bf16():
+    """ub^2 = +inf and lb^2 = 0 (the card's bit-exact anchor): every cell
+    is computed and no seed wins, so the bounded step's labels and
+    distances are the bf16 fused step's (bit for bit in the plain
+    versions, which share their arithmetic), each row's least group
+    minimum is its distance and nothing skips; against the reference's
+    bounded kernel as ``test_fused_bounds_plain_matches_pallas_bf16``
+    holds it."""
+    rng = np.random.default_rng(11)
+    k, d, n, gs = 40, 8, 390, 8
+    x = _bf16(rng.standard_normal((n, d)) * 3.0)
+    c = _bf16(rng.standard_normal((k, d)) * 3.0)
+    w = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    g = -(-k // gs)
+    bnds = (rng.integers(0, k, n).astype(np.int32),
+            np.zeros((n, g), np.float32), np.full(n, np.inf, np.float32))
+    got = F.fused_bounds_plain(_t(x), _t(c), torch.from_numpy(w),
+                               *(torch.from_numpy(b) for b in bnds), gs,
+                               build.tile_rows())
+    fused = F.fused_lloyd_plain(_t(x), _t(c), torch.from_numpy(w))
+    for a, b in zip(got[:5], fused):
+        assert torch.equal(a, b)
+    assert torch.equal(got[5].amin(dim=-1), got[1])
+    assert float(got[6]) == 0.0
+    want = fused_lloyd_pallas(_j(x), _j(c), jnp.asarray(w),
+                              tn=build.tile_rows(), tk=gs, interpret=True,
+                              bounds=tuple(jnp.asarray(b) for b in bnds))
+    atol = max(2e-5, 1e-6 * float(np.max(np.sum(x * x, axis=-1))))
+    _close_step(got[:5], want[:5], atol=atol, weighted=True)
+    assert float(want[6]) == 0.0
+    np.testing.assert_allclose(_np(got[5]), _np(want[5]), rtol=2e-5,
                                atol=atol)
 
 

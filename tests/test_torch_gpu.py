@@ -19,16 +19,19 @@ On exact small-integer data every distance is exact, so a tie goes to the
 lowest index; a row whose every distance is +inf gets label 0 (the
 bounded step: its seed).  Relaunches are bitwise equal.
 
-On bfloat16 X and C the assignment and the fused step run the tensor-core
-sweep (csrc/sweep_tc.cuh), whose f32 sums of the bf16 products run in
-another order: labels equal the plain version's but at near ties
-(``ref.tie_gap`` within ``ref.NEAR_TIE``), min distances within 1e-5 of
-|x|^2 + max |c|^2, the stats of the kernel's labels within the gates
-above; the two kernels' labels and distances are equal bit for bit (one
-sweep) and a relaunch is bitwise equal.  The update and the bounded step
-on bf16 operands, and the other two on mixed operands, convert a bf16
-value to f32 where they load it: each equals its float32 launch on the
-upcast operands bit for bit.
+On bfloat16 X and C the assignment, the fused step and the bounded step
+(at a group size that is a multiple of 8) run the tensor-core sweep
+(csrc/sweep_tc.cuh), whose f32 sums of the bf16 products run in another
+order: labels equal the plain version's but at near ties
+(``ref.tie_gap`` within ``ref.NEAR_TIE``), min distances and computed
+group minima within 1e-5 of |x|^2 + max |c|^2, the stats of the kernel's
+labels within the gates above; skipped group minima and the skipped
+share exact.  The assignment's and the fused step's labels and distances
+are equal bit for bit (one sweep), as is the bounded step from
+ub^2 = +inf, lb^2 = 0, and a relaunch is bitwise equal.  The update on
+bf16 operands, and the three distance kernels on mixed operands, convert
+a bf16 value to f32 where they load it: each equals its float32 launch
+on the upcast operands bit for bit.
 """
 
 import numpy as np
@@ -1430,42 +1433,56 @@ def test_bf16_update(cuda, n, d, k, r, x_batched, weights):
                       U.update(xb[1:].float(), labels[..., 1:], k))
 
 
+def _assert_bounds_tc_contract(x, c, w, bnds, got, want):
+    """The bounded step on the tensor cores against the plain version on the
+    same bf16 operands: the fused step's five as ``_assert_tc_contract``
+    holds them (the energy as ``_assert_energy_close`` holds a seeded
+    step), computed group minima within 1e-5 of |x|^2 + max |c|^2, every
+    skipped group's minimum its lb^2 bit for bit and the skipped share
+    exact (the skip test reads only the bounds)."""
+    c3, got = _lift(x, c, got)
+    _, want = _lift(x, c, want)
+    lift = (lambda t: t) if c.dim() == 3 else (lambda t: t[None])
+    _assert_tc_contract(x, c3, w, got[:2], want[:2])
+    xs = x if x.dim() == 3 else x.expand(c3.shape[0], *x.shape)
+    for i in range(c3.shape[0]):
+        wi = None if w is None else (w[i] if w.dim() == 2 else w)
+        sums, counts = ref.update_ref(xs[i], got[0][i], c3.shape[1], wi)
+        np.testing.assert_allclose(got[2][i].cpu(), sums.cpu(), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(got[3][i].cpu(), counts.cpu(), rtol=1e-5,
+                                   atol=1e-5)
+    _assert_energy_close(got[4].cpu(), want[4].cpu(), x, w, seeded=True)
+    lb_sq, ub_sq = lift(bnds[1]).cpu(), lift(bnds[2]).cpu()
+    computed = torch.stack([ref.computed_cells(lb, ub, build.tile_rows())
+                            for lb, ub in zip(lb_sq, ub_sq)])
+    gmin, wg = got[5].cpu(), want[5].cpu()
+    assert torch.equal(gmin[~computed], lb_sq[~computed])
+    err = (gmin - wg).abs()[computed]
+    scale = _tc_scale(x, c3).cpu()[..., None].expand_as(gmin)[computed]
+    assert bool((err <= 1e-5 * scale).all()), float(err.max())
+    assert torch.equal(got[6].cpu(), want[6].cpu())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("gs", [8, 64])
 @pytest.mark.parametrize("n,d,k,r,x_batched,weights", BF16_CASES)
 def test_bf16_fused_bounds(cuda, n, d, k, r, x_batched, weights, gs):
-    """The bounded step on bf16 X and C, from drifted bounds: against the
-    plain version (the f32 gates) and bit for bit against its f32 launch
-    on the upcast operands, group minima and skipped share included."""
+    """The bounded step on bf16 X and C, from drifted bounds: the
+    tensor-core sweep (its counter moves), a relaunch equal bit for bit,
+    and the bounded tensor-core contract against the plain version
+    (``_assert_bounds_tc_contract``)."""
     x, c, w = _inputs(cuda, n, d, k, r, x_batched, weights, seed=5)
-    g = -(-k // engine_group_size(k, gs))
-    widest = F._bind_bounds(build.load("fused_bounds")) \
-        .fused_bounds_max_features(0, g)
-    x, c = x[..., :widest].contiguous(), c[..., :widest].contiguous()
     c, gsr, bnds = _drifted_bounds(x.bfloat16().float(),
                                    c.bfloat16().float(), w, gs)
     xb, cb = x.bfloat16(), c.bfloat16()
-    launched = F.bounds_launches
+    launched = F.bounds_launches, F.bounds_tc_launches
     got = F.fused_lloyd(xb, cb, w, bounds=bnds, gs=gsr)
-    assert F.bounds_launches == launched + 1
-    _assert_equal(got, F.fused_lloyd(xb.float(), cb.float(), w, bounds=bnds,
-                                     gs=gsr))
-    got = [g.cpu() for g in got]
-    want = [v.cpu() for v in F.fused_bounds_plain(
-        xb, cb, w, *bnds, gsr, build.tile_rows())]
-    np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
-    # after two Lloyd steps at K = 300 on 777 rows a centroid sits on a
-    # row, where the expansion cancels to ulps of |x|^2 (about 800 at
-    # d = 821): distances within 1e-5 of |x|^2, chip_smoke.py's
-    # compare_bounds rule
-    xu = xb.float()
-    atol = 1e-5 * float(torch.sum(xu * xu, dim=-1).max())
-    np.testing.assert_allclose(got[1], want[1], rtol=1e-5, atol=atol)
-    np.testing.assert_allclose(got[2], want[2], rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(got[3], want[3], rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(got[4], want[4], rtol=1e-6)
-    np.testing.assert_allclose(got[5], want[5], rtol=1e-5, atol=atol)
-    assert torch.equal(got[6], want[6])
+    assert (F.bounds_launches, F.bounds_tc_launches) == (launched[0] + 1,
+                                                         launched[1] + 1)
+    _assert_equal(F.fused_lloyd(xb, cb, w, bounds=bnds, gs=gsr), got)
+    _assert_bounds_tc_contract(xb, cb, w, bnds, got, F.fused_bounds_plain(
+        xb, cb, w, *bnds, gsr, build.tile_rows()))
 
 
 @pytest.mark.gpu
@@ -1599,7 +1616,7 @@ def _counts():
     return (F.launches, F.stream_launches, F.bounds_launches,
             F.bounds_stream_launches, A.launches, A.stream_launches,
             F.plain_calls + F.bounds_plain_calls + A.plain_calls,
-            F.tc_launches, A.tc_launches)
+            F.tc_launches, A.tc_launches, F.bounds_tc_launches)
 
 
 @pytest.mark.gpu
@@ -1622,7 +1639,8 @@ def test_wide_kernels_match_plain(cuda, d, n, k, r, x_batched, weights,
     lab, mind = A.assignment(x, c)
     after = _counts()
     assert [b - a for a, b in zip(before, after)] == (
-        [1, 0, 0, 0, 1, 0, 0, 1, 1] if bf16 else [1, 1, 0, 0, 1, 1, 0, 0, 0])
+        [1, 0, 0, 0, 1, 0, 0, 1, 1, 0] if bf16
+        else [1, 1, 0, 0, 1, 1, 0, 0, 0, 0])
     assert torch.equal(lab, got[0]) and torch.equal(mind, got[1])
     _assert_equal(F.fused_lloyd(x, c, w), got)
     if bf16:
@@ -1647,11 +1665,11 @@ def test_wide_kernels_match_plain(cuda, d, n, k, r, x_batched, weights,
 def test_wide_fused_bounds_matches_plain(cuda, d, n, k, r, x_batched,
                                          weights, gs, bf16):
     """The bounded step at wide d from drifted bounds launches the
-    streamed bounded sweep: against the plain version as
+    streamed bounded sweep on f32 operands: against the plain version as
     ``test_fused_bounds_matches_plain`` holds it (min_sqdist and group
     minima within 1e-5 of |x|^2; the energy as ``_assert_energy_close``
-    holds a seeded step), a relaunch equal, a bf16 launch equal to the f32
-    launch on the upcast operands."""
+    holds a seeded step).  bf16 X and C take the tensor-core sweep, held to
+    ``_assert_bounds_tc_contract``.  A relaunch is equal bit for bit."""
     x, c, w = _mixture(cuda, n, d, k, r, x_batched, weights, seed=d + gs)
     if bf16:
         x, c = x.bfloat16(), c.bfloat16()
@@ -1661,12 +1679,14 @@ def test_wide_fused_bounds_matches_plain(cuda, d, n, k, r, x_batched,
     before = _counts()
     got = F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr)
     after = _counts()
-    assert [b - a for a, b in zip(before, after)] == [0, 0, 1, 1, 0, 0, 0,
-                                                      0, 0]
+    assert [b - a for a, b in zip(before, after)] == (
+        [0, 0, 1, 0, 0, 0, 0, 0, 0, 1] if bf16
+        else [0, 0, 1, 1, 0, 0, 0, 0, 0, 0])
     _assert_equal(F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr), got)
     if bf16:
-        _assert_equal(got, F.fused_lloyd(x.float(), c.float(), w,
-                                         bounds=bnds, gs=gsr))
+        _assert_bounds_tc_contract(x, c, w, bnds, got, F.fused_bounds_plain(
+            x, c, w, *bnds, gsr, build.tile_rows()))
+        return
     got = [g.cpu() for g in got]
     want = [v.cpu() for v in F.fused_bounds_plain(
         x, c, w, *bnds, gsr, build.tile_rows())]
@@ -1695,8 +1715,8 @@ def test_streamed_equals_resident(cuda, at, kernel, bf16):
     in every output: the same FMA chains in the same order.  Random data,
     two C chunks, a ragged row tile, (R, N) weights; the bounded step from
     drifted bounds at G = 19.  bf16 X and C take the tensor-core sweep in
-    the assignment and the fused step, which has no streamed path: forcing
-    one raises."""
+    all three (the bounded step at gs 16, a multiple of 8), which has no
+    streamed path: forcing one raises."""
     n, k, r = 777, 300, 2
     gs = 16
     g = -(-k // gs)
@@ -1724,7 +1744,7 @@ def test_streamed_equals_resident(cuda, at, kernel, bf16):
             return F.fused_lloyd(x, c, w, _stream=stream)
         return F.fused_lloyd(x, c, w, bounds=bnds, gs=gsr, _stream=stream)
 
-    if bf16 and kernel != "bounded":
+    if bf16:
         with pytest.raises(ValueError):
             run(True)
         return
@@ -2067,7 +2087,7 @@ def test_streamed_bounds_tiles_need_different_groups(cuda, d, k, gs):
     got = F.fused_lloyd(x, c, None, bounds=bnds, gs=gs)
     after = _counts()
     assert [b - a for a, b in zip(before, after)] == [0, 0, 1, 1, 0, 0, 0,
-                                                      0, 0]
+                                                      0, 0, 0]
     _assert_equal(F.fused_lloyd(x, c, None, bounds=bnds, gs=gs), got)
     xb = x.bfloat16()
     _assert_equal(F.fused_lloyd(xb, c, None, bounds=bnds, gs=gs),
@@ -2101,7 +2121,7 @@ def test_rows_at_infinite_distance_keep_a_real_label(cuda, d, kernel, bf16):
     version's: the first index, 0, where nothing bounds the row, and the
     bounded step's seed lab0 (ub^2 = +inf keeps a tie); those rows' min
     distances are +inf; every other row as the plain version gives it
-    (bf16 X and C on the tensor cores: but at near ties)."""
+    (bf16 X and C, on the tensor cores in all three: but at near ties)."""
     n, k, gs = 777, 300, 16
     x, c, _ = _mixture(cuda, n, d, k, None, False, None, seed=61 + d)
     far = [0, 300, n - 1]
@@ -2123,7 +2143,7 @@ def test_rows_at_infinite_distance_keep_a_real_label(cuda, d, kernel, bf16):
     assert 0 <= int(lab.min()) and int(lab.max()) < k
     assert torch.equal(lab[far], want_lab[far])
     assert bool(torch.isinf(got[1][far]).all())
-    if bf16 and kernel != "bounded":
+    if bf16:
         assert ref.tie_gap(lab[None], want_lab[None], x.float().cpu(),
                            c.float().cpu()[None])[1] <= ref.NEAR_TIE
     else:
@@ -2131,3 +2151,131 @@ def test_rows_at_infinite_distance_keep_a_real_label(cuda, d, kernel, bf16):
     if kernel != "assignment":
         np.testing.assert_array_equal(got[3].cpu().numpy(),
                                       want[3].cpu().numpy())
+
+
+# The bounded step on the tensor cores (csrc/sweep_tc.cuh's bounds_tc): bf16
+# X and C with gs a multiple of 8, at every d; each warpgroup's 64 rows one
+# tile of the skip test, 128-slot chunks listed where a tile computes a
+# group.
+
+
+def _bounds_tc_counts():
+    return (F.bounds_launches, F.bounds_tc_launches,
+            F.bounds_stream_launches, F.bounds_plain_calls)
+
+
+def _bounds_tc_launch(x, c, w, bnds, gs):
+    """One bounded launch that must take the tensor cores, its relaunch
+    equal bit for bit; -> its outputs."""
+    before = _bounds_tc_counts()
+    got = F.fused_lloyd(x, c, w, bounds=bnds, gs=gs)
+    assert [b - a for a, b in zip(before, _bounds_tc_counts())] \
+        == [1, 1, 0, 0]
+    _assert_equal(F.fused_lloyd(x, c, w, bounds=bnds, gs=gs), got)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [69, 4096])
+def test_bounds_tc_anchor_is_the_fused_step(cuda, d):
+    """ub^2 = +inf and lb^2 = 0 on finite rows: every cell is computed and
+    no seed wins, so labels, min distances, sums, counts and energy equal
+    the bf16 fused step's bit for bit (one sweep, the same segment sum and
+    energy), each row's least group minimum is its distance bit for bit,
+    and nothing is skipped.  K = 1000, gs 64 (G = 16), N = 777, (N,)
+    weights."""
+    n, k, gs = 777, 1000, 64
+    x, c, w = _mixture(cuda, n, d, k, None, False, "n", seed=d + 3)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    g = -(-k // gs)
+    lab0 = torch.from_numpy(np.random.default_rng(d).integers(
+        0, k, n).astype(np.int32)).to(cuda)
+    bnds = (lab0, torch.zeros((n, g), device=cuda),
+            torch.full((n,), float("inf"), device=cuda))
+    got = _bounds_tc_launch(xb, cb, w, bnds, gs)
+    _assert_equal(got[:5], F.fused_lloyd(xb, cb, w))
+    assert torch.equal(got[5].amin(dim=-1), got[1])
+    assert float(got[6]) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["every cell", "second tile"])
+@pytest.mark.parametrize("d", [69, 300, 4096])
+def test_bounds_tc_skipped_cells_keep_the_seed(cuda, d, mode):
+    """lb^2 above ub^2 in every cell ("every cell": each block's chunk list
+    is empty, so no stage starts) or in every cell of the second 64-row
+    tile of each 128-row block ("second tile": its warpgroup sweeps no
+    chunk while the first sweeps them all).  Skipped rows keep (ub^2,
+    lab0) bit for bit and their group minima are their lb^2; the rest as
+    ``_assert_bounds_tc_contract`` holds them.  d = 300 streams X by plain
+    loads (600-byte rows are not a TMA box), 4096 by TMA."""
+    n, k, gs = 777, 300, 16
+    x, c, _ = _mixture(cuda, n, d, k, None, False, None, seed=d + 17)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    g = -(-k // gs)
+    lab0 = torch.from_numpy(np.random.default_rng(d).integers(
+        0, k, n).astype(np.int32))
+    xd, cd = xb.double().cpu(), cb.double().cpu()
+    ub_sq = ((xd - cd[lab0.long()]) ** 2).sum(-1).float()
+    lb_sq = (2 * ub_sq + 1)[:, None].repeat(1, g)
+    skipped = torch.ones(n, dtype=torch.bool)
+    if mode == "second tile":
+        first = (torch.arange(n) // 64) % 2 == 0
+        lb_sq[first] = 0.0
+        skipped = ~first
+    bnds = tuple(t.to(cuda) for t in (lab0, lb_sq, ub_sq))
+    got = _bounds_tc_launch(xb, cb, None, bnds, gs)
+    lab, mind, gmin = (t.cpu() for t in (got[0], got[1], got[5]))
+    assert torch.equal(lab[skipped], lab0[skipped])
+    assert torch.equal(mind[skipped], ub_sq[skipped])
+    assert torch.equal(gmin[skipped], lb_sq[skipped])
+    _assert_bounds_tc_contract(xb, cb, None, bnds, got, F.fused_bounds_plain(
+        xb, cb, None, *bnds, gs, build.tile_rows()))
+    if mode == "every cell":
+        assert float(got[6]) == 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,gs", [(300, 8), (300, 16), (1000, 64),
+                                  (1001, 136), (93, 8)])
+@pytest.mark.parametrize("d", [69, 300, 4096])
+def test_bounds_tc_tiles_need_different_groups(cuda, d, k, gs):
+    """Each 64-row tile computes its own random half of the groups
+    (``_tile_bounds``), so a block's two warpgroups sweep different chunks
+    of its list, at N = 777 (the last block one ragged tile).  gs 8 and 16:
+    several groups a chunk; gs 64; gs 136 at K = 1001 (K % 128 and K % 8
+    not 0, the last group partial): groups that cross chunks; K = 93: one
+    ragged chunk.  Against the plain version by
+    ``_assert_bounds_tc_contract``, a relaunch equal bit for bit."""
+    x, c, _ = _mixture(cuda, 777, d, k, None, False, None, seed=d + k + gs)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    lab0, lb_sq, ub_sq = _tile_bounds(xb.float(), cb.float(), gs, seed=k + gs)
+    need = ref.computed_cells(lb_sq, ub_sq, 64)[::64]
+    assert not torch.equal(need[0], need[1])
+    bnds = tuple(t.to(cuda) for t in (lab0, lb_sq, ub_sq))
+    got = _bounds_tc_launch(xb, cb, None, bnds, gs)
+    _assert_bounds_tc_contract(xb, cb, None, bnds, got, F.fused_bounds_plain(
+        xb, cb, None, *bnds, gs, build.tile_rows()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [69, 4096])
+def test_bounds_tc_per_problem_x(cuda, d):
+    """R = 3 with per-problem X (R, N, d), (R, N) weights that zero a
+    third of the rows and each problem's own tile bounds: the contract
+    against the plain version, and each problem's labels, distances and
+    group minima equal bit for bit a launch of that problem alone."""
+    n, k, gs, r = 515, 256, 16, 3
+    x, c, w = _mixture(cuda, n, d, k, r, True, "rn", seed=d + 29)
+    xb, cb = x.bfloat16(), c.bfloat16()
+    parts = [_tile_bounds(xb[i].float(), cb[i].float(), gs, seed=i)
+             for i in range(r)]
+    bnds = tuple(torch.stack(t).to(cuda) for t in zip(*parts))
+    got = _bounds_tc_launch(xb, cb, w, bnds, gs)
+    _assert_bounds_tc_contract(xb, cb, w, bnds, got, F.fused_bounds_plain(
+        xb, cb, w, *bnds, gs, build.tile_rows()))
+    for i in range(r):
+        alone = F.fused_lloyd(xb[i].contiguous(), cb[i], None,
+                              bounds=tuple(t[i] for t in bnds), gs=gs)
+        for j in (0, 1, 5):
+            assert torch.equal(alone[j], got[j][i])

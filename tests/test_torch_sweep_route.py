@@ -1,8 +1,9 @@
 """The sweep route of an assignment or fused-step launch
 (``kernels/tiles.py::sweep_route``, the rule of ``csrc/sweep_wide.cuh``'s
-``launch_assign``) and the near-tie rule both the card tests and
-``chip_smoke.py`` hold labels to (``kernels/ref.py::tie_gap``).  No JAX
-and no card: a few seconds.
+``launch_assign``) and of a bounded-step launch (``tiles.bounds_route``,
+the rule of ``csrc/fused_bounds.cu``'s ``fused_bounds_launch``), and the
+near-tie rule both the card tests and ``chip_smoke.py`` hold labels to
+(``kernels/ref.py::tie_gap``).  No JAX and no card: a few seconds.
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_sweep_route.py
 """
@@ -46,6 +47,58 @@ def test_sweep_route_needs_the_widest_d_for_fp32_only():
     with pytest.raises(RuntimeError):
         tiles.sweep_route(BF16, F32, 69, -1, False)
     assert tiles.sweep_route(BF16, BF16, 69, -1, False) == tiles.TENSOR_CORES
+
+
+BOUNDED_WIDEST = 757   # the bounded resident tile's widest d at G = 19
+
+
+@pytest.mark.parametrize("force", [False, True])
+@pytest.mark.parametrize("gs", [8, 16, 24, 64])
+@pytest.mark.parametrize("d", [69, 821, 822, 4096])
+@pytest.mark.parametrize("x_dtype,c_dtype",
+                         [(F32, F32), (BF16, BF16), (BF16, F32), (F32, BF16)])
+def test_bounds_route(x_dtype, c_dtype, d, gs, force):
+    """A bounded step with a group size that is a multiple of 8 (as the
+    engines round it): bf16 X and C take the tensor cores at every d and
+    refuse a forced stream; every other pair takes the FP32 bounded sweep,
+    streamed when forced or past the resident tile's widest d."""
+    if x_dtype == c_dtype == BF16:
+        if force:
+            with pytest.raises(ValueError):
+                tiles.bounds_route(x_dtype, c_dtype, d, gs, BOUNDED_WIDEST,
+                                   force)
+            return
+        want = tiles.TENSOR_CORES
+    else:
+        want = tiles.STREAMED if force or d > BOUNDED_WIDEST \
+            else tiles.RESIDENT
+    assert tiles.bounds_route(x_dtype, c_dtype, d, gs, BOUNDED_WIDEST,
+                              force) == want
+
+
+@pytest.mark.parametrize("force", [False, True])
+@pytest.mark.parametrize("gs", [1, 5, 12, 53, 100])
+@pytest.mark.parametrize("d", [69, 4096])
+def test_bounds_route_fp32_for_other_group_sizes(d, gs, force):
+    """A group size that is not a multiple of 8 (a raw kernel call; the
+    engines never give one) keeps bf16 X and C on the FP32 bounded sweep,
+    which converts them to f32 where it loads them, and a forced stream
+    is taken."""
+    want = tiles.STREAMED if force or d > BOUNDED_WIDEST else tiles.RESIDENT
+    assert tiles.bounds_route(BF16, BF16, d, gs, BOUNDED_WIDEST,
+                              force) == want
+
+
+def test_bounds_route_needs_the_widest_d_for_fp32_only():
+    """A failed shared-memory query (widest < 0) stops an FP32 bounded
+    launch, a bf16 one with gs not a multiple of 8 included; the
+    tensor-core route does not read it."""
+    for x_dtype, c_dtype, gs in ((F32, F32, 16), (BF16, F32, 16),
+                                 (BF16, BF16, 12)):
+        with pytest.raises(RuntimeError):
+            tiles.bounds_route(x_dtype, c_dtype, 69, gs, -1, False)
+    assert tiles.bounds_route(BF16, BF16, 69, 16, -1, False) \
+        == tiles.TENSOR_CORES
 
 
 def _two_centroids(gap):
