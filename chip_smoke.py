@@ -6,7 +6,9 @@
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build the four CUDA kernels from src/repro_torch/kernels/csrc, in
-     parallel;
+     parallel; ptxas' registers and spills of every kernel, the bf16
+     segment sum's (csrc/segment_sum_bf16.cuh) in each of its three
+     libraries without a spill or a stack frame;
   3. every kernel against its plain PyTorch version at small ragged,
      weighted, batched and wide shapes (the fused-bounds kernel on bounds
      of real drift-updated carries, with group sizes that do and do not
@@ -59,7 +61,10 @@ Phases, each fatal on failure:
      bounded step at the default groups and at 64-centroid groups with
      nothing skipped and on the cluster-ordered run's last step, in turns
      (each time the mean of two turns in opposite orders), the fused
-     step's time over the pair's; the assignment at predict's chunk;
+     step's time over the pair's; the bf16 update on the rows sorted by
+     the pallas fit's labels (bit for bit its f32 launch on the upcast
+     X) beside the unsorted rows and index_add_ of the upcast X, in the
+     same turns; the assignment at predict's chunk;
      beside their bound, plain and library times; the dense oracle's
      one-hot stats against index_add_, and its step.  A distance kernel's bound is the lower of its FP32-core bound
      and its split-TF32 bound (three TF32 products per f32 product on the
@@ -278,7 +283,10 @@ Phases, each fatal on failure:
      + argmin (f32 on the upcast operands for bf16), torch.mm with f32
      output on the bf16 operands with the epilogue and argmin, and
      index_add_ in the same turns, the assignment and the fused step at
-     K = 1000 (f32 and bf16), the streamed sweep forced at d = 69 and 821
+     K = 1000 (f32 and bf16), the update on the label-sorted rows (bf16
+     bit for bit its f32 launch on the upcast X) and the bf16 update on
+     the labels the bf16 fused and bounded steps give there, whose share
+     of those steps it prints, the streamed sweep forced at d = 69 and 821
      beside the resident one, beside plain versions and the bounds, and
      the streamed sweep's ptxas registers and spills.  Min distances are
      held within 1e-5 of max(|x|^2, 1) on f32 rows and of |x|^2 + max
@@ -3972,6 +3980,21 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                                    gs=gs16)[6][0])
     print(f"  (d) the bounded step on the label-sorted rows from carried "
           f"bounds (gs {gs16}): skipped share {skip_car!r}", flush=True)
+    # the segment sum alone on the label-sorted rows: on the fit's labels
+    # (sorted), and on the labels the bf16 fused and bounded steps give
+    # there, whose share of those steps it is; the bf16 launch on the
+    # sorted labels against its f32 launch on the upcast X, bit for bit
+    lab_s = lab_fin[torch.argsort(lab_fin, stable=True)].contiguous()
+    lab_fs = F.fused_lloyd(table_sb, c_carb)[0]
+    lab_bs = F.fused_lloyd(table_sb, c_carb, bounds=bnd_car, gs=gs16)[0]
+    up_sb = table_sb.float()
+    eq_ws = all(torch.equal(a, b) for a, b in zip(
+        U.update(table_sb, lab_s, k), U.update(up_sb, lab_s, k)))
+    del up_sb
+    print(f"  (d) the bf16 update on the label-sorted rows: bit-equal to its "
+          f"f32 launch on the upcast X {eq_ws}", flush=True)
+    check(eq_ws, "the wide bf16 update on label-sorted rows is not its f32 "
+          "launch on the upcast X")
     has_mm = mm_argmin(torch, table_b[:128], c_fin_b, c_sq_b) is not None
     sums_buf = torch.zeros(k, d, device=dev)
     lab_l = lab_fin.long()
@@ -4036,6 +4059,12 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
             table_sb, c_carb, bounds=bnd_car, gs=gs16),
         "fused_lloyd sorted": lambda i: F.fused_lloyd(table_s, c_car),
         "fused_lloyd_bf16 sorted": lambda i: F.fused_lloyd(table_sb, c_carb),
+        "update sorted": lambda i: U.update(table_s, lab_s, k),
+        "update_bf16 sorted": lambda i: U.update(table_sb, lab_s, k),
+        "update_bf16 sorted, the fused step's labels": lambda i: U.update(
+            table_sb, lab_fs, k),
+        "update_bf16 sorted, the bounded step's labels": lambda i: U.update(
+            table_sb, lab_bs, k),
         "addmm + argmin K=1000": lambda i: nearest(table, c1000, c1000_sq),
         "assignment d=69 resident": lambda i: A.assignment(x69, c69),
         "assignment d=69 streamed": lambda i: A.assignment(x69, c69,
@@ -4122,6 +4151,17 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                 u_ms, u_by = bound_ms(nb * n * d + 4 * n + 4 * (k * d + k),
                                       n * d + n)
                 row["bounds"] = (u_ms, u_by, u_ms)
+                # the label-sorted rows; in bf16 also the segment sum's
+                # share of the fused and bounded steps on those rows
+                row["sorted_ms"] = turn_ms[f"{name} sorted"]
+                if tag:
+                    row["sorted_shares"] = {
+                        what: turn_ms[f"{name} sorted, the {what} step's "
+                                      f"labels"]
+                        / turn_ms[f"{step_name} sorted"]
+                        for what, step_name in (
+                            ("fused", "fused_lloyd_bf16"),
+                            ("bounded", "fused_bounds_bf16"))}
             else:
                 row["plain_ms"] = event_ms(
                     torch, lambda i: F.fused_bounds_plain(
@@ -4200,6 +4240,12 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
                      f" step on those rows "
                      f"{row['sorted_carried']['fused_ms']!r} ms"
                      if "sorted_carried" in row else "")
+                  + (f"; on the label-sorted rows {row['sorted_ms']!r} ms "
+                     f"({row['sorted_ms'] / row['ms']!r}x)"
+                     if "sorted_ms" in row else "")
+                  + (f", its share of the bf16 steps on those rows: "
+                     f"{row['sorted_shares']}"
+                     if "sorted_shares" in row else "")
                   + (f"; {row['ms'] / turn_ms['fused_lloyd' + tag]!r}x the "
                      f"fused step in the same turns (subspaces "
                      f"{row['subspace_ms'] / row['fused_subspace_ms']!r}x, "
@@ -4245,7 +4291,7 @@ def phase18(torch, dev, x_main, zero_counts, read_counts, path_launches,
           f"a step at K = {k}, {-(-k4 // 256)} at K = {k4}; phase 18 took "
           f"{time.perf_counter() - t_phase!r} s", flush=True)
     del table, table_b, blocks, blocks_b, fin, x821, c1000
-    del table_s, table_sb
+    del table_s, table_sb, lab_s, lab_fs, lab_bs
     return wide, errs
 
 
@@ -4579,8 +4625,20 @@ def run():
           "the libraries and sweep_fp32.cuh disagree on the row tile")
     lib_u = U._bind(build.load("update"))
     spec_main = DATASETS[MAIN_N_NAME]
+    main_shape = (spec_main.n, 1, MAIN_K, spec_main.d)
     print(f"  update layout at the main shape: "
-          f"{U.layout(lib_u, spec_main.n, 1, MAIN_K, spec_main.d)}")
+          f"{U.layout(lib_u, *main_shape)}; on a bf16 X: "
+          f"{U.layout(lib_u, *main_shape, torch.bfloat16)}")
+    # the bf16 segment sum (csrc/segment_sum_bf16.cuh) in each library
+    # that holds it: no spill, no stack
+    for kname in ("update", "fused_lloyd", "fused_bounds"):
+        rep = ptxas_report(build.library_path(kname), "sum16")
+        print(f"  ptxas, the bf16 segment sum in {kname}: {rep}")
+        check(len(rep) == 1 and all(
+            v.get("spill_stores", 0) + v.get("spill_loads", 0)
+            + v.get("stack", 0) == 0 for v in rep.values()),
+              f"the bf16 segment sum in {kname} spills or keeps a stack "
+              f"frame, or ptxas reported nothing")
     sys.stdout.flush()
 
     print("phase 3: kernels against their plain versions")
@@ -5245,11 +5303,29 @@ def run():
 
     cbf = c_bf.float()
     c_sq_b = torch.sum(cbf * cbf, dim=-1)
+    # the bf16 update (csrc/segment_sum_bf16.cuh) also on the rows sorted
+    # by the pallas fit's labels, where each 32-row group holds one or two
+    # labels, beside index_add_ of the upcast X; first the sorted launch
+    # against its f32 launch on the upcast X, bit for bit
+    order_p = torch.argsort(lab_p, stable=True)
+    x_bf_s, lab_ps = x_bf[order_p].contiguous(), lab_p[order_p].contiguous()
+    del order_p
+    eq_sorted = all(torch.equal(a, b) for a, b in zip(
+        U.update(x_bf_s, lab_ps, k), U.update(x_bf_s.float(), lab_ps, k)))
+    print(f"  the bf16 update on the label-sorted rows: bit-equal to its f32 "
+          f"launch on the upcast X {eq_sorted}")
+    check(eq_sorted, "the bf16 update on label-sorted rows is not its f32 "
+          "launch on the upcast X")
+    sums_b16 = torch.zeros(k, d, device=dev)
     turned.update({
         "fused_lloyd bf16": lambda i: F.fused_lloyd(x_bf, c_bf),
         "assignment bf16, all rows": lambda i: A.assignment(x_bf, cb_p),
         "assignment bf16, chunk": lambda i: A.assignment(chunk_b(i), c_bf),
         "update bf16": lambda i: U.update(x_bf, lab_p, k),
+        "update bf16, label-sorted rows": lambda i: U.update(x_bf_s, lab_ps,
+                                                             k),
+        "index_add_ bf16 (upcast X)": lambda i: sums_b16.index_add_(
+            0, lab_p, x_bf.float()),
         "fused_bounds bf16, default groups, skip 0": lambda i: F.fused_lloyd(
             x_bf, cb_p, bounds=bnds_b, gs=gs_main),
         "fused_bounds bf16, the cluster-ordered run's last step":
@@ -5462,10 +5538,14 @@ def run():
         ms=turn_ms["update bf16"],
         plain_ms=event_ms(torch, lambda i: U.update_plain(x_bf, lab_p, k), 3,
                           warmup=1),
-        library_ms=event_ms(torch, lambda i: sums_buf.index_add_(
-            0, lab_p, x_bf.float()), 10))
+        library_ms=turn_ms["index_add_ bf16 (upcast X)"],
+        sorted_ms=turn_ms["update bf16, label-sorted rows"])
     u_ms, u_by = bound_ms(2 * n * d + 4 * n + 4 * (k * d + k), n * d + n)
     bf["update"]["bounds"] = (u_ms, u_by, u_ms)
+    print(f"  update bf16 on the label-sorted rows {bf['update']['sorted_ms']!r}"
+          f" ms, {bf['update']['sorted_ms'] / bf['update']['ms']!r}x the "
+          f"unsorted rows' in the same turns")
+    del x_bf_s, lab_ps, sums_b16
     def bf16_bounded_bound(g_, skip_):
         """The bf16 bounded step's bounds on the tensor cores: its computed
         share's products and epilogue (TC_BOUNDED_INSTR a (row,
@@ -5611,6 +5691,11 @@ def run():
                 "cross_error": tc["cross_error"], "hgmma": tc["hgmma"]}
         if "upcast_library_ms" in row:
             entry["upcast_library_ms"] = row["upcast_library_ms"]
+        if kn == "update":
+            # its own kernel on a bf16 X, launched through update.cu
+            entry["source"] = \
+                "src/repro_torch/kernels/csrc/segment_sum_bf16.cuh"
+            entry["sorted_ms"] = row["sorted_ms"]
         if "all_rows" in row:
             a_ms, a_by, a_fp32 = row["all_rows"]["bounds"]
             entry["all_rows"] = {
@@ -5656,7 +5741,8 @@ def run():
             for extra in ("fused_ms", "skipped"):
                 if extra in row[key]:
                     entry["wide"][key][extra] = row[key][extra]
-        for key in ("forced_stream", "stream_ptxas", "tc_ptxas"):
+        for key in ("forced_stream", "stream_ptxas", "tc_ptxas",
+                    "sorted_ms", "sorted_shares"):
             if key in row:
                 entry["wide"][key] = row[key]
     print(json.dumps({"kernels": kernels}))

@@ -31,7 +31,8 @@
 // against X, the bounds and the group minima read or written once,
 // (N*d*b + 2*N*G*4 + 4*N*4) bytes with b = 4 or 2 (3.35 TB/s).  The FP32
 // design is the fused step's (fused_lloyd.cu: the
-// sweep, then the segment sum of segment_sum.cuh over the labels) with the
+// sweep, then the segment sum over the labels: segment_sum.cuh's, or
+// segment_sum_bf16.cuh's on a bf16 X) with the
 // C stages filled from the computed groups only: the 16-byte vectors of C
 // that hold a centroid of a computed group are listed a chunk of 64 ahead
 // of the sweep, and the sweep copies and multiplies those, so its work
@@ -63,7 +64,7 @@
 
 #include <type_traits>
 
-#include "segment_sum.cuh"
+#include "segment_sum_bf16.cuh"
 #include "sweep_bounded.cuh"
 #include "sweep_fp32.cuh"
 
@@ -229,15 +230,15 @@ extern "C" int fused_bounds_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_tiles = cdiv(n, f8::kRows);
   const float* wf = static_cast<const float*>(w);
-  const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
-                        lay[4], lay[5], lay[6], lay[7]};
+  const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3], lay[4],
+                        lay[5], lay[6], lay[7], lay[8]};
   return (int)with_operand_types(x, x_type, c, c_type, [&](auto xt, auto cp) {
     using TX = std::remove_cv_t<std::remove_pointer_t<decltype(xt)>>;
     using TC = std::remove_cv_t<std::remove_pointer_t<decltype(cp)>>;
     // the segment sum over the sweep's labels, then the energy and the
     // skipped cells (part_e: the energy's partials)
     auto stats = [&](float* part_e) {
-      cudaError_t e = launch_segment_sum(
+      cudaError_t e = launch_stats(
           s, xt, x_rstride, static_cast<const int*>(labels), wf, w_rstride,
           r, n, k, d, ul, static_cast<float*>(part), static_cast<float*>(sums),
           static_cast<float*>(counts));

@@ -28,9 +28,10 @@
 //      copied by TMA into a three-slot ring, X by plain loads where its
 //      rows are not 16-byte aligned), so any d runs (PERF.md has their
 //      times);
-//   2. the update kernel's segment sum (segment_sum.cuh) adds the stats
-//      of those labels, reading X a second time (a bf16 X converted to f32
-//      where it is loaded, so equal to the sum over the upcast X);
+//   2. the update kernel's segment sum adds the stats of those labels,
+//      reading X a second time: segment_sum.cuh's on a float32 X,
+//      segment_sum_bf16.cuh's on a bfloat16 one (which equals the first
+//      on the upcast X bit for bit);
 //   3. the energy sum(w * min distance) is summed over the rows in two
 //      stages (stats.cuh): in the sweep it cost registers the sweep spilled.
 // A one-pass kernel must keep each block's (K, d+1) partial stats in
@@ -42,7 +43,7 @@
 // order, the energy by fixed row ranges and trees (stats.cuh).  Same
 // inputs, same launch config -> bitwise the same outputs.
 
-#include "segment_sum.cuh"
+#include "segment_sum_bf16.cuh"
 #include "sweep_wide.cuh"
 
 using namespace repro;
@@ -54,9 +55,9 @@ extern "C" long long fused_lloyd_scratch_floats(int r, int k, int d) {
 }
 
 // Launches one step on `stream`: |c|^2 and C's transpose or packing, the
-// sweep, the segment sum with the layout `lay` (tiles.update_layout:
-// groups, width, warps, ranges, range_k, slabs, tiles_per_slab, smem) and
-// the energy.
+// sweep, the segment sum with the layout `lay` (tiles.update_layout, or
+// tiles.update_bf16_layout on a bf16 X: groups, width, warps, ranges,
+// range_k, slabs, tiles_per_slab, smem, stages) and the energy.
 // Pointers are device pointers; x_type / c_type are X's and C's type codes
 // (nearest.cuh: 0 float32, 1 bfloat16); w may be null (every weight 1).
 // x_rstride / w_rstride are the element offsets between problems (0 when
@@ -73,8 +74,8 @@ extern "C" int fused_lloyd_launch(
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* wf = static_cast<const float*>(w);
-  const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3],
-                        lay[4], lay[5], lay[6], lay[7]};
+  const UpdateLayout ul{lay[0], lay[1], lay[2], lay[3], lay[4],
+                        lay[5], lay[6], lay[7], lay[8]};
   return (int)with_operand_types(x, x_type, c, c_type, [&](auto xt, auto ct) {
     float* const part_e =
         static_cast<float*>(scratch) + f8::assign_scratch_floats(r, k, d);
@@ -83,7 +84,7 @@ extern "C" int fused_lloyd_launch(
         static_cast<float*>(scratch),
         static_cast<int*>(labels), static_cast<float*>(mind));
     if (err != cudaSuccess) return err;
-    err = launch_segment_sum(s, xt, x_rstride,
+    err = launch_stats(s, xt, x_rstride,
                              static_cast<const int*>(labels), wf, w_rstride,
                              r, n, k, d, ul, static_cast<float*>(part),
                              static_cast<float*>(sums),

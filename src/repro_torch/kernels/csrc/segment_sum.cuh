@@ -1,15 +1,11 @@
-// Weighted segment sum (the Update half of a Lloyd step) for Hopper: the
-// kernel of update.cu, shared with the fused kernels, which add the stats
-// of the labels their sweep has just written (fused_lloyd.cu).  The
-// design is update.cu's (see there); launch_segment_sum launches it and
-// the slab reduction with the layout of tiles.update_layout.
-//
-// X is float32 or bfloat16 in device memory.  A bf16 X is staged as it is
-// (a 16-byte vector holds 8 values, not 4) and each value converted to f32
-// as it is added, so the partials stay f32 and are added in the same order.
-// The layout depends on the shapes alone and the staging slots keep their
-// f32 size (a bf16 row takes at most as many vectors as an f32 one), so a
-// bf16 launch equals the f32 launch on the upcast X bit for bit.
+// Weighted segment sum (the Update half of a Lloyd step) for Hopper over a
+// float32 X: the kernel of update.cu, shared with the fused kernels, which
+// add the stats of the labels their sweep has just written (fused_lloyd.cu).
+// The design is update.cu's (see there); launch_segment_sum launches it
+// and the slab reduction with the layout of tiles.update_layout.  A
+// bfloat16 X takes segment_sum_bf16.cuh's kernel instead, which keeps
+// this kernel's slabs and order of additions, so it equals this kernel on
+// the upcast X bit for bit; launch_stats (there) picks by X's type.
 #pragma once
 
 #include "async_copy.cuh"
@@ -48,8 +44,8 @@ __host__ inline int update_smem(int width, int range_k) {
               6 * kUpdateRows);
 }
 
-// TX: X's element type (float or __nv_bfloat16); kVec of them make a
-// 16-byte vector.
+// TX: X's element type (float: a bfloat16 X takes segment_sum_bf16.cuh);
+// kVec of them make a 16-byte vector.
 template <typename TX>
 __global__ void __launch_bounds__(kUpdateWarps * 32, 1)
 update_slabs(const TX* __restrict__ x, int64_t x_rstride,
@@ -215,39 +211,41 @@ update_slabs(const TX* __restrict__ x, int64_t x_rstride,
 }
 
 
-// Layout of a launch, as tiles.update_layout gives it: column groups,
-// widest group, warps, cluster ranges, clusters per range, slabs, tiles
-// per slab, shared bytes per block.
+// Layout of a launch, as tiles.update_layout (float32 X) or
+// tiles.update_bf16_layout (bfloat16 X) gives it: column groups, widest
+// group, warps, cluster ranges, clusters per range, slabs, tiles per slab,
+// shared bytes per block, ring slots (read by the bf16 kernel alone).
 struct UpdateLayout {
-  int groups, width, warps, ranges, range_k, slabs, tiles_per_slab, smem;
+  int groups, width, warps, ranges, range_k, slabs, tiles_per_slab, smem,
+      stages;
 };
 
-// The segment sum of labels (R, N) over X (float32 or bfloat16, x_rstride
-// elements between problems) and weights (none, or per row with w_rstride
-// floats between problems) into part (R * slabs * K * (d+1) floats), then
-// sums (R, K, d) and counts (R, K) in slab order, on stream s.  Returns the
+// The segment sum of labels (R, N) over a float32 X (x_rstride elements
+// between problems) and weights (none, or per row with w_rstride floats
+// between problems) into part (R * slabs * K * (d+1) floats), then sums
+// (R, K, d) and counts (R, K) in slab order, on stream s.  Returns the
 // first CUDA error.
-template <typename TX>
 __host__ inline cudaError_t launch_segment_sum(
-    cudaStream_t s, const TX* x, int64_t x_rstride, const int* labels,
+    cudaStream_t s, const float* x, int64_t x_rstride, const int* labels,
     const float* w, int64_t w_rstride, int r, int n, int k, int d,
     const UpdateLayout& lay, float* part, float* sums, float* counts) {
   if (lay.smem != update_smem(lay.width, lay.range_k) ||
       lay.smem > kUpdateSmem || lay.warps < 1 || lay.warps > kUpdateWarps)
     return cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(x) % sizeof(TX) != 0)
+  if (reinterpret_cast<uintptr_t>(x) % sizeof(float) != 0)
     return cudaErrorMisalignedAddress;
-  cudaError_t err = set_smem(update_slabs<TX>, (size_t)lay.smem);
+  cudaError_t err = set_smem(update_slabs<float>, (size_t)lay.smem);
   if (err != cudaSuccess) return err;
   const int align =
-      (int)(reinterpret_cast<uintptr_t>(x) % 16 / sizeof(TX));
+      (int)(reinterpret_cast<uintptr_t>(x) % 16 / sizeof(float));
   const int64_t x_elems = x_rstride ? (int64_t)r * x_rstride : (int64_t)n * d;
   const UpdateGeom g{n, k, d, w_rstride, lay.groups, lay.width, lay.warps,
                      lay.ranges, lay.range_k, lay.slabs, lay.tiles_per_slab,
                      align, x_elems};
-  update_slabs<TX><<<dim3((unsigned)lay.slabs * lay.ranges * lay.groups, r),
-                 lay.warps * 32, lay.smem, s>>>(x, x_rstride, labels, w, g,
-                                                part);
+  update_slabs<float><<<dim3((unsigned)lay.slabs * lay.ranges * lay.groups,
+                             r),
+                        lay.warps * 32, lay.smem, s>>>(x, x_rstride, labels,
+                                                       w, g, part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_reduce_slabs(s, r, part, lay.slabs, k, d, sums, counts);

@@ -7,9 +7,11 @@
 // counts[r, k] = sum of their w_i.  A label outside [0, K) adds nothing
 // (the TPU wrapper gives its padding rows label -1).  Shapes: X (N, d)
 // shared by the R label sets or (R, N, d) one per set; labels (R, N)
-// int32; weights none or (N,) float32; X float32 or bfloat16 (each value
-// converted to f32 as it is added) -> sums (R, K, d), counts (R, K)
-// float32.
+// int32; weights none or (N,) float32; X float32 or bfloat16 -> sums
+// (R, K, d), counts (R, K) float32.  A bfloat16 X takes its own kernel,
+// segment_sum_bf16.cuh's (its layout tiles.update_bf16_layout), which
+// sums every cell in this kernel's order, so it equals the float32 launch
+// on the upcast X bit for bit.
 //
 // What bounds it on this card: bytes.  X, the labels and the weights are
 // read once, (N*d + 2N)*4 bytes: 0.7 GB, 0.21 ms at 3.35 TB/s at N = 2.46 M,
@@ -47,12 +49,16 @@
 //     memory, sized to stay inside the L2, and `reduce_slabs` (stats.cuh)
 //     sums the slabs in slab order.
 // The kernel is in segment_sum.cuh, which the fused kernels share: they
-// add the stats of the labels their sweep has just written with it.
+// add the stats of the labels their sweep has just written with it.  On a
+// bfloat16 X all three launch segment_sum_bf16.cuh's kernel instead
+// (launch_stats picks), which reads X at 2 bytes and sums long runs of
+// one label by columns.
 
-#include "segment_sum.cuh"
+#include "segment_sum_bf16.cuh"
 
 // Launches the two kernels on `stream` with the layout of
-// tiles.update_layout.  Pointers are device pointers; x_type is X's type
+// tiles.update_layout (float32 X) or tiles.update_bf16_layout (bfloat16 X;
+// `stages` its ring slots, unread for float32).  Pointers are device pointers; x_type is X's type
 // code (nearest.cuh: 0 float32, 1 bfloat16); w may be null (every weight
 // 1).  x_rstride is the element offset between problems (0 when X is
 // shared).  part (R*slabs*K*(d+1) floats) is scratch.  Returns the first
@@ -61,12 +67,13 @@ extern "C" int update_launch(const void* x, int x_type, long long x_rstride,
                              const void* labels, const void* w, int r, int n,
                              int k, int d, int groups, int width, int warps,
                              int ranges, int range_k, int slabs,
-                             int tiles_per_slab, int smem, void* part,
-                             void* sums, void* counts, void* stream) {
-  const UpdateLayout lay{groups, width, warps,          ranges,
-                         range_k, slabs, tiles_per_slab, smem};
+                             int tiles_per_slab, int smem, int stages,
+                             void* part, void* sums, void* counts,
+                             void* stream) {
+  const UpdateLayout lay{groups, width,          warps, ranges, range_k,
+                         slabs,  tiles_per_slab, smem,  stages};
   return (int)with_operand_types(x, x_type, nullptr, 0, [&](auto xt, auto) {
-    return launch_segment_sum(
+    return launch_stats(
         static_cast<cudaStream_t>(stream), xt, x_rstride,
         static_cast<const int*>(labels), static_cast<const float*>(w), 0, r,
         n, k, d, lay, static_cast<float*>(part), static_cast<float*>(sums),

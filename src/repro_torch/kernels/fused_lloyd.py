@@ -64,13 +64,15 @@ def fused_lloyd_plain(x: torch.Tensor, c: torch.Tensor,
     return stacked if batched else tuple(o[0] for o in stacked)
 
 
-def _stats_layout(lib: ctypes.CDLL, n: int, r: int, k: int, d: int):
-    """The segment sum's layout (tiles.update_layout, with the geometry
-    the library reports) and the same as the int array the launch takes."""
-    lay = update.layout(lib, n, r, k, d)
-    arr = (ctypes.c_int * 8)(lay.groups, lay.width, lay.warps, lay.ranges,
+def _stats_layout(lib: ctypes.CDLL, n: int, r: int, k: int, d: int,
+                  dtype: torch.dtype):
+    """The segment sum's layout for X of ``dtype`` (``update.layout``: the
+    bf16 segment sum's on bfloat16, with the geometry the library reports)
+    and the same as the int array the launch takes."""
+    lay = update.layout(lib, n, r, k, d, dtype)
+    arr = (ctypes.c_int * 9)(lay.groups, lay.width, lay.warps, lay.ranges,
                              lay.range_k, lay.slabs, lay.tiles_per_slab,
-                             lay.smem_bytes)
+                             lay.smem_bytes, lay.stages)
     return lay, arr
 
 
@@ -89,8 +91,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.fused_lloyd_tile_rows.restype = ctypes.c_int
         lib.fused_lloyd_scratch_floats.argtypes = [ctypes.c_int] * 3
         lib.fused_lloyd_scratch_floats.restype = ctypes.c_longlong
-        lib.update_geometry.argtypes = [p]
-        lib.update_geometry.restype = None
+        update.bind_geometry(lib)
     return lib
 
 
@@ -143,7 +144,7 @@ def fused_lloyd(x: torch.Tensor, c: torch.Tensor,
         x.dtype, c.dtype, d, lib.fused_lloyd_max_features(x.device.index),
         _stream)
     w = tiles.kernel_weights(w)
-    lay, lay_arr = _stats_layout(lib, n, r, k, d)
+    lay, lay_arr = _stats_layout(lib, n, r, k, d, x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
     labels = torch.empty((r, n), dtype=torch.int32, device=x.device)
     mind = torch.empty((r, n), **f32)
@@ -233,8 +234,7 @@ def _bind_bounds(lib: ctypes.CDLL) -> ctypes.CDLL:
         lib.fused_bounds_tile_rows.restype = ctypes.c_int
         lib.fused_bounds_scratch_floats.argtypes = [ctypes.c_int] * 3
         lib.fused_bounds_scratch_floats.restype = ctypes.c_longlong
-        lib.update_geometry.argtypes = [p]
-        lib.update_geometry.restype = None
+        update.bind_geometry(lib)
     return lib
 
 
@@ -257,7 +257,7 @@ def _fused_bounds(x, c, w, bounds, gs, force_stream):
         lib.fused_bounds_max_features(x.device.index, g), force_stream)
     tile_rows = lib.fused_bounds_tile_rows()
     w = tiles.kernel_weights(w)
-    lay, lay_arr = _stats_layout(lib, n, r, k, d)
+    lay, lay_arr = _stats_layout(lib, n, r, k, d, x.dtype)
     n_tiles = tiles.cdiv(n, tile_rows)
     f32 = dict(dtype=torch.float32, device=x.device)
     labels = torch.empty((r, n), dtype=torch.int32, device=x.device)

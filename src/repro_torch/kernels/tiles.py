@@ -23,6 +23,7 @@ assignment) and streams X in feature slabs past it (``sweep_route``,
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Optional
 
@@ -39,8 +40,10 @@ def cdiv(a: int, b: int) -> int:
 
 @dataclass(frozen=True)
 class UpdateLayout:
-    """Launch layout of the update kernel (csrc/update.cu, whose segment
-    sum csrc/segment_sum.cuh shares with the fused kernels).
+    """Launch layout of the segment sum: on a float32 X the update kernel
+    (csrc/update.cu, whose segment sum csrc/segment_sum.cuh shares with
+    the fused kernels; ``update_layout``), on a bfloat16 X its own kernel
+    (csrc/segment_sum_bf16.cuh; ``update_bf16_layout``).
 
     Block (slab, range, group, r) owns the row tiles of one slab, the
     clusters [q * range_k, min((q + 1) * range_k, K)) of range q and the
@@ -79,6 +82,7 @@ def update_smem_bytes(tile_rows: int, stages: int, width: int,
                 + 6 * tile_rows)
 
 
+@functools.lru_cache(maxsize=256)
 def update_layout(n: int, r: int, k: int, d: int, tile_rows: int,
                   stages: int, max_warps: int,
                   smem_budget: int) -> UpdateLayout:
@@ -117,6 +121,95 @@ def update_layout(n: int, r: int, k: int, d: int, tile_rows: int,
     return UpdateLayout(tile_rows, stages, groups, width, warps, ranges,
                         range_k, cdiv(n_tiles, per), per,
                         update_smem_bytes(tile_rows, stages, width, range_k))
+
+
+def update_bf16_staged_pitch(width: int) -> int:
+    """Bytes of one staged bf16 X row of a ``width``-column group: the
+    16-byte vectors that cover it from any alignment, an odd number of
+    them (csrc/segment_sum_bf16.cuh ``staged_pitch``)."""
+    vec = cdiv(width + 7, 8)
+    return 16 * (vec + (vec % 2 == 0))
+
+
+def update_bf16_smem_bytes(tile_rows: int, stages: int, width: int,
+                           range_k: int) -> int:
+    """Shared bytes of one bf16 segment-sum block: ``stages`` slots of a
+    staged (tile_rows, update_bf16_staged_pitch(width)) X tile (and 48
+    bytes a 32-row group, which shift its 8-row blocks apart in the banks)
+    with its labels and weights, two tiles' ordered positions (three words
+    a row) and longest runs (a word a 32-row group), and the (range_k,
+    width | 1) f32 partial; csrc/segment_sum_bf16.cuh ``smem_bytes``."""
+    groups = tile_rows // 32
+    tile = tile_rows * update_bf16_staged_pitch(width) + 48 * groups
+    return (stages * (tile + 8 * tile_rows) + 2 * tile_rows * 12
+            + 2 * groups * 4 + 4 * range_k * (width | 1))
+
+
+def _widest(cols: int, fits) -> int:
+    """The largest w in [1, cols] with fits(w) (which holds up to some w and
+    not past it), 0 when none."""
+    lo, hi = 0, cols
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+@functools.lru_cache(maxsize=256)
+def update_bf16_layout(n: int, r: int, k: int, d: int, f32: UpdateLayout,
+                       tile_rows: int, min_stages: int, max_stages: int,
+                       max_warps: int, smem_budget: int,
+                       column_width: int) -> UpdateLayout:
+    """The bf16 segment sum's layout for X (N, d) bfloat16 and K clusters
+    over R label sets, with the slabs of ``f32``, the float32 layout of the
+    same shapes (``update_layout``): its bits are the float32 launch's, and
+    the slabs fix them.  ``tile_rows`` (f32.tile_rows), ``min_stages``,
+    ``max_stages``, ``max_warps``, ``smem_budget`` and ``column_width`` are
+    the library's (``update_bf16_geometry``).
+
+    Column groups hold all K clusters where a group of min(max_warps, d+1)
+    columns does (else cluster ranges split K, as in the float32 layout),
+    and are as many as the float32 slabs need to fill UPDATE_BLOCKS blocks
+    in one wave (fewer where the shared memory needs more), balanced to
+    within one column.  The ring then takes as many slots as fit, at most
+    ``max_stages``.  Groups of ``column_width`` columns or more sum every
+    tile by columns, one lane a column: their warps are those columns'
+    (at least 8, for the copies); narrower groups run a warp a column, up
+    to ``max_warps``.  Depends on the shapes only."""
+    if f32.tile_rows != tile_rows:
+        raise ValueError(f"the float32 layout's tiles are {f32.tile_rows} "
+                         f"rows, the bf16 kernel's {tile_rows}")
+    cols = d + 1
+    narrow = min(max_warps, cols)
+
+    def smem(width, range_k, stages=min_stages):
+        return update_bf16_smem_bytes(tile_rows, stages, width, range_k)
+
+    widest = _widest(cols, lambda w: smem(w, k) <= smem_budget)
+    if widest >= narrow:
+        wave = max(1, UPDATE_BLOCKS // (f32.slabs * r))
+        groups = max(cdiv(cols, widest), min(wave, cols))
+        width = cdiv(cols, groups)
+        ranges, range_k = 1, k
+    else:
+        groups = cdiv(cols, narrow)
+        width = cdiv(cols, groups)
+        room = smem_budget - smem(width, 0)
+        ranges = cdiv(k, room // (4 * (width | 1)))
+        range_k = cdiv(k, ranges)
+    per_stage = smem(width, 0, 1) - smem(width, 0, 0)
+    stages = min(max_stages, min_stages
+                 + (smem_budget - smem(width, range_k)) // per_stage)
+    if width >= column_width:
+        warps = min(max_warps, max(8, cdiv(width, 32)))
+    else:
+        warps = min(max_warps, width)
+    return UpdateLayout(tile_rows, stages, groups, width, warps, ranges,
+                        range_k, f32.slabs, f32.tiles_per_slab,
+                        smem(width, range_k, stages))
 
 
 def pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:

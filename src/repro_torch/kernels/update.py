@@ -6,7 +6,9 @@ Counterpart of ``repro.kernels.update.update_pallas`` (the TPU kernel
 ``stats_fn`` of every kernel backend.  On a CUDA tensor ``update``
 launches the kernel or raises; on a CPU tensor it runs ``update_plain``.
 ``launches`` / ``plain_calls`` count each, ``bf16_launches`` the launches
-on a bf16 X (the kernel's bf16 variant).
+on a bf16 X, which run the bf16 segment sum (``csrc/segment_sum_bf16.cuh``,
+its layout ``tiles.update_bf16_layout``): it equals the float32 launch on
+the upcast X bit for bit.
 """
 
 from __future__ import annotations
@@ -70,22 +72,40 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, i, ctypes.c_longlong, p, p, i, i, i, i, i, i, i,
-                       i, i, i, i, i, p, p, p, p]
+                       i, i, i, i, i, i, p, p, p, p]
         fn.restype = ctypes.c_int
         lib.update_error_string.argtypes = [ctypes.c_int]
         lib.update_error_string.restype = ctypes.c_char_p
-        lib.update_geometry.argtypes = [p]
-        lib.update_geometry.restype = None
+        bind_geometry(lib)
     return lib
 
 
-def layout(lib: ctypes.CDLL, n: int, r: int, k: int,
-           d: int) -> tiles.UpdateLayout:
-    """The kernel's launch layout, with the geometry the library reports
-    (rows per tile, ring slots, most warps, shared bytes per block)."""
+def bind_geometry(lib: ctypes.CDLL) -> None:
+    """The argument types of the two layouts' geometry queries, which every
+    library holding the segment sum exports (a library built before the
+    bf16 segment sum has the first alone; ``layout`` then refuses bf16)."""
+    for name in ("update_geometry", "update_bf16_geometry"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [ctypes.c_void_p]
+            getattr(lib, name).restype = None
+
+
+def layout(lib: ctypes.CDLL, n: int, r: int, k: int, d: int,
+           dtype: torch.dtype = torch.float32) -> tiles.UpdateLayout:
+    """The segment sum's launch layout for X of ``dtype``, with the
+    geometry the library reports: ``tiles.update_layout`` (rows per tile,
+    ring slots, most warps, shared bytes per block) on float32,
+    ``tiles.update_bf16_layout`` on bfloat16 (with the float32 layout's
+    slabs; rows per tile, fewest and most ring slots, most warps, shared
+    bytes per block, the width that sums by columns)."""
     geom = (ctypes.c_int * 4)()
     lib.update_geometry(geom)
-    return tiles.update_layout(n, r, k, d, *geom)
+    lay = tiles.update_layout(n, r, k, d, *geom)
+    if dtype != torch.bfloat16:
+        return lay
+    geom16 = (ctypes.c_int * 6)()
+    lib.update_bf16_geometry(geom16)
+    return tiles.update_bf16_layout(n, r, k, d, lay, *geom16)
 
 
 def update(x: torch.Tensor, labels: torch.Tensor, k: int,
@@ -109,7 +129,7 @@ def update(x: torch.Tensor, labels: torch.Tensor, k: int,
     lib = _bind(build.load("update"))
     w = tiles.kernel_weights(w)
     tiles.check_cuda_operands(x, labels, w)
-    lay = layout(lib, n, r, k, d)
+    lay = layout(lib, n, r, k, d, x.dtype)
     f32 = dict(dtype=torch.float32, device=x.device)
     sums = torch.empty((r, k, d), **f32)
     counts = torch.empty((r, k), **f32)
@@ -121,7 +141,7 @@ def update(x: torch.Tensor, labels: torch.Tensor, k: int,
             labels.data_ptr(),
             None if w is None else w.data_ptr(), r, n, k, d, lay.groups,
             lay.width, lay.warps, lay.ranges, lay.range_k, lay.slabs,
-            lay.tiles_per_slab, lay.smem_bytes, part.data_ptr(),
+            lay.tiles_per_slab, lay.smem_bytes, lay.stages, part.data_ptr(),
             sums.data_ptr(), counts.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"update launch failed: CUDA error {rc} "

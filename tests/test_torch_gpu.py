@@ -1414,7 +1414,7 @@ def test_bf16_fused_and_assignment(cuda, n, d, k, r, x_batched, weights):
 def test_bf16_update(cuda, n, d, k, r, x_batched, weights):
     """A bf16 X's segment sum (labels -1 and K land nowhere) against the
     plain version and bit for bit against the f32 launch on the upcast X:
-    the layout follows N, K, d and R, not the element size."""
+    the bf16 kernel keeps the f32 layout's slabs and order of additions."""
     x, labels, w = _update_inputs(cuda, n, d, k, r, x_batched, weights)
     xb = x.bfloat16()
     launched = U.launches
@@ -2279,3 +2279,105 @@ def test_bounds_tc_per_problem_x(cuda, d):
                               bounds=tuple(t[i] for t in bnds), gs=gs)
         for j in (0, 1, 5):
             assert torch.equal(alone[j], got[j][i])
+
+
+# The bf16 segment sum (csrc/segment_sum_bf16.cuh) on its own kernel: (n,
+# d, k, r, x per problem, weights, labels).  Labels "random" lie in [-1, K]
+# (-1 and K land nowhere), "sorted" are random labels in [0, K) sorted, so
+# runs cross 32-row groups, 128-row tiles and the slabs (300,000 rows at
+# K = 1000 are 66 slabs of 36 tiles), "mixed" sorts labels in [-1, K] (the
+# runs of -1 and of K among them), "one" gives every row one label.
+SEGMENT_CASES = [
+    (300_000, 69, 1000, None, False, None, "sorted"),
+    (20_000, 69, 1000, None, False, "n", "random"),
+    (5_000, 69, 1, None, False, "n", "random"),
+    (20_000, 33, 50, None, False, None, "one"),
+    (10_000, 69, 40, None, False, "n", "mixed"),
+    (4_000, 69, 20_000, None, False, None, "random"),
+    (7_000, 1, 37, None, False, "n", "random"),
+    (7_000, 1, 37, None, False, None, "sorted"),
+    (3_000, 821, 300, None, False, None, "sorted"),
+    (3_000, 821, 300, None, False, "n", "random"),
+    (2_000, 4096, 256, None, False, "n", "random"),
+    (2_000, 4096, 256, None, False, None, "sorted"),
+    (2_001, 69, 45, 3, True, "n", "random"),
+    (2_001, 69, 45, 3, True, None, "sorted"),
+    (3_001, 20, 130, 3, False, None, "sorted"),
+    (3_001, 20, 130, 3, False, "n", "mixed"),
+]
+
+
+def _segment_labels(device, n, k, r, kind, seed):
+    rng = np.random.default_rng(seed)
+    shape = (r, n) if r else (n,)
+    if kind == "one":
+        labels = np.full(shape, k // 2)
+    else:
+        lo, hi = (0, k) if kind == "sorted" else (-1, k + 1)
+        labels = rng.integers(lo, hi, shape)
+        if kind in ("sorted", "mixed"):
+            labels = np.sort(labels, axis=-1)
+    return torch.from_numpy(labels.astype(np.int32)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,d,k,r,x_batched,weights,kind", SEGMENT_CASES)
+def test_bf16_segment_sum(cuda, n, d, k, r, x_batched, weights, kind):
+    """The bf16 update runs its own kernel (bf16_launches moves): bit for
+    bit the f32 launch on the upcast X, within the gates of the plain
+    version, a relaunch equal; on shared X also from a view whose first
+    row is not 16-byte aligned."""
+    x, _, w = _inputs(cuda, n, d, 1, r, x_batched, weights, seed=n + d)
+    if w is not None and w.dim() == 2:
+        w = w[0].contiguous()                  # the update takes (N,)
+    labels = _segment_labels(cuda, n, k, r, kind, seed=k + d)
+    xb = x.bfloat16()
+    launched = U.launches, U.bf16_launches
+    got = U.update(xb, labels, k, w)
+    assert (U.launches, U.bf16_launches) == (launched[0] + 1,
+                                             launched[1] + 1)
+    lay = U.layout(U._bind(build.load("update")), n, r or 1, k, d,
+                   torch.bfloat16)
+    assert lay == U.layout(U._bind(build.load("update")), n, r or 1, k, d,
+                           torch.bfloat16)
+    _assert_equal(got, U.update(xb.float(), labels, k, w))
+    _assert_equal(got, U.update(xb, labels, k, w))
+    want = U.update_plain(xb, labels, k, w)
+    np.testing.assert_allclose(got[0].cpu(), want[0].cpu(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got[1].cpu(), want[1].cpu(), rtol=1e-5,
+                               atol=1e-5)
+    if xb.dim() == 2:
+        view_w = None if w is None else w[1:]
+        view_l = labels[..., 1:].contiguous()
+        _assert_equal(U.update(xb[1:], view_l, k, view_w),
+                      U.update(xb[1:].float(), view_l, k, view_w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [69, 1024])
+@pytest.mark.parametrize("weights", [None, "n"])
+def test_bf16_steps_stats_on_sorted_rows(cuda, d, weights):
+    """Rows sorted by their component (runs of one label across groups,
+    tiles and slabs): the stats of the bf16 fused step (tensor cores), of
+    the mixed fused step (bf16 X, f32 C) and of the bounded step from
+    drifted bounds on bf16 X and C (tensor cores) and on bf16 X against
+    f32 C (the FP32 route) equal, bit for bit, the bf16 update of each
+    step's own labels."""
+    n, k = 40_000, 64
+    x, c, w = _mixture(cuda, n, d, k, None, False, weights, seed=d + 3)
+    x = x[torch.argsort(torch.cdist(x, c).argmin(dim=1), stable=True)]
+    xb = x.contiguous().bfloat16()
+    c, gs, bnds = _drifted_bounds(xb.float(), c.bfloat16().float(), w, 8)
+    cb = c.bfloat16()
+    launched = U.bf16_launches, F.bounds_tc_launches
+
+    def stats_equal(out):
+        _assert_equal(out[2:4], U.update(xb, out[0], k, w))
+
+    stats_equal(F.fused_lloyd(xb, cb, w))
+    stats_equal(F.fused_lloyd(xb, c, w))
+    stats_equal(F.fused_lloyd(xb, cb, w, bounds=bnds, gs=gs))
+    stats_equal(F.fused_lloyd(xb, c, w, bounds=bnds, gs=gs))
+    assert (U.bf16_launches, F.bounds_tc_launches) == (launched[0] + 4,
+                                                       launched[1] + 1)

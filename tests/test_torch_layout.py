@@ -9,6 +9,14 @@ checked on the CPU (nothing here needs a card or the JAX package):
   on the shapes alone.  The geometry is read from csrc/segment_sum.cuh
   (the update kernel's, which the fused kernels share), as the
   built library reports it.
+* ``tiles.update_bf16_layout`` — the bf16 segment sum's blocks
+  (csrc/segment_sum_bf16.cuh, geometry read from there) cover every row,
+  output column and cluster once with the float32 layout's slabs (which
+  fix its bits), fit a block's shared memory with as many ring slots as
+  fit, depend on the shapes alone and fill one wave of 132 blocks at the
+  main path's shapes; and the order it sums a group in (each label's rows
+  as a run of positions, by columns or by rows) gives the float32
+  kernel's bits, emulated here in float32.
 * split TF32 — cross terms as three TF32 products,
   x_hi.c_hi + (x_hi.c_lo + x_lo.c_hi), with f32 sums.  Emulated here with
   round-to-nearest f32 sums on the USCensus1990 stand-in at K = 200, the
@@ -129,6 +137,201 @@ def test_update_layout_at_the_main_shape():
 def test_update_layout_rejects_empty_shapes():
     with pytest.raises(ValueError):
         tiles.update_layout(0, 1, 10, 4, *_geometry())
+
+
+def _geometry16():
+    """(tile_rows, min_stages, max_stages, max_warps, smem_budget,
+    column_width) of csrc/segment_sum_bf16.cuh."""
+    return tuple(build.constant("segment_sum_bf16.cuh", name) for name in (
+        "kRows", "kMinStages", "kMaxStages", "kWarps", "kSmem",
+        "kColumnWidth"))
+
+
+def _layouts(n, k, d, r):
+    f32 = tiles.update_layout(n, r, k, d, *_geometry())
+    return f32, tiles.update_bf16_layout(n, r, k, d, f32, *_geometry16())
+
+
+# SHAPES, the Llama embedding table's (128,256 x 4096) at K = 256 and 1000,
+# its four 1024-wide subspaces, and few rows at d = 4096
+BF16_SHAPES = SHAPES + [(128256, 256, 4096, 1), (128256, 1000, 4096, 1),
+                        (128256, 256, 1024, 4), (2000, 256, 4096, 1),
+                        (300, 1, 4096, 1), (40000, 64, 1024, 1)]
+
+
+@pytest.mark.parametrize("n,k,d,r", BF16_SHAPES)
+def test_bf16_layout_covers_everything_once(n, k, d, r):
+    f32, lay = _layouts(n, k, d, r)
+    tile_rows, _, _, max_warps, _, column_width = _geometry16()
+    # the slabs are the float32 layout's: the order of additions is its
+    assert (lay.tile_rows, lay.slabs, lay.tiles_per_slab) == \
+        (f32.tile_rows, f32.slabs, f32.tiles_per_slab) and \
+        tile_rows == f32.tile_rows
+    row_cover = np.zeros(n, np.int64)
+    for slab in range(lay.slabs):
+        r0, r1 = _rows(lay, n, slab)
+        assert (r0, r1) == _rows(f32, n, slab) and r1 > r0
+        row_cover[r0:r1] += 1
+    assert (row_cover == 1).all()
+    col_cover = np.zeros(d + 1, np.int64)
+    for g in range(lay.groups):
+        c0, c1 = _columns(lay, d, g)
+        assert 0 < c1 - c0 <= lay.width
+        col_cover[c0:c1] += 1
+    assert (col_cover == 1).all()
+    k_cover = np.zeros(k, np.int64)
+    for q in range(lay.ranges):
+        k0, k1 = _clusters(lay, k, q)
+        assert 0 < k1 - k0 <= lay.range_k
+        k_cover[k0:k1] += 1
+    assert (k_cover == 1).all()
+    # by columns every column has a lane of the block's warps; by rows
+    # (narrower groups) each warp a column at most
+    assert tiles.cdiv(lay.width, 32) <= lay.warps <= max_warps
+    if lay.width < column_width:
+        assert lay.warps <= lay.width
+
+
+@pytest.mark.parametrize("n,k,d,r", BF16_SHAPES)
+def test_bf16_layout_fits_shared_memory(n, k, d, r):
+    _, lay = _layouts(n, k, d, r)
+    tile_rows, min_stages, max_stages, max_warps, budget, _ = _geometry16()
+    assert budget <= SMEM_PER_BLOCK
+    assert lay.smem_bytes == tiles.update_bf16_smem_bytes(
+        tile_rows, lay.stages, lay.width, lay.range_k) <= budget
+    # as many ring slots as fit
+    assert min_stages <= lay.stages <= max_stages
+    assert lay.stages == max_stages or tiles.update_bf16_smem_bytes(
+        tile_rows, lay.stages + 1, lay.width, lay.range_k) > budget
+    # a staged row: an odd number of 16-byte vectors covering the group's
+    # columns from any alignment, its byte offsets in a position's 20 bits
+    pitch = tiles.update_bf16_staged_pitch(lay.width)
+    assert pitch % 32 == 16 and pitch >= 2 * (lay.width + 7)
+    assert tile_rows * pitch + 48 * tile_rows // 32 < 1 << 20
+    # cluster ranges only where all K clusters do not fit a narrow group
+    if lay.ranges > 1:
+        assert tiles.update_bf16_smem_bytes(
+            tile_rows, min_stages, min(max_warps, d + 1), k) > budget
+
+
+@pytest.mark.parametrize("n,k,d,r", BF16_SHAPES)
+def test_bf16_layout_depends_on_shapes_only(n, k, d, r):
+    f32, lay = _layouts(n, k, d, r)
+    assert lay == tiles.update_bf16_layout.__wrapped__(
+        n, r, k, d, f32, *_geometry16())
+
+
+@pytest.mark.parametrize("n,k,d,r,groups", [
+    (2458285, 1000, 69, 1, 2), (128256, 256, 4096, 1, 44),
+    (128256, 256, 1024, 4, 11)])
+def test_bf16_layout_fills_one_wave(n, k, d, r, groups):
+    """USCensus1990 at K = 1000, the Llama table at K = 256 and its four
+    subspaces: the float32 slabs times the bf16 column groups make the
+    132 blocks of one wave (the float32 layout runs 153 on the table)."""
+    _, lay = _layouts(n, k, d, r)
+    assert lay.groups == groups and lay.ranges == 1
+    assert lay.slabs * lay.groups * r == tiles.UPDATE_BLOCKS
+
+
+def _f32_order(v, labels, k):
+    """One column's slab partial as update_slabs forms it, in float32: for
+    each 32-row group, each label's leader (its first row) adds its peers
+    in row order, then adds the sum into the partial."""
+    part = np.zeros(k, np.float32)
+    for g0 in range(0, len(labels), 32):
+        lab, vv = labels[g0:g0 + 32], v[g0:g0 + 32]
+        for i, li in enumerate(lab):
+            if not 0 <= li < k or li in lab[:i]:
+                continue
+            s = vv[i]
+            for q in range(i + 1, len(lab)):
+                if lab[q] == li:
+                    s = np.float32(s + vv[q])
+            part[li] = np.float32(part[li] + s)
+    return part
+
+
+def _positions(lab, k):
+    """A 32-row group's positions as the kernel's ``order`` makes them:
+    the rows of a label as a run, the runs in order of their first rows
+    (__match_any_sync, then a scan over the leaders); rows outside [0, K)
+    share one run.  -> [(row, opens, closes, valid)] by position."""
+    key = [li if 0 <= li < k else -1 for li in lab]
+    peers = [[q for q in range(len(key)) if key[q] == key[i]]
+             for i in range(len(key))]
+    rank = [peers[i].index(i) for i in range(len(key))]
+    opened = [len(peers[i]) if rank[i] == 0 else 0 for i in range(len(key))]
+    upto = np.cumsum(opened)
+    out = [None] * len(key)
+    for i in range(len(key)):
+        leader = peers[i][0]
+        pos = int(upto[leader] - opened[leader]) + rank[i]
+        out[pos] = (i, rank[i] == 0, rank[i] == len(peers[i]) - 1,
+                    key[i] >= 0)
+    return out
+
+
+def _by_columns(v, labels, k):
+    """A lane's walk over each group's positions: a run in a register, its
+    total added into the partial where the run closes."""
+    part = np.zeros(k, np.float32)
+    for g0 in range(0, len(labels), 32):
+        run = np.float32(0)
+        for i, opens, closes, valid in _positions(labels[g0:g0 + 32], k):
+            run = v[g0 + i] if opens else np.float32(run + v[g0 + i])
+            if closes and valid:
+                li = labels[g0 + i]
+                part[li] = np.float32(part[li] + run)
+    return part
+
+
+def _by_rows(v, labels, k):
+    """Each run's opening lane adds the run's later values shuffled down
+    from the lanes that follow it, then updates the partial."""
+    part = np.zeros(k, np.float32)
+    for g0 in range(0, len(labels), 32):
+        pos = _positions(labels[g0:g0 + 32], k)
+        for p, (i, opens, _, valid) in enumerate(pos):
+            if not (opens and valid):
+                continue
+            s = v[g0 + i]
+            e = 1
+            while p + e < len(pos) and not pos[p + e][1]:
+                s = np.float32(s + v[g0 + pos[p + e][0]])
+                e += 1
+            li = labels[g0 + i]
+            part[li] = np.float32(part[li] + s)
+    return part
+
+
+@pytest.mark.parametrize("kind", ["random", "few", "sorted", "one",
+                                  "mixed", "ragged"])
+def test_bf16_order_is_the_f32_order(kind):
+    """Values spread over six decades, so the float32 sums depend on their
+    order: both ways of summing by positions give update_slabs' partial
+    bit for bit, labels outside [0, K) landing nowhere."""
+    rng = np.random.default_rng(7)
+    n, k = 32 * 12 + (5 if kind == "ragged" else 0), 9
+    v = (rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)).astype(
+        np.float32)
+    if kind == "one":
+        labels = np.full(n, 4)
+    elif kind == "few":
+        labels = rng.integers(0, 3, n)
+    else:
+        labels = rng.integers(-1, k + 1, n)
+        if kind in ("sorted", "mixed"):
+            labels = np.sort(np.clip(labels, 0, k - 1) if kind == "sorted"
+                             else labels)
+    want = _f32_order(v, labels, k)
+    assert np.array_equal(_by_columns(v, labels, k), want)
+    assert np.array_equal(_by_rows(v, labels, k), want)
+    # the order matters at these values: a plain sum in row order differs
+    plain = np.zeros(k, np.float32)
+    for li, vi in zip(labels, v):
+        if 0 <= li < k:
+            plain[li] = np.float32(plain[li] + vi)
+    assert kind == "one" or not np.array_equal(plain, want)
 
 
 def _tf32(v: torch.Tensor) -> torch.Tensor:
